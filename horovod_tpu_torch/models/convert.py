@@ -1,0 +1,122 @@
+"""flax param tree ⇄ `TransformerLM` state_dict.
+
+The input of `params_from_flax` is the JAX model's ``params`` tree as
+nested dicts of numpy arrays (``jax.device_get`` of it) — this module
+reads plain arrays and imports nothing of JAX. Leaf layouts on the flax
+side:
+
+* ``Block_i/qkv/kernel [d, H, 3D]`` — split PER HEAD along the last axis:
+  q, k, v = ``[..., :D]``, ``[..., D:2D]``, ``[..., 2D:]``;
+* ``Block_i/q_proj/kernel [d, H, D]``, ``Block_i/kv_proj/kernel
+  [d, H_kv, 2D]`` (k = ``[..., :D]``, v = ``[..., D:]``) under GQA;
+* ``Block_i/attn_out/kernel [H, D, d]``, ``mlp_up [d, 4d]``,
+  ``mlp_down [4d, d]``, ``lm_head/kernel [d, vocab]``,
+  ``Embed_0/embedding [vocab, d]``, ``LayerNorm_*/scale [d]``.
+
+The torch side keeps `nn.Linear`'s ``[out, in]`` weights. `params_to_flax`
+is the exact inverse (pure reshapes and transposes).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _heads_to_linear(kernel) -> np.ndarray:
+    """``[d, H, D]`` → ``[H*D, d]``."""
+    kernel = np.asarray(kernel)
+    return kernel.reshape(kernel.shape[0], -1).T
+
+
+def params_from_flax(tree) -> dict:
+    """flax ``params`` tree → `TransformerLM` state_dict (f32 tensors)."""
+    sd = {
+        "embed.weight": _t(tree["Embed_0"]["embedding"]),
+        "ln_f.scale": _t(tree["LayerNorm_0"]["scale"]),
+        "lm_head.weight": _t(np.asarray(tree["lm_head"]["kernel"]).T),
+    }
+    n_layers = sum(1 for k in tree if k.startswith("Block_"))
+    for i in range(n_layers):
+        blk = tree[f"Block_{i}"]
+        pre = f"blocks.{i}."
+        if "qkv" in blk:
+            qkv = np.asarray(blk["qkv"]["kernel"])
+            d = qkv.shape[-1] // 3
+            sd[pre + "qkv.weight"] = _t(np.concatenate([
+                _heads_to_linear(qkv[..., j * d:(j + 1) * d]) for j in range(3)
+            ]))
+        else:
+            kv = np.asarray(blk["kv_proj"]["kernel"])
+            d = kv.shape[-1] // 2
+            sd[pre + "q_proj.weight"] = _t(
+                _heads_to_linear(blk["q_proj"]["kernel"])
+            )
+            sd[pre + "kv_proj.weight"] = _t(np.concatenate(
+                [_heads_to_linear(kv[..., :d]), _heads_to_linear(kv[..., d:])]
+            ))
+        attn_out = np.asarray(blk["attn_out"]["kernel"])
+        sd[pre + "attn_out.weight"] = _t(
+            attn_out.reshape(-1, attn_out.shape[-1]).T
+        )
+        sd[pre + "ln_attn.scale"] = _t(blk["LayerNorm_0"]["scale"])
+        sd[pre + "ln_mlp.scale"] = _t(blk["LayerNorm_1"]["scale"])
+        sd[pre + "mlp_up.weight"] = _t(np.asarray(blk["mlp_up"]["kernel"]).T)
+        sd[pre + "mlp_down.weight"] = _t(
+            np.asarray(blk["mlp_down"]["kernel"]).T
+        )
+    return sd
+
+
+def _linear_to_heads(weight, n_heads: int) -> np.ndarray:
+    """``[H*D, d]`` → ``[d, H, D]``."""
+    w = weight.T
+    return w.reshape(w.shape[0], n_heads, -1)
+
+
+def params_to_flax(state_dict, *, n_heads: int) -> dict:
+    """`TransformerLM` state_dict → flax ``params`` tree of f32 numpy
+    arrays; the exact inverse of `params_from_flax`. ``n_heads`` is the
+    query head count (the state_dict's fused shapes do not carry it)."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    tree = {
+        "Embed_0": {"embedding": sd["embed.weight"]},
+        "LayerNorm_0": {"scale": sd["ln_f.scale"]},
+        "lm_head": {"kernel": np.ascontiguousarray(sd["lm_head.weight"].T)},
+    }
+    n_layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    d_model = sd["embed.weight"].shape[1]
+    head_dim = d_model // n_heads
+    for i in range(n_layers):
+        pre = f"blocks.{i}."
+        blk = {}
+        if pre + "qkv.weight" in sd:
+            q, k, v = np.split(sd[pre + "qkv.weight"], 3)
+            blk["qkv"] = {"kernel": np.ascontiguousarray(np.concatenate(
+                [_linear_to_heads(x, n_heads) for x in (q, k, v)], axis=-1
+            ))}
+        else:
+            kw, vw = np.split(sd[pre + "kv_proj.weight"], 2)
+            h_kv = kw.shape[0] // head_dim
+            blk["q_proj"] = {"kernel": np.ascontiguousarray(
+                _linear_to_heads(sd[pre + "q_proj.weight"], n_heads)
+            )}
+            blk["kv_proj"] = {"kernel": np.ascontiguousarray(np.concatenate(
+                [_linear_to_heads(kw, h_kv), _linear_to_heads(vw, h_kv)],
+                axis=-1,
+            ))}
+        blk["attn_out"] = {"kernel": np.ascontiguousarray(
+            sd[pre + "attn_out.weight"].T.reshape(n_heads, head_dim, d_model)
+        )}
+        blk["LayerNorm_0"] = {"scale": sd[pre + "ln_attn.scale"]}
+        blk["LayerNorm_1"] = {"scale": sd[pre + "ln_mlp.scale"]}
+        blk["mlp_up"] = {"kernel": np.ascontiguousarray(sd[pre + "mlp_up.weight"].T)}
+        blk["mlp_down"] = {
+            "kernel": np.ascontiguousarray(sd[pre + "mlp_down.weight"].T)
+        }
+        tree[f"Block_{i}"] = blk
+    return tree

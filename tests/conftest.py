@@ -65,6 +65,9 @@ from horovod_tpu.testing import cachecheck  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running end-to-end tests")
     config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)"
+    )
+    config.addinivalue_line(
         "markers", "ci_job: full CI-gated convergence runs (several minutes)"
     )
     # Guard 1 for the twice-documented poisoned-cache failure mode (the

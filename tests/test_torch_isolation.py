@@ -1,0 +1,137 @@
+"""The port stands alone: no JAX, no flax, nothing of `horovod_tpu`.
+
+`horovod_tpu_torch` and `chip_smoke.py` must run on a machine that has no
+JAX at all, so an AST scan refuses any such import (static or through
+``importlib``), and a fresh interpreter importing every port module must
+not have loaded ``jax``. Entry points default to the card and refuse to
+carry on silently on the CPU; ``chip_smoke.py`` prints no result without
+CUDA or without the package beside it.
+"""
+
+import ast
+import importlib
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import horovod_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "horovod_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            horovod_tpu_torch.__path__, "horovod_tpu_torch."
+        )
+    )
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0 and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and node.args:
+            arg = node.args[0]
+            if (isinstance(arg, ast.Constant) and isinstance(arg.value, str)
+                    and getattr(node.func, "attr", getattr(node.func, "id", ""))
+                    in ("import_module", "__import__")
+                    and _forbidden(arg.value)):
+                bad.append(arg.value)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr
+
+
+def test_every_module_imports_here():
+    for m in _modules():
+        importlib.import_module(m)
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the no-card refusal is not testable")
+
+
+def test_entry_points_default_to_cuda_and_refuse_cpu_fallback(no_cuda,
+                                                               tmp_path):
+    from horovod_tpu_torch.launch.serve import make_server
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.serving import export_generate, load_generate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerLM(vocab_size=16, d_model=8, n_heads=2, n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horovod_tpu_torch.resolve_device("cuda")
+    m = TransformerLM(vocab_size=16, d_model=8, n_heads=2, n_layers=1,
+                      device="cpu")
+    d = export_generate(str(tmp_path), m, batch_size=1, prompt_len=4,
+                        max_new_tokens=2, streaming_chunk=1, timestamp="t")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_generate(d)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_server(d)
+    assert horovod_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def _run_smoke(cwd):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=300,
+    )
+
+
+def test_chip_smoke_fails_without_cuda(no_cuda):
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run_smoke(str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
