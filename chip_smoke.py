@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (`horovod_tpu_torch`): the quickest
-proof that the port builds, is right and serves on one NVIDIA GPU.
+proof that the port builds, is right, serves and trains on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,22 +8,35 @@ Phases (any failed check exits non-zero before the result line):
 
 1. toolchain — the card's name and power limit (``nvidia-smi``), torch,
    CUDA, ``nvcc`` versions and whether Triton imports;
-2. build — every CUDA kernel of the serving path from
+2. build — every CUDA kernel of the serving and training paths from
    ``horovod_tpu_torch/ops/csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc``
    per source, all started together);
-3. kernels against their plain PyTorch versions on the card, in every mask
-   case, with the kernel's, the plain version's and the library call's
-   times at the serving shapes beside the card's bound;
-4. the main path — a `TransformerLM` at the bench LM's full width (vocab
-   8192, d_model 512, 8 heads, 8 layers, bf16 compute, seeded weights) is
-   exported as a streaming bundle (batch 8, prompt_len 128, 64 new tokens,
-   chunk 16, greedy) and served by ``make_server`` → continuous-batching
-   engine; 12 concurrent ragged requests (some streaming) must each get 64
-   tokens equal to the bundle run on that prompt alone, and the flash
-   launch count must equal n_layers × prefill dispatches;
-5. the main path against the plain path — one f32 prefill at 8 × 128 on
-   the card (kernel) and on the CPU (plain version), logits compared;
-6. the ``kernels`` JSON line, then the last line
+3. kernels against their plain PyTorch versions on the card: B1 (forward)
+   and B2/B3 (backward) in every mask case, GQA, head dims 40-256, f32 and
+   bf16, with an lse cotangent; B1's times at the serving shapes, and
+   B1/B2/B3's at the training shape, beside their plain versions', SDPA's
+   (a yardstick the port never calls) and the card's bound;
+4. serving main path — a `TransformerLM` at the bench LM's full width
+   (vocab 8192, d_model 512, 8 heads, 8 layers, bf16 compute, seeded
+   weights) is exported as a streaming bundle (batch 8, prompt_len 128, 64
+   new tokens, chunk 16, greedy) and served by ``make_server`` →
+   continuous-batching engine; 12 concurrent ragged requests (some
+   streaming) must each get 64 tokens equal to the bundle run on that
+   prompt alone, and the flash launch count must equal n_layers × prefill
+   dispatches;
+5. serving against the plain path — one f32 prefill at 8 × 128 on the card
+   (kernel) and on the CPU (plain version), logits compared;
+6. training main path — ``Trainer.fit`` of the same LM with the fused-CE
+   head (8 chunks) and ``DistributedOptimizer(adamw(scale_lr(3e-4)))`` for
+   30 steps of 8 × 1024 ``copy_task`` rows: every loss finite, the last
+   below the first, B1/B2/B3 each launched n_layers × steps times; a
+   ``train`` line (tokens/s, step ms, peak memory) and a ``breakdown_train``
+   line (one step under `torch.profiler`);
+7. training against the plain path — one f32 AdamW step at 2 × 256 on the
+   card (kernels) and on the CPU (plain versions): loss, gradients and
+   updated parameters compared; the card's step again with remat (B1
+   launched twice per layer, the same loss and gradients);
+8. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -58,6 +72,24 @@ TOL = {
     "bfloat16": {"o_atol": 2e-2, "o_rtol": 1e-2, "lse": 1e-3},
     "float32": {"o_atol": 1e-4, "o_rtol": 0.0, "lse": 1e-4},
 }
+# B2/B3 gradients against their plain versions: both sum the same f32
+# products in different orders, and bf16 outputs are rounded once at the
+# end, so a bf16 gradient may differ by one bf16 ulp (2^-8 of its value).
+# atol is a share of the tensor's largest magnitude (near-zero entries).
+GRAD_TOL = {
+    "bfloat16": {"rtol": 1e-2, "atol_of_max": 1e-3},
+    "float32": {"rtol": 0.0, "atol_of_max": 1e-5},
+}
+# The training shape of the bench LM's attention: [B, T, H, D].
+TRAIN_ATTN_SHAPE = (8, 1024, 8, 64)
+# Phase 6: the bench's training shape (bench.py: batch 8 × seq 1024).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 30
+# Phase 7: one f32 step, card vs CPU. cuBLAS and the CPU sum the same f32
+# products in other orders: loss to 1e-5 abs (of ~9.5), each gradient to
+# 2e-5 of its tensor's largest, each updated parameter to 1e-7 abs beyond
+# what that gradient difference can move Adam's step (see train_vs_plain).
+TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL = 1e-5, 2e-5, 1e-7
+ADAM_EPS = 1e-8  # adamw()'s eps: the update's sensitivity near g = 0
 # Phase 5: f32 logits of the whole 8-layer model, kernel vs plain path;
 # matmul summation orders differ between cuBLAS and the CPU.
 LOGITS_ATOL = 2e-3
@@ -120,7 +152,7 @@ def build_kernels():
     """One nvcc per kernel source, all started together."""
     from horovod_tpu_torch.ops import _build
 
-    names = ["flash_fwd"]
+    names = ["flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for name, fut in [(n, pool.submit(_build.library, n)) for n in names]:
@@ -136,13 +168,13 @@ def device_ms(torch, fn, iters=50):
     CUDA graph, replayed between CUDA events, so host launch overhead is
     not what is measured. Inputs stay warm in L2, as the model's prefill
     finds them right after its qkv projection."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
+        for _ in range(3):  # warm-up on the capture stream (autograd too)
+            fn()
+        torch.cuda.synchronize()
         with torch.cuda.graph(graph, stream=stream):
             for _ in range(iters):
                 fn()
@@ -161,24 +193,45 @@ def device_ms(torch, fn, iters=50):
     return best
 
 
+# Per kernel: (q-shaped tensors moved, kv-shaped tensors moved, f32 per-row
+# statistics moved, matrix products over the kept (row, col) pairs).
+# B1 reads q, k, v and writes O and lse: S = QKᵀ and O = PV. B2 reads q, dO,
+# k, v, lse, delta and writes dQ: S, dP = dO Vᵀ, dQ = dS K. B3 reads q, dO,
+# k, v, lse, delta and writes dK, dV: S, dP, dV = Pᵀ dO, dK = dSᵀ Q.
+WORK_OF = {"flash_fwd": (2, 2, 1, 2), "flash_bwd_dq": (3, 2, 2, 3),
+           "flash_bwd_dkv": (2, 4, 2, 4)}
+
+
 def attention_bound_ms(b, tq, tk, h, hkv, d, dtype_name, *, causal,
-                       q_offset=None):
-    """Least time for the same work on this card: the larger of (each input
-    read once + each output written once) over HBM bandwidth and the score
-    and P·V products the masks keep over the peak rate of the dtype."""
+                       q_offset=None, kernel="flash_fwd"):
+    """Least time for ``kernel``'s work on this card: the larger of (each
+    input read once + each output written once) over HBM bandwidth and the
+    products the masks keep over the peak rate of the dtype."""
+    n_q, n_kv, n_stat, n_prod = WORK_OF[kernel]
     item = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (b * tq * h * d * 2 + b * tk * hkv * d * 2) * item \
-        + b * tq * h * 4
+    nbytes = (n_q * b * tq * h * d + n_kv * b * tk * hkv * d) * item \
+        + n_stat * b * tq * h * 4
     if causal:
         off = tk - tq if q_offset is None else q_offset
         visible = sum(max(0, min(tk, r + off + 1)) for r in range(tq))
     else:
         visible = tq * tk
-    flops = 4.0 * b * h * d * visible
+    flops = 2.0 * n_prod * b * h * d * visible
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                    else "operations")
+
+
+def _segment_ids(torch, gen, b, tq):
+    """Packed documents with random boundaries ``(q_ids, kv_ids)``; q rows
+    of one extra id that no key carries are fully masked."""
+    cuts = torch.sort(torch.randint(
+        1, tq, (b, 6), generator=gen, device="cuda")).values
+    ids = (torch.arange(tq, device="cuda")[None, :, None]
+           >= cuts[:, None, :]).sum(-1).to(torch.int32)
+    return (torch.where(torch.arange(tq, device="cuda") >= tq - 16, 99, ids),
+            ids)
 
 
 def kernel_cases(torch):
@@ -195,6 +248,7 @@ def kernel_cases(torch):
     # (name, B, Tq, Tk, H, Hkv, D, dtype, kwargs, segments)
     cases = [
         ("serving_prefill", 8, 128, 128, 8, 8, 64, bf16, {}, False),
+        ("training_shape", 8, 1024, 1024, 8, 8, 64, bf16, {}, False),
         ("long_prompt", 1, 2048, 2048, 8, 8, 64, bf16, {}, False),
         ("window256_sinks4", 2, 1024, 1024, 8, 8, 64, bf16,
          {"window": 256, "sinks": 4}, False),
@@ -219,15 +273,8 @@ def kernel_cases(torch):
             k = rand(b, tk, hkv, d, dtype=dt)
             v = rand(b, tk, hkv, d, dtype=dt)
             if segs:
-                # Packed documents with random boundaries; q rows of one
-                # extra id that no key carries are fully masked.
-                cuts = torch.sort(torch.randint(
-                    1, tq, (b, 6), generator=gen, device="cuda")).values
-                ids = (torch.arange(tq, device="cuda")[None, :, None]
-                       >= cuts[:, None, :]).sum(-1).to(torch.int32)
-                kw["q_segment_ids"] = torch.where(
-                    torch.arange(tq, device="cuda") >= tq - 16, 99, ids)
-                kw["kv_segment_ids"] = ids
+                kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
+                    torch, gen, b, tq)
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
             torch.cuda.synchronize()
             ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
@@ -274,6 +321,153 @@ def kernel_cases(torch):
                 f"kernel_ms {ms:.5f} plain_ms {plain:.5f} library_ms "
                 f"(sdpa) {lib:.5f} bound_ms {bound:.5f} ({by})")
     return results, timings, worst
+
+
+def backward_cases(torch):
+    """B2 and B3 against their plain versions on the same inputs (q, k, v,
+    dO, the kernel forward's lse, delta = rowsum(dO·O) − dlse), in every
+    mask case of phase 3, GQA, D 40/64/128/256, f32 and bf16, with and
+    without an lse cotangent. Returns ({case: errors}, worst error)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, B, Tq, Tk, H, Hkv, D, dtype, kwargs, segments, lse cotangent)
+    cases = [
+        ("training_shape", 8, 1024, 1024, 8, 8, 64, bf16, {}, False, False),
+        ("window256_sinks4", 2, 1024, 1024, 8, 8, 64, bf16,
+         {"window": 256, "sinks": 4}, False, False),
+        ("packed_segments", 2, 512, 512, 8, 8, 64, bf16, {}, True, False),
+        ("cross_length_q_offset", 2, 200, 700, 8, 8, 64, bf16,
+         {"q_offset": 300}, False, False),
+        ("fully_masked_rows", 2, 256, 256, 8, 8, 64, bf16,
+         {"q_offset": -40}, False, False),
+        ("gqa_noncausal_d128", 2, 192, 320, 8, 2, 128, bf16,
+         {"causal": False}, False, False),
+        ("f32_window_lse_cotangent", 2, 384, 384, 8, 8, 64, f32,
+         {"window": 100}, False, True),
+        ("head_dim_256_gqa_sinks", 1, 100, 300, 4, 2, 256, bf16,
+         {"window": 64, "sinks": 3}, False, False),
+        ("head_dim_256_f32_lse_cotangent", 1, 96, 96, 2, 2, 256, f32, {},
+         False, True),
+        ("head_dim_40_f32", 2, 77, 77, 4, 4, 40, f32, {}, False, False),
+        ("head_dim_128_f32_gqa_lse_cotangent", 2, 130, 130, 8, 4, 128, f32,
+         {}, False, True),
+        ("bf16_segments_gqa_lse_cotangent", 2, 256, 256, 8, 2, 64, bf16, {},
+         True, True),
+    ]
+    results, worst = {}, 0.0
+    with torch.inference_mode():
+        for name, b, tq, tk, h, hkv, d, dt, kw, segs, with_dlse in cases:
+            kw = {"causal": True, **kw}
+            q = rand(b, tq, h, d, dtype=dt)
+            k = rand(b, tk, hkv, d, dtype=dt)
+            v = rand(b, tk, hkv, d, dtype=dt)
+            if segs:
+                kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
+                    torch, gen, b, tq)
+            out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+            dout = rand(b, tq, h, d, dtype=dt)
+            delta = (dout.float() * out.float()).sum(-1)
+            if with_dlse:
+                delta = delta - torch.randn(b, tq, h, generator=gen,
+                                            device="cuda")
+            dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+            torch.cuda.synchronize()
+            ref = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, **kw),
+                   *fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                               **kw))
+            tol = GRAD_TOL[str(dt).removeprefix("torch.")]
+            errs = {}
+            for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                        ref):
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{name}: {gname} {got.dtype} {tuple(got.shape)}")
+                check(torch.isfinite(got.float()).all(),
+                      f"{name}: non-finite {gname}")
+                w = want.float()
+                err = (got.float() - w).abs()
+                atol = tol["atol_of_max"] * float(w.abs().max())
+                check(bool((err <= atol + tol["rtol"] * w.abs()).all()),
+                      f"{name}: {gname} differs from the plain version (max "
+                      f"abs {float(err.max()):.3g}, atol {atol:.3g})")
+                errs[gname] = float(err.max())
+                errs[gname + "_max_abs"] = float(w.abs().max())
+            empty = lse <= -1e29
+            if bool(empty.any()):
+                check(bool((dq.float()[empty] == 0).all()),
+                      f"{name}: a fully masked row has a non-zero dq")
+            errs["empty_rows"] = int(empty.sum())
+            worst = max(worst, errs["dq"], errs["dk"], errs["dv"])
+            results[name] = errs
+            log(f"kernel flash_bwd {name}: dq err {errs['dq']:.3g} (max "
+                f"{errs['dq_max_abs']:.3g}), dk err {errs['dk']:.3g} (max "
+                f"{errs['dk_max_abs']:.3g}), dv err {errs['dv']:.3g} (max "
+                f"{errs['dv_max_abs']:.3g}), fully masked rows "
+                f"{errs['empty_rows']} — ok")
+    return results, worst
+
+
+def training_shape_timings(torch):
+    """B1, B2 and B3 at the training shape (B8·H8·T1024·D64 causal bf16):
+    kernel, plain version and the card's bound; SDPA's forward and
+    backward on the same shape as a yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = TRAIN_ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+    with torch.inference_mode():
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        delta = (dout.float() * out.float()).sum(-1)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_attention_with_lse(q, k, v),
+                      lambda: fa.flash_attention_reference(q, k, v)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta)),
+    }
+    out_t = {}
+    with torch.inference_mode():
+        for name, (kernel, plain) in calls.items():
+            bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
+                                           causal=True, kernel=name)
+            out_t[name] = {"ms": device_ms(torch, kernel, 20),
+                           "plain_ms": device_ms(torch, plain, 3),
+                           "bound_ms": bound, "bound_by": by}
+    # SDPA ([B,H,T,D]): forward alone, then forward + backward; the
+    # backward's time is their difference.
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    with torch.inference_mode():
+        sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 20)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), gh)
+
+    sdpa_bwd = device_ms(torch, fwd_bwd, 20) - sdpa_fwd
+    out_t["flash_fwd"]["library_ms"] = sdpa_fwd
+    out_t["flash_bwd_dq"]["library_ms"] = sdpa_bwd
+    out_t["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
+    for name, r in out_t.items():
+        log(f"time {name} B{b} T{t} H{h} D{d} causal bf16: kernel_ms "
+            f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} library_ms "
+            f"{r['library_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']})")
+    return out_t
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -409,6 +603,21 @@ def main_path(torch):
     return launches
 
 
+def device_kernels(torch, prof):
+    """The kernels a `torch.profiler` run saw on the card, and their device
+    ms summed by name. User annotations (``Optimizer.step#...`` ranges on
+    the device timeline) are spans over kernels, not kernels: left out so
+    that busy time is not counted twice."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    by_name = {}
+    for e in kernels:
+        name = e.name.replace("(anonymous namespace)::", "")
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return kernels, by_name
+
+
 def breakdown(torch, bundle):
     """Where a serving tick's time goes at the full batch (8 × 128): host
     wall time of the prefill forward alone, of ``start`` (prefill + first
@@ -449,12 +658,7 @@ def breakdown(torch, bundle):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+        kernels, by_name = device_kernels(torch, prof)
         busy_ms = sum(by_name.values())
         out[name] = {
             "wall_ms": wall_ms,
@@ -502,6 +706,205 @@ def main_vs_plain(torch):
     check(err <= LOGITS_ATOL, "card prefill logits differ from the plain path")
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def _draw(x, y, rng):
+    """bench.py's training feed: batches of random rows, with
+    replacement, from one seeded RandomState."""
+    while True:
+        idx = rng.randint(0, len(x), size=TRAIN_BATCH)
+        yield x[idx], y[idx]
+
+
+def train_path(torch):
+    """The training main path: `Trainer.fit` of the bench LM (bf16
+    compute, fused-CE head in 8 chunks, AdamW(scale_lr(3e-4)) with optax's
+    defaults) for TRAIN_STEPS steps of 8 × 1024 copy_task rows. Returns the
+    per-kernel launch counts of that run."""
+    import numpy as np
+
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw, scale_lr
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    x, y = copy_task(4096, TRAIN_SEQ, MODEL["vocab_size"])
+    feed = _draw(x, y, np.random.RandomState(0))
+    model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
+                          fused_head_chunks=8, device=DEVICE, seed=0)
+    trainer = Trainer(model, DistributedOptimizer(adamw(scale_lr(3e-4))),
+                      loss="module", seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1)
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_bwd_dq,
+                "flash_bwd_dkv": fa.launches_bwd_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in hist]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"loss did not fall: first {losses[0]:.4f}, last {losses[-1]:.4f}")
+    want = MODEL["n_layers"] * TRAIN_STEPS
+    for name, n in launches.items():
+        check(n == want, f"{name} launched {n} times in training, want "
+              f"n_layers × steps = {want}")
+    # Steps after the first two (cuBLAS/allocator warm-up); each step's
+    # host time ends with the fetch of its loss.
+    steady = sorted(e["epoch_time_s"] * 1e3 for e in hist[2:])
+    median = steady[len(steady) // 2]
+    train = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "wall_s": wall, "loss_first": losses[0], "loss_last": losses[-1],
+        "losses": losses,
+        "step_ms_median": median, "step_ms_min": steady[0],
+        "step_ms_max": steady[-1],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+        "peak_memory_gib": peak / 2**30, "launches": launches,
+    }
+    log("train", json.dumps(train))
+    log("breakdown_train", json.dumps(train_breakdown(torch, trainer, feed)))
+    return launches
+
+
+def train_breakdown(torch, trainer, feed):
+    """Where one training step's time goes: host wall ms, the device's
+    busy time and share, its kernel launches and top kernels by device
+    time, from `torch.profiler`. Measured after the main path's counts
+    were read; not a check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = next(feed)
+
+    def step():
+        trainer.train_step(x, y)["loss"].item()
+
+    step()
+    t = time.perf_counter()
+    step()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels, by_name = device_kernels(torch, prof)
+    busy_ms = sum(by_name.values())
+    flash_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
+                for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkv_kernel")}
+    return {
+        "wall_ms": wall_ms,
+        "kernel_launches": len(kernels),
+        "device_busy_ms": busy_ms if kernels else "not measured",
+        "device_busy_share": busy_ms / wall_ms if kernels
+        else "not measured",
+        "flash_kernels_ms": flash_ms,
+        "top_kernels_ms": [
+            [n[:80], ms] for n, ms in
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        ],
+    }
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+def train_vs_plain(torch):
+    """One f32 AdamW step of the full-width, full-depth bench LM at
+    2 × 256 on the card (the kernels) and on the CPU (the plain versions),
+    from the same seeded weights: loss, every gradient and every updated
+    parameter compared. The card also runs the step with remat, which must
+    launch B1 twice per layer (forward and recompute) and give the same
+    loss and gradients."""
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 matmuls
+    x, y = (a[:2] for a in copy_task(2, 256, MODEL["vocab_size"], seed=1))
+    lr = 3e-4
+    n = MODEL["n_layers"]
+    runs = {}
+    for dev, remat, want in ((DEVICE, False, (n, n, n)),
+                             (DEVICE, True, (2 * n, n, n)),
+                             ("cpu", False, (0, 0, 0))):
+        model = TransformerLM(**MODEL, compute_dtype=torch.float32,
+                              fused_head_chunks=8, remat=remat, device=dev,
+                              seed=0)
+        trainer = Trainer(model, DistributedOptimizer(adamw(lr)),
+                          loss="module", seed=0, device=dev)
+        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        loss = float(trainer.train_step(x, y)["loss"])
+        after = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        runs[dev, remat] = (loss, {n: (p.detach().cpu(), p.grad.cpu())
+                                   for n, p in model.named_parameters()})
+        got = tuple(b - a for a, b in zip(before, after))
+        check(got == want, f"a {dev} training step (remat={remat}) launched "
+              f"B1/B2/B3 {got} times, want {want}")
+    # Remat recomputes the same kernels on the same inputs: expected bit
+    # for bit, held to 1e-6 of each gradient's largest.
+    (lg, pg), (lr_, pr) = runs[DEVICE, False], runs[DEVICE, True]
+    remat_err = max(float((pr[k][1] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30)
+                    for k, (_, g) in pg.items())
+    check(abs(lr_ - lg) <= 1e-6 and remat_err <= 1e-6,
+          f"remat changed the card's loss ({lr_} vs {lg}) or gradients "
+          f"({remat_err:.3g} of max)")
+    runs[DEVICE] = runs[DEVICE, False]
+    runs["cpu"] = runs["cpu", False]
+    (lg, pg), (lc, pc) = runs[DEVICE], runs["cpu"]
+    check(math.isfinite(lg), "non-finite loss on the card")
+    loss_err = abs(lg - lc)
+    grad_err, param_err, n_amplified, n_total = 0.0, 0.0, 0, 0
+    for name, (p_cpu, g_cpu) in pc.items():
+        p_gpu, g_gpu = pg[name]
+        g_max = float(g_cpu.abs().max())
+        g_err = float((g_gpu - g_cpu).abs().max())
+        grad_err = max(grad_err, g_err / max(g_max, 1e-30))
+        check(g_err <= TRAIN_GRAD_REL * g_max,
+              f"{name}: gradient differs, card vs cpu ({g_err:.3g} of max "
+              f"{g_max:.3g})")
+        # Adam's first step is p·(1 − lr·wd) − lr·g/(|g| + eps). Both sides
+        # start from the same p, so the step differs by at most lr times
+        # the change of g/(|g| + eps) over |Δg| ≤ g_err: eps·g_err /
+        # (|g| − g_err + eps)², at most 2 — large only where |g| is near
+        # 0 — plus f32 rounding.
+        near = (g_cpu.abs() - g_err).clamp_min(0.0) + ADAM_EPS
+        bound = lr * torch.clamp(ADAM_EPS * g_err / near**2, max=2.0)
+        err = (p_gpu - p_cpu).abs()
+        check(bool((err <= bound + TRAIN_PARAM_ATOL).all()),
+              f"{name}: updated parameter differs, card vs cpu (max "
+              f"{float(err.max()):.3g})")
+        param_err = max(param_err, float(err.max()))
+        amplified = bound > TRAIN_PARAM_ATOL
+        n_amplified += int(amplified.sum())
+        n_total += err.numel()
+    check(loss_err <= TRAIN_LOSS_ATOL,
+          f"loss differs, card vs cpu: {lg} vs {lc}")
+    result = {"loss_card": lg, "loss_cpu": lc, "loss_abs_err": loss_err,
+              "remat_loss_abs_err": abs(lr_ - lg),
+              "remat_grad_max_err_of_max": remat_err,
+              "grad_max_err_of_max": grad_err,
+              "param_max_abs_err": param_err,
+              "params_with_adam_bound_above_atol": n_amplified,
+              "params": n_total}
+    log("train f32 step card (kernels) vs cpu (plain):", json.dumps(result))
+    return result
+
+
+KERNELS = {
+    "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "horovod_tpu/ops/flash_attention.py:149"),
+    "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "horovod_tpu/ops/flash_attention.py:233"),
+    "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "horovod_tpu/ops/flash_attention.py:300"),
+}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -520,31 +923,44 @@ def main() -> int:
         card = toolchain(torch)
         build_kernels()
         errs, timings, worst = kernel_cases(torch)
-        launches = main_path(torch)
+        bwd_errs, bwd_worst = backward_cases(torch)
+        train_timings = training_shape_timings(torch)
+        serve_launches = main_path(torch)
         main_vs_plain(torch)
+        train_launches = train_path(torch)
+        train_vs_plain(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    t = timings["serving_prefill"]
-    kernels = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "horovod_tpu/ops/flash_attention.py:149",
-        "launches": launches,
-        "max_abs_err": errs["serving_prefill"]["o_max_abs_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-        "shape": "B8 T128 H8 D64 causal bf16",
-        "long_prompt": timings["long_prompt"],
-        "max_abs_err_all_cases": worst,
-        "card": card,
-    }]}
+    b, t, h, d = TRAIN_ATTN_SHAPE
+    max_err = {
+        "flash_fwd": (errs["training_shape"]["o_max_abs_err"], worst),
+        "flash_bwd_dq": (bwd_errs["training_shape"]["dq"], bwd_worst),
+        "flash_bwd_dkv": (max(bwd_errs["training_shape"]["dk"],
+                              bwd_errs["training_shape"]["dv"]), bwd_worst),
+    }
+    lines = []
+    for name, (source, replaces) in KERNELS.items():
+        tt = train_timings[name]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": train_launches[name],
+            "max_abs_err": max_err[name][0],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+            "shape": f"B{b} T{t} H{h} D{d} causal bf16",
+            "max_abs_err_all_cases": max_err[name][1],
+            "card": card,
+        }
+        if name == "flash_fwd":
+            entry["launches_serve"] = serve_launches
+            entry["serving_prefill"] = timings["serving_prefill"]
+            entry["long_prompt"] = timings["long_prompt"]
+        lines.append(entry)
     log(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,13 +6,22 @@ tensor layouts follow the JAX package (attention tensors ``[B, T, H, D]``,
 the KV cache ``[B, L, H_kv, D]``, the decode state ``(cache, last_tok,
 rng, done)``) so each port module sits beside its reference.
 
-This slice serves the `TransformerLM` on one GPU: bundle → continuous
-batching engine → HTTP ``/v1/generate`` → prefill (the hand-written CUDA
-flash-attention forward, ``ops/csrc/flash_fwd.cu``) + decode loop. Every
-entry point takes ``device`` and defaults to ``"cuda"``; without CUDA it
-raises unless the caller asks for ``"cpu"``.
+It serves the `TransformerLM` on one GPU (bundle → continuous batching
+engine → HTTP ``/v1/generate`` → prefill + decode loop) and trains it
+(`Trainer` → forward with the fused chunked-CE head → backward →
+`DistributedOptimizer`). Attention runs the hand-written CUDA
+flash-attention kernels: the forward ``ops/csrc/flash_fwd.cu`` and the
+backward ``ops/csrc/flash_bwd.cu``. Every entry point takes ``device`` and
+defaults to ``"cuda"``; without CUDA it raises unless the caller asks for
+``"cpu"``.
 """
 
 from horovod_tpu_torch.runtime import env_flag, resolve_device
+from horovod_tpu_torch.training.optimizer import (
+    DistributedOptimizer, adamw, scale_lr,
+)
+from horovod_tpu_torch.training.train_state import TrainState
+from horovod_tpu_torch.training.trainer import Trainer
 
-__all__ = ["env_flag", "resolve_device"]
+__all__ = ["DistributedOptimizer", "TrainState", "Trainer", "adamw",
+           "env_flag", "resolve_device", "scale_lr"]

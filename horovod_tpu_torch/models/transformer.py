@@ -18,9 +18,19 @@ compute dtype and ``index`` a scalar or per-row ``[B]`` int32 tensor; the
 K/V tensors of a passed cache are written IN PLACE (the JAX version
 threads a new tree; here that would copy every layer's cache per token).
 
+Training mirrors ``apply(..., train=True, labels=...)``: ``labels`` returns
+``(per_token_loss, per_token_correct)`` through the fused chunked-CE head
+(`ops.fused_ce`, ``fused_head_chunks`` row chunks, 0 = one chunk);
+``segment_ids`` packs documents (RoPE positions restart per document,
+attention stays within it); ``remat`` recomputes each block in the backward
+(`torch.utils.checkpoint`). Dropout draws its masks from a seed the caller
+passes (``dropout_seed``, the trainer's per-step seed), never from torch's
+global RNG: each (seed, layer, site) seeds its own generator, so a remat
+recompute redraws the same mask.
+
 Not in this slice — each raises `NotImplementedError` naming its ROADMAP
-item: MoE blocks, int8 compute, the int8 / sliding KV caches, remat, the
-fused-CE head, segment-id packing and sequence/tensor parallelism.
+item: MoE blocks, int8 compute, the int8 / sliding KV caches and
+sequence/tensor parallelism.
 """
 
 from __future__ import annotations
@@ -30,10 +40,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.attention import _BIG_NEG
 from horovod_tpu_torch.ops.flash_attention import flash_attention
-from horovod_tpu_torch.runtime import resolve_device
+from horovod_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+from horovod_tpu_torch.runtime import derive_seed, resolve_device
 
 
 def _dtype(x) -> torch.dtype:
@@ -42,6 +54,31 @@ def _dtype(x) -> torch.dtype:
 
 def _dtype_name(x: torch.dtype) -> str:
     return str(x).removeprefix("torch.")
+
+
+def dropout(x, rate: float, seed: int):
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate
+    and scale it by 1 / (1 − rate). The mask comes from a generator seeded
+    with ``seed`` on x's device, so the same seed redraws the same mask."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def packed_positions(segment_ids):
+    """``[B, T]`` within-document positions for contiguous-run packing:
+    token i's position is its offset from the start of its run, so RoPE
+    treats each packed document as starting at 0."""
+    b, t = segment_ids.shape
+    ar = torch.arange(t, device=segment_ids.device)
+    changed = torch.ones((b, t), dtype=torch.bool, device=segment_ids.device)
+    changed[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    starts = torch.cummax(torch.where(changed, ar, 0), dim=1).values
+    return ar - starts
 
 
 def rope(x, positions, *, base: float = 10000.0):
@@ -131,25 +168,38 @@ class Block(nn.Module):
         k, v = self._dense(self.kv_proj, h).split(self.h_kv * hd, -1)
         return q, k.view(b, t, self.h_kv, hd), v.view(b, t, self.h_kv, hd)
 
-    def forward(self, x, positions, *, train: bool = False, cache=None,
+    def forward(self, x, positions, *, train: bool = False, segment_ids=None,
+                dropout_seed: int | None = None, cache=None,
                 decode_index=None, fresh: bool = False):
         """``cache`` (decode mode): this block's ``{"k", "v"}`` entry,
         written in place at ``decode_index``; ``fresh`` marks the prefill
-        that created it."""
+        that created it. ``dropout_seed`` (train mode with dropout > 0)
+        seeds this block's two dropout masks."""
         b, t, _ = x.shape
+        drop = train and self.dropout > 0.0
+        if drop and dropout_seed is None:
+            raise ValueError(
+                "train=True with dropout > 0 needs dropout_seed (the "
+                "trainer passes its per-step seed)"
+            )
         q, k, v = self._qkv(self.ln_attn(x))
         q, k = rope(q, positions), rope(k, positions)
         if cache is not None:
             out = self._decode_attention(q, k, v, cache, decode_index, fresh)
         else:
             out = flash_attention(
-                q, k, v, causal=True, window=self.window, sinks=self.sinks
+                q, k, v, causal=True, window=self.window, sinks=self.sinks,
+                q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             )
         out = self._dense(self.attn_out, out.reshape(b, t, -1))
-        x = x + F.dropout(out, self.dropout, training=train)
+        if drop:
+            out = dropout(out, self.dropout, derive_seed(dropout_seed, 0))
+        x = x + out
         h = self._dense(self.mlp_up, self.ln_mlp(x))
         h = self._dense(self.mlp_down, F.gelu(h, approximate="tanh"))
-        return x + F.dropout(h, self.dropout, training=train)
+        if drop:
+            h = dropout(h, self.dropout, derive_seed(dropout_seed, 1))
+        return x + h
 
     def _decode_attention(self, q, k, v, cache, idx, fresh):
         b, t, h, d = q.shape
@@ -225,6 +275,12 @@ class LMHead(nn.Module):
         cd = self.compute_dtype
         return F.linear(x.to(cd), self.weight.to(cd)).to(self.logits_dtype)
 
+    def fused_loss(self, x, labels, n_chunks: int):
+        """(per-token loss, per-token correct) without full logits."""
+        return fused_linear_cross_entropy(
+            x.to(self.compute_dtype), self.weight, labels, max(1, n_chunks)
+        )
+
 
 # Options of the JAX model that this slice does not carry, with the
 # ROADMAP item that ports each.
@@ -233,8 +289,6 @@ _NOT_PORTED = {
     "int8_compute": "queue A item 10 (decode: models/quant.py)",
     "quantized_cache": "queue A item 10 (decode: int8 KV cache)",
     "sliding_cache": "queue A item 10 (decode: ring-buffer KV cache)",
-    "remat": "slice 2 (TransformerLM training)",
-    "fused_head_chunks": "slice 2 (TransformerLM training: fused_ce head)",
     "sharding": "queue A item 12 (sequence/tensor parallelism)",
 }
 
@@ -251,7 +305,8 @@ class TransformerLM(nn.Module):
                  n_heads: int = 8, n_kv_heads: int | None = None,
                  window: int | None = None, n_layers: int = 4,
                  dropout: float = 0.1, compute_dtype=torch.float32,
-                 logits_dtype=torch.float32, attention_sinks: int = 0, *,
+                 logits_dtype=torch.float32, attention_sinks: int = 0,
+                 remat: bool = False, fused_head_chunks: int = 0, *,
                  device="cuda", seed: int = 0, **not_ported):
         super().__init__()
         for name, value in not_ported.items():
@@ -269,6 +324,8 @@ class TransformerLM(nn.Module):
         self.compute_dtype = _dtype(compute_dtype)
         self.logits_dtype = _dtype(logits_dtype)
         self.attention_sinks = attention_sinks
+        self.remat = bool(remat)
+        self.fused_head_chunks = int(fused_head_chunks)
         self.embed = nn.Embedding(vocab_size, d_model)
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, dropout, self.compute_dtype,
@@ -297,6 +354,8 @@ class TransformerLM(nn.Module):
             "compute_dtype": _dtype_name(self.compute_dtype),
             "logits_dtype": _dtype_name(self.logits_dtype),
             "attention_sinks": self.attention_sinks,
+            "remat": self.remat,
+            "fused_head_chunks": self.fused_head_chunks,
         }
 
     @torch.no_grad()
@@ -319,18 +378,41 @@ class TransformerLM(nn.Module):
     def _embed(self, tokens):
         return self.embed(tokens.long()).to(self.compute_dtype)
 
-    def forward(self, tokens, *, train: bool = False, segment_ids=None):
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "segment_ids (packed sequences) are not ported yet — "
-                "ROADMAP slice 2 (TransformerLM training)"
-            )
+    def forward(self, tokens, *, train: bool = False, segment_ids=None,
+                labels=None, dropout_seed: int | None = None):
+        """Logits ``[B, T, vocab]``; with ``labels`` ``[B, T]`` instead
+        ``(per_token_loss, per_token_correct)`` from the fused chunked-CE
+        head (the ``Trainer(loss="module")`` contract). ``segment_ids``
+        ``[B, T]`` packs documents: positions restart at each run and
+        attention keeps equal-id pairs. ``dropout_seed`` seeds dropout
+        under ``train=True`` (each layer derives its own masks from it)."""
         b, t = tokens.shape
-        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        if segment_ids is None:
+            positions = torch.arange(t, device=tokens.device).expand(b, t)
+        else:
+            if tuple(segment_ids.shape) != (b, t):
+                raise ValueError(
+                    f"segment_ids must be [B, T] = {(b, t)}, got "
+                    f"{tuple(segment_ids.shape)}"
+                )
+            positions = packed_positions(segment_ids)
         x = self._embed(tokens)
-        for blk in self.blocks:
-            x = blk(x, positions, train=train)
-        return self.lm_head(self.ln_f(x))
+        for i, blk in enumerate(self.blocks):
+            kw = dict(train=train, segment_ids=segment_ids, dropout_seed=(
+                None if dropout_seed is None
+                else derive_seed(dropout_seed, i)))
+            if self.remat and torch.is_grad_enabled():
+                # Recompute the block in the backward. Dropout masks come
+                # from (seed, layer, site), so the recompute redraws them;
+                # no global RNG state to stash.
+                x = checkpoint(blk, x, positions, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+            else:
+                x = blk(x, positions, **kw)
+        x = self.ln_f(x)
+        if labels is not None:
+            return self.lm_head.fused_loss(x, labels, self.fused_head_chunks)
+        return self.lm_head(x)
 
     def decode(self, tokens, cache=None, *, max_decode_len: int = 0):
         """Decode-mode forward: ``(logits [B, T, vocab], cache)``.

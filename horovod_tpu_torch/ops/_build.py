@@ -29,7 +29,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+# One lock per library: different sources build in parallel (one nvcc
+# each), while two threads asking for the same one build it once.
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 = found built).
 build_seconds: dict[str, float] = {}
@@ -47,6 +50,8 @@ def nvcc_path() -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")

@@ -52,10 +52,16 @@ def _keep_mask(tq, tk, *, causal, offset, window, sinks, q_segment_ids,
     return keep
 
 
+def acc(x):
+    """``x`` in its accumulation dtype: f32 for f32/bf16 inputs, f64 for
+    f64 (so a float64 gradcheck runs the same code in full precision)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _scores(q, k):
     """[B,Tq,H,D] x [B,Tk,H,D] -> [B,H,Tq,Tk] f32 logits, scaled."""
     scale = q.shape[-1] ** -0.5
-    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.einsum("bqhd,bkhd->bhqk", acc(q), acc(k)) * scale
 
 
 def dense_attention(q, k, v, *, causal: bool = True, q_segment_ids=None,
@@ -108,7 +114,7 @@ def dense_with_lse(q, k, v, *, causal: bool, q_segment_ids=None,
     empty = l == 0.0
     l_safe = torch.where(empty, torch.ones_like(l), l)
     out = torch.einsum(
-        "bhqk,bkhd->bqhd", (p / l_safe).to(v.dtype).float(), v.float()
+        "bhqk,bkhd->bqhd", acc((p / l_safe).to(v.dtype)), acc(v)
     ).to(q.dtype)
     lse = torch.where(
         empty, torch.full_like(m, _BIG_NEG), m + torch.log(l_safe)

@@ -1,18 +1,22 @@
-"""Flash attention forward — the wrapper around the hand-written CUDA kernel
-(``csrc/flash_fwd.cu``, the port of `horovod_tpu.ops.flash_attention`'s
-TPU kernel ``_fwd_kernel``) and its plain PyTorch version.
+"""Flash attention — the wrappers around the hand-written CUDA kernels and
+their plain PyTorch versions.
 
-Device policy: a CPU tensor takes the plain version
-(`flash_attention_reference`); a CUDA tensor launches the kernel or raises.
-There is no fallback on CUDA — the kernel takes every shape the model
-gives it (any Tq/Tk, D ≤ 256, GQA heads read in place).
+* forward: ``csrc/flash_fwd.cu``, the port of `horovod_tpu.ops.
+  flash_attention`'s TPU kernel ``_fwd_kernel`` (B1);
+* backward: ``csrc/flash_bwd.cu``, the ports of ``_bwd_dq_kernel`` (B2) and
+  ``_bwd_dkv_kernel`` (B3), behind a `torch.autograd.Function` around B1.
+  Gradients flow through ``out`` and ``lse`` (the lse cotangent folds into
+  delta = rowsum(dO·O) − dlse, as `_flash_bwd_core` does).
 
-``launches`` counts kernel launches (a plain module integer), so a run can
-show that its main path went through the kernel.
+Device policy: a CPU tensor takes the plain versions
+(`flash_attention_reference`, `flash_attention_bwd_reference`); a CUDA
+tensor launches the kernels or raises. There is no fallback on CUDA — the
+kernels take every shape the model gives them (any Tq/Tk, D ≤ 256, GQA
+heads read in place).
 
-Backward (the TPU kernels ``_bwd_dq_kernel``/``_bwd_dkv_kernel``, ROADMAP
-queue B items B2/B3) is not ported yet: a CUDA call whose inputs require
-grad raises instead of returning a gradient-less result.
+``launches``, ``launches_bwd_dq`` and ``launches_bwd_dkv`` count kernel
+launches (plain module integers), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -22,17 +26,21 @@ import ctypes
 import torch
 
 from horovod_tpu_torch.ops import _build
-from horovod_tpu_torch.ops.attention import check_window, dense_with_lse
+from horovod_tpu_torch.ops.attention import (
+    _keep_mask, acc, check_window, dense_with_lse,
+)
 
 # Accepted for signature compatibility with the JAX package; the CUDA
-# kernel picks its own tiles.
+# kernels pick their own tiles.
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns: dict = {}
 
 
 def _check_segment_shapes(q, k, q_segment_ids, kv_segment_ids):
@@ -59,7 +67,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
                               q_segment_ids=None, kv_segment_ids=None,
                               window: int | None = None, sinks: int = 0,
                               q_offset: int | None = None):
-    """The kernel's function in plain PyTorch: ``(out [B,Tq,H,D],
+    """The forward kernel's function in plain PyTorch: ``(out [B,Tq,H,D],
     lse [B,Tq,H])``. K/V with fewer heads than q (GQA) are repeated
     head-wise (kv head h // rep serves q head h), as the kernel reads
     them."""
@@ -74,22 +82,99 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     )
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library("flash_fwd").hvt_flash_fwd
+def _delta(out, dout, dlse):
+    """``rowsum(dO·O) − dlse`` ``[B,Tq,H]`` in the accumulation dtype."""
+    delta = (acc(dout) * acc(out)).sum(-1)
+    return delta if dlse is None else delta - acc(dlse)
+
+
+def _probs(q, k, v, dout, lse, delta, *, causal=True, q_segment_ids=None,
+           kv_segment_ids=None, window=None, sinks=0, q_offset=None):
+    """What both backward kernels recompute, materialised: ``(qf, kf, dof,
+    P, dS)`` with K/V repeated to q's heads, P = exp(S − lse) on kept pairs
+    (0 elsewhere) and dS = P·(dO·Vᵀ − delta), all f32."""
+    tq, h = q.shape[1], q.shape[2]
+    tk, rep = k.shape[1], h // k.shape[2]
+    qf, kf, vf, dof = acc(q), acc(k), acc(v), acc(dout)
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=2)
+        vf = vf.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * q.shape[-1] ** -0.5
+    keep = _keep_mask(
+        tq, tk, causal=causal, offset=tk - tq if q_offset is None else q_offset,
+        window=window, sinks=sinks, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, device=q.device,
+    )
+    p = torch.exp(s - acc(lse).transpose(1, 2)[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - acc(delta).transpose(1, 2)[..., None])
+    return qf, kf, dof, p, ds
+
+
+def flash_bwd_dq_reference(q, k, v, dout, lse, delta, **masks):
+    """B2's function in plain PyTorch: dQ = dS·K·scale in q's dtype."""
+    _, kf, _, _, ds = _probs(q, k, v, dout, lse, delta, **masks)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * q.shape[-1] ** -0.5
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, **masks):
+    """B3's function in plain PyTorch: ``(dK = dSᵀ·Q·scale, dV = Pᵀ·dO)``
+    in k's and v's dtypes, summed over each GQA group of q heads."""
+    qf, _, dof, p, ds = _probs(q, k, v, dout, lse, delta, **masks)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * q.shape[-1] ** -0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    b, tk, hkv, d = k.shape
+    rep = q.shape[2] // hkv
+    if rep > 1:
+        dk = dk.view(b, tk, hkv, rep, d).sum(3)
+        dv = dv.view(b, tk, hkv, rep, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, dlse=None, *,
+                                  causal: bool = True, q_segment_ids=None,
+                                  kv_segment_ids=None,
+                                  window: int | None = None, sinks: int = 0,
+                                  q_offset: int | None = None):
+    """The backward kernels' function in plain PyTorch, with P
+    materialised: ``(dq, dk, dv)`` in q's, k's and v's dtypes.
+
+    The math of the TPU kernels: delta = rowsum(dO·O) − dlse, P = exp(S −
+    lse) on kept pairs (0 elsewhere, so a fully masked row gets zero
+    gradient), dS = P·(dO·Vᵀ − delta), dQ = dS·K·scale, dK = dSᵀ·Q·scale,
+    dV = Pᵀ·dO, everything in f32 (P is not rounded to the input dtype).
+    Under GQA the repeated K/V heads' gradients are summed over each
+    group."""
+    masks = dict(causal=causal, q_segment_ids=q_segment_ids,
+                 kv_segment_ids=kv_segment_ids, window=window, sinks=sinks,
+                 q_offset=q_offset)
+    delta = _delta(out, dout, dlse)
+    return (flash_bwd_dq_reference(q, k, v, dout, lse, delta, **masks),
+            *flash_bwd_dkv_reference(q, k, v, dout, lse, delta, **masks))
+
+
+def _kernel(name):
+    """The C entry ``hvt_<name>`` of its library, argtypes declared."""
+    if name not in _fns:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if name == "flash_fwd":
+            fn = _build.library("flash_fwd").hvt_flash_fwd
+            fn.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 9 + [i32] * 4
+                           + [ctypes.c_float, i32, ptr])
+        else:
+            fn = getattr(_build.library("flash_bwd"), f"hvt_{name}")
+            n_out = 1 if name == "flash_bwd_dq" else 2
+            fn.argtypes = ([ptr] * (8 + n_out) + [i32] * 6 + [i64] * 12
+                           + [i32] * 4 + [ctypes.c_float, i32, ptr])
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset):
-    global launches
+def _check_inputs(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q/k/v on different devices: {q.device}, {k.device}, {v.device}"
@@ -104,9 +189,8 @@ def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset):
             f"need q [B,Tq,H,D] and k/v [B,Tk,Hkv,D], got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
-    b, tq, h, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or h % hkv:
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(
             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} "
             "(same B and D, H a multiple of Hkv)"
@@ -115,30 +199,160 @@ def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset):
         raise ValueError(f"flash kernel takes head_dim <= 256, got {d}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash kernel needs a contiguous last (head) dim")
+
+
+def _segs(q, q_seg, kv_seg):
+    if q_seg is None:
+        return None, None
+    return (q_seg.to(device=q.device, dtype=torch.int32).contiguous(),
+            kv_seg.to(device=q.device, dtype=torch.int32).contiguous())
+
+
+def _mask_args(q, k, causal, window, sinks, q_offset):
+    off = k.shape[1] - q.shape[1] if q_offset is None else int(q_offset)
+    return (int(causal), int(window or 0), int(sinks), off,
+            q.shape[-1] ** -0.5, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset):
+    global launches
+    _check_inputs(q, k, v)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    if q_seg is not None:
-        q_seg = q_seg.to(device=q.device, dtype=torch.int32).contiguous()
-        kv_seg = kv_seg.to(device=q.device, dtype=torch.int32).contiguous()
-    off = tk - tq if q_offset is None else int(q_offset)
+    q_seg, kv_seg = _segs(q, q_seg, kv_seg)
     with torch.cuda.device(q.device):
-        err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_seg.data_ptr() if q_seg is not None else None,
-            kv_seg.data_ptr() if kv_seg is not None else None,
-            out.data_ptr(), lse.data_ptr(),
+        err = _kernel("flash_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg),
+            _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
             b, tq, tk, h, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window or 0), int(sinks), off,
-            d ** -0.5, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            *_mask_args(q, k, causal, window, sinks, q_offset),
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     launches += 1
     return out, lse
+
+
+def _bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg, causal, window,
+              sinks, q_offset):
+    """The inputs and the shape/stride/mask tail shared by both backward
+    entries (validated; dO, lse and delta made contiguous as needed)."""
+    _check_inputs(q, k, v)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    if dout.stride(-1) != 1 or dout.dtype != q.dtype:
+        dout = dout.to(q.dtype).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    delta = delta.to(torch.float32).contiguous()
+    q_seg, kv_seg = _segs(q, q_seg, kv_seg)
+    # The caller holds these until the launch: `ins` points into them.
+    alive = (dout, lse, delta, q_seg, kv_seg)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg))
+    tail = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3],
+            *_mask_args(q, k, causal, window, sinks, q_offset))
+    return alive, ins, tail
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
+                 q_segment_ids=None, kv_segment_ids=None,
+                 window: int | None = None, sinks: int = 0,
+                 q_offset: int | None = None):
+    """B2: dQ ``[B,Tq,H,D]`` in q's dtype from q, k, v, dO, the forward's
+    lse ``[B,Tq,H]`` and delta = rowsum(dO·O) − dlse ``[B,Tq,H]``. The
+    kernel on a CUDA tensor, `flash_bwd_dq_reference` on a CPU one."""
+    global launches_bwd_dq
+    masks = dict(causal=causal, window=window, sinks=sinks, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(
+            q, k, v, dout, lse, delta, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, **masks)
+    _alive, ins, tail = _bwd_args(q, k, v, dout, lse, delta, q_segment_ids,
+                                  kv_segment_ids, **masks)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or k.numel() == 0:
+        return dq.zero_()
+    with torch.cuda.device(q.device):
+        err = _kernel("flash_bwd_dq")(*ins, dq.data_ptr(), *tail)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    launches_bwd_dq += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
+                  q_segment_ids=None, kv_segment_ids=None,
+                  window: int | None = None, sinks: int = 0,
+                  q_offset: int | None = None):
+    """B3: ``(dK, dV)`` ``[B,Tk,Hkv,D]`` in k's/v's dtypes, inputs as
+    `flash_bwd_dq`. The kernel on a CUDA tensor, `flash_bwd_dkv_reference`
+    on a CPU one."""
+    global launches_bwd_dkv
+    masks = dict(causal=causal, window=window, sinks=sinks, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(
+            q, k, v, dout, lse, delta, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, **masks)
+    _alive, ins, tail = _bwd_args(q, k, v, dout, lse, delta, q_segment_ids,
+                                  kv_segment_ids, **masks)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel() == 0 or q.numel() == 0:
+        return dk.zero_(), dv.zero_()
+    with torch.cuda.device(q.device):
+        err = _kernel("flash_bwd_dkv")(*ins, dk.data_ptr(), dv.data_ptr(),
+                                       *tail)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def _forward(q, k, v, q_seg, kv_seg, kw):
+    if q.device.type == "cpu":
+        return flash_attention_reference(
+            q, k, v, q_segment_ids=q_seg, kv_segment_ids=kv_seg, **kw)
+    return _launch(q, k, v, q_seg, kv_seg, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B1 forward, B2 + B3 backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, window, sinks,
+                q_offset):
+        kw = dict(causal=causal, window=window, sinks=sinks,
+                  q_offset=q_offset)
+        out, lse = _forward(q, k, v, q_seg, kv_seg, kw)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.kw = kw
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        # delta in f32, outside the kernels, as `_flash_bwd_core` does.
+        delta = _delta(out, dout, dlse)
+        masks = dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg, **ctx.kw)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **masks)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **masks)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _attention(q, k, v, *, causal, q_segment_ids, kv_segment_ids, window,
@@ -149,21 +363,13 @@ def _attention(q, k, v, *, causal, q_segment_ids, kv_segment_ids, window,
         raise ValueError(f"sinks must be >= 0, got {sinks}")
     if window is None:
         sinks = 0  # full causal attention already sees every sink
-    kw = dict(causal=causal, window=window, sinks=sinks, q_offset=q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, q_segment_ids=q_segment_ids,
-            kv_segment_ids=kv_segment_ids, **kw,
-        )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention backward on CUDA is not ported yet (ROADMAP "
-            "queue B, kernels B2/B3) — run under torch.inference_mode() or "
-            "torch.no_grad()"
-        )
-    return _launch(q, k, v, q_segment_ids, kv_segment_ids, **kw)
+        return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
+                                     causal, window, sinks, q_offset)
+    kw = dict(causal=causal, window=window, sinks=sinks, q_offset=q_offset)
+    return _forward(q, k, v, q_segment_ids, kv_segment_ids, kw)
 
 
 def flash_attention_with_lse(
@@ -178,7 +384,8 @@ def flash_attention_with_lse(
     q_offset: int | None = None,
 ):
     """``[B,Tq,H,D]`` attention returning ``(out, lse)`` with ``lse``
-    ``[B,Tq,H]`` f32. Masks as in `flash_attention`."""
+    ``[B,Tq,H]`` f32. Masks as in `flash_attention`; gradients flow
+    through both outputs."""
     del block_q, block_k
     return _attention(
         q, k, v, causal=causal, q_segment_ids=q_segment_ids,
@@ -204,7 +411,8 @@ def flash_attention(
     ``window`` most recent keys (requires causal); ``sinks`` re-admits the
     first ``sinks`` keys beyond the band (requires window);
     ``q_segment_ids``/``kv_segment_ids`` ([B,Tq]/[B,Tk] ints) keep only
-    equal-id pairs. A fully masked row gives zero output."""
+    equal-id pairs. A fully masked row gives zero output and zero
+    gradient."""
     del block_q, block_k
     out, _ = _attention(
         q, k, v, causal=causal, q_segment_ids=q_segment_ids,

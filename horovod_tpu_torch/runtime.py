@@ -1,14 +1,14 @@
-"""Device resolution and the shared boolean env contract.
+"""Device resolution, seed derivation and the shared boolean env contract.
 
-Single process only in this slice: the distributed surface of
-`horovod_tpu.runtime` (init/rank/size over a mesh) arrives with the
-training slice.
+Single process only: the distributed surface of `horovod_tpu.runtime`
+(init/rank/size over a mesh) is ROADMAP queue A items 1-2.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -32,3 +32,12 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r} (cuda or cpu)")
     return dev
+
+
+def derive_seed(*keys: int) -> int:
+    """A 63-bit seed mixed from integer keys (numpy's `SeedSequence`) — the
+    port's ``jax.random.fold_in``: one seed per (step, layer, site) that
+    depends on nothing but its keys, never on a generator's state."""
+    words = [int(k) & (2**64 - 1) for k in keys]
+    state = np.random.SeedSequence(words).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))

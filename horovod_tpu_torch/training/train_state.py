@@ -1,0 +1,67 @@
+"""TrainState and the Trainer's loss/metric helpers — port of
+`horovod_tpu.training.train_state` (the parts the LM step needs)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from horovod_tpu_torch.runtime import derive_seed
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What one training run carries: the step count, the model (its
+    parameters), the optimizer (its state) and ``rng``, the root seed of
+    the per-step randomness. JAX's ``fold_in(state.rng, state.step)`` is
+    `step_seed`; the model draws its dropout masks from it."""
+
+    step: int
+    model: nn.Module
+    optimizer: object
+    rng: int
+
+    def step_seed(self) -> int:
+        return derive_seed(self.rng, self.step)
+
+
+def _resolve_loss(loss) -> Callable | None:
+    """Keras-style loss names → per-example (or per-token) loss functions
+    on f32 logits; ``"module"`` → None: the module computes its own loss,
+    ``module(x, labels=y)`` returning ``(per_token_loss,
+    per_token_correct)`` (the fused chunked-CE head's contract)."""
+    if callable(loss):
+        return loss
+    if loss == "module":
+        return None
+    if loss in ("sparse_categorical_crossentropy", "sparse_ce"):
+        def sparse_ce(logits, labels):
+            lf = logits.float()
+            return F.cross_entropy(
+                lf.reshape(-1, lf.shape[-1]), labels.reshape(-1).long(),
+                reduction="none",
+            ).view(labels.shape)
+        return sparse_ce
+    if loss in ("categorical_crossentropy", "ce"):
+        def ce(logits, labels):
+            return -(labels.float()
+                     * torch.log_softmax(logits.float(), dim=-1)).sum(-1)
+        return ce
+    raise ValueError(f"unknown loss {loss!r}")
+
+
+def _correct(logits, labels):
+    """Per-example (or per-token) ``argmax == label`` as f32; one-hot
+    labels are reduced by argmax first."""
+    pred = logits.argmax(dim=-1)
+    if labels.dim() == logits.dim():  # one-hot
+        labels = labels.argmax(dim=-1)
+    return (pred == labels).float()
+
+
+def _accuracy(logits, labels):
+    return _correct(logits, labels).mean()

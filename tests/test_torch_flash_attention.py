@@ -230,9 +230,17 @@ def test_kernel_matches_plain_version(cuda, name, dtype, atol):
 
 @pytest.mark.cuda
 def test_kernel_refuses_grad_and_bad_layouts(cuda):
-    q = torch.randn(1, 64, 2, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        tfa.flash_attention(q.requires_grad_(), q, q)
+    """Inputs that require grad get gradients from the backward kernels
+    (B2 and B3 launch once each); bad layouts raise."""
+    q, k, v = (torch.randn(1, 64, 2, 32, device=cuda).requires_grad_()
+               for _ in range(3))
+    before = (tfa.launches, tfa.launches_bwd_dq, tfa.launches_bwd_dkv)
+    tfa.flash_attention(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.launches_bwd_dq, tfa.launches_bwd_dkv) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
     q = q.detach()
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q.to(torch.bfloat16), q)
@@ -242,3 +250,28 @@ def test_kernel_refuses_grad_and_bad_layouts(cuda):
     with pytest.raises(ValueError):
         t = torch.randn(1, 64, 32, 2, device=cuda).transpose(2, 3)
         tfa.flash_attention(t, t, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", ["causal", "window", "segments_empty_rows",
+                                  "cross_q_offset", "empty_rows_q_offset"])
+def test_backward_kernels_match_plain_version(cuda, name, dtype, atol):
+    """B2/B3 through autograd on the card against the plain backward on
+    the same inputs, with an lse cotangent."""
+    (q, k, v), _, _, kw = _case(name)
+    kw = {n: (torch.from_numpy(x).to(cuda) if isinstance(x, np.ndarray)
+              else x) for n, x in kw.items()}
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype).requires_grad_()
+               for x in (q, k, v))
+    out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+    g = torch.randn_like(out)
+    g_lse = torch.randn_like(lse)
+    torch.autograd.backward((out, lse), (g, g_lse))
+    want = tfa.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(), g,
+        g_lse, **kw)
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad.float(), w.float(), atol=atol,
+                                   rtol=1e-2)

@@ -114,7 +114,21 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback(no_cuda,
         load_generate(d)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_server(d)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horovod_tpu_torch.Trainer(m, horovod_tpu_torch.adamw(1e-3))
     assert horovod_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_training_modules_are_scanned():
+    """The scans above reach the training slice's subpackages."""
+    mods = _modules()
+    for m in ("horovod_tpu_torch.training.trainer",
+              "horovod_tpu_torch.training.optimizer",
+              "horovod_tpu_torch.training.train_state",
+              "horovod_tpu_torch.data.datasets",
+              "horovod_tpu_torch.ops.fused_ce"):
+        assert m in mods
+    assert os.path.join(PKG, "training", "trainer.py") in _port_files()
 
 
 def _run_smoke(cwd):

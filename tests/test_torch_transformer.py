@@ -201,17 +201,36 @@ def test_seeded_init_is_reproducible_and_flax_scaled():
 
 
 @pytest.mark.parametrize("name", ["moe_every", "int8_compute",
-                                  "quantized_cache", "sliding_cache", "remat",
-                                  "fused_head_chunks"])
+                                  "quantized_cache", "sliding_cache"])
 def test_unported_options_raise_naming_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.TransformerLM(vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
                           n_layers=1, device="cpu", **{name: 2})
 
 
-def test_segment_ids_raise_naming_roadmap():
+@pytest.mark.parametrize("kw", [{}, {"window": 6, "attention_sinks": 2}],
+                         ids=["mha", "window_sinks"])
+def test_segment_ids_logits_match_flax(kw):
+    """Packed sequences: RoPE positions restart per document and attention
+    keeps equal-id pairs (loss and gradients: test_torch_training.py)."""
+    jm, params, tm = _pair(**kw)
+    toks = _tokens(8)
+    seg = np.zeros(toks.shape, np.int32)
+    seg[:, 11:] = 1
+    seg[1, 25:] = 2
+    jl = np.asarray(jm.apply({"params": params}, jnp.asarray(toks),
+                             segment_ids=jnp.asarray(seg)))
+    with torch.no_grad():
+        tl = tm(torch.from_numpy(toks),
+                segment_ids=torch.from_numpy(seg)).numpy()
+    np.testing.assert_allclose(tl, jl, atol=LOGITS_ATOL, rtol=0)
+
+
+def test_training_options_in_config():
     tm = ttr.TransformerLM(vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
-                           n_layers=1, device="cpu")
-    toks = torch.from_numpy(_tokens(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(toks, segment_ids=torch.zeros_like(toks))
+                           n_layers=1, device="cpu", remat=True,
+                           fused_head_chunks=4)
+    cfg = tm.config()
+    assert cfg["remat"] is True and cfg["fused_head_chunks"] == 4
+    again = ttr.TransformerLM(**cfg, device="cpu")
+    assert again.config() == cfg
