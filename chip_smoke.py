@@ -10,12 +10,17 @@ Phases (any failed check exits non-zero before the result line):
    CUDA, ``nvcc`` versions and whether Triton imports;
 2. build — every CUDA kernel of the serving and training paths from
    ``horovod_tpu_torch/ops/csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc``
-   per source, all started together);
+   per source, all started together), with each kernel's registers, shared
+   memory and spills (``ptxas -v``);
 3. kernels against their plain PyTorch versions on the card: B1 (forward)
    and B2/B3 (backward) in every mask case, GQA, head dims 40-256, f32 and
-   bf16, with an lse cotangent; B1's times at the serving shapes, and
-   B1/B2/B3's at the training shape, beside their plain versions', SDPA's
-   (a yardstick the port never calls) and the card's bound;
+   bf16, with an lse cotangent, the model's strided V view, a ragged T and
+   the serving shape. Each case names the route it took: ``tc`` (the
+   tensor-core kernels, bf16 with D a multiple of 8 up to 128) or ``simt``
+   (the CUDA-core kernels, f32 or D > 128). B1's times at the serving
+   shapes, and B1/B2/B3's at the training shape on both routes, beside
+   their plain versions', SDPA's (a yardstick the port never calls) and the
+   card's bound;
 4. serving main path — a `TransformerLM` at the bench LM's full width
    (vocab 8192, d_model 512, 8 heads, 8 layers, bf16 compute, seeded
    weights) is exported as a streaming bundle (batch 8, prompt_len 128, 64
@@ -23,19 +28,21 @@ Phases (any failed check exits non-zero before the result line):
    continuous-batching engine; 12 concurrent ragged requests (some
    streaming) must each get 64 tokens equal to the bundle run on that
    prompt alone, and the flash launch count must equal n_layers × prefill
-   dispatches;
+   dispatches, every one on the tensor-core route;
 5. serving against the plain path — one f32 prefill at 8 × 128 on the card
    (kernel) and on the CPU (plain version), logits compared;
 6. training main path — ``Trainer.fit`` of the same LM with the fused-CE
    head (8 chunks) and ``DistributedOptimizer(adamw(scale_lr(3e-4)))`` for
    30 steps of 8 × 1024 ``copy_task`` rows: every loss finite, the last
-   below the first, B1/B2/B3 each launched n_layers × steps times; a
+   below the first, B1/B2/B3 each launched n_layers × steps times, B1 and
+   B3 every time on the tensor-core route; a
    ``train`` line (tokens/s, step ms, peak memory) and a ``breakdown_train``
    line (one step under `torch.profiler`);
 7. training against the plain path — one f32 AdamW step at 2 × 256 on the
    card (kernels) and on the CPU (plain versions): loss, gradients and
-   updated parameters compared; the card's step again with remat (B1
-   launched twice per layer, the same loss and gradients);
+   updated parameters compared, all on the CUDA-core route; the card's
+   step again with remat (B1 launched twice per layer, the same loss and
+   gradients, bit for bit);
 8. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -152,12 +159,18 @@ def build_kernels():
     """One nvcc per kernel source, all started together."""
     from horovod_tpu_torch.ops import _build
 
-    names = ["flash_fwd", "flash_bwd"]
+    names = ["flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for name, fut in [(n, pool.submit(_build.library, n)) for n in names]:
             fut.result()
             log(f"build {name}: {_build.build_seconds[name]:.2f} s")
+            kernel = None
+            for line in _build.build_logs.get(name, "").splitlines():
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]
+                elif "Used" in line or "spill" in line:
+                    log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
     log(f"build all: {time.perf_counter() - t0:.2f} s")
 
 
@@ -234,6 +247,17 @@ def _segment_ids(torch, gen, b, tq):
             ids)
 
 
+def _qkv_inputs(torch, rand, b, tq, tk, h, hkv, d, dtype, layout):
+    """q, k, v [B,T,H,D]: separate tensors, or (layout "qkv") the strided
+    views of one fused projection [B, T, 3·H·D], as `TransformerLM` makes
+    them (row stride 3·H·D)."""
+    if layout == "qkv":
+        fused = rand(b, tq, 3 * h * d, dtype=dtype)
+        return [x.view(b, tq, h, d) for x in fused.split(h * d, -1)]
+    return (rand(b, tq, h, d, dtype=dtype), rand(b, tk, hkv, d, dtype=dtype),
+            rand(b, tk, hkv, d, dtype=dtype))
+
+
 def kernel_cases(torch):
     import torch.nn.functional as F
 
@@ -263,20 +287,25 @@ def kernel_cases(torch):
         ("head_dim_256", 1, 100, 300, 4, 2, 256, bf16,
          {"window": 64, "sinks": 3}, False),
         ("head_dim_40_f32", 2, 77, 77, 4, 4, 40, f32, {}, False),
+        ("strided_v_qkv_views", 2, 256, 256, 8, 8, 64, bf16, {}, "qkv"),
+        ("ragged_t1000", 2, 1000, 1000, 8, 8, 64, bf16, {}, False),
+        ("head_dim_40_bf16", 2, 77, 77, 4, 4, 40, bf16, {}, False),
     ]
     results = {}
-    worst = 0.0
     with torch.inference_mode():
-        for name, b, tq, tk, h, hkv, d, dt, kw, segs in cases:
+        for name, b, tq, tk, h, hkv, d, dt, kw, extra in cases:
             kw = {"causal": True, **kw}
-            q = rand(b, tq, h, d, dtype=dt)
-            k = rand(b, tk, hkv, d, dtype=dt)
-            v = rand(b, tk, hkv, d, dtype=dt)
-            if segs:
+            q, k, v = _qkv_inputs(torch, rand, b, tq, tk, h, hkv, d, dt,
+                                  extra)
+            if extra is True:
                 kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
                     torch, gen, b, tq)
+            route = fa._route(dt, d)
+            tc0 = fa.launches_tc
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
             torch.cuda.synchronize()
+            check(fa.launches_tc - tc0 == (route == "tc"),
+                  f"{name}: B1 did not take the {route} route")
             ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
             tol = TOL[str(dt).removeprefix("torch.")]
             o_err = (out.float() - ref_o.float()).abs()
@@ -294,13 +323,13 @@ def kernel_cases(torch):
                   f"(max abs {float(o_err.max()):.3g})")
             check(lse_err <= tol["lse"],
                   f"{name}: lse differs from the plain version ({lse_err:.3g})")
-            worst = max(worst, float(o_err.max()))
-            results[name] = {"o_max_abs_err": float(o_err.max()),
+            results[name] = {"route": route,
+                             "o_max_abs_err": float(o_err.max()),
                              "lse_max_abs_err": lse_err,
                              "empty_rows": int(empty.sum())}
-            log(f"kernel flash_fwd {name}: O err {float(o_err.max()):.3g}, "
-                f"lse err {lse_err:.3g}, fully masked rows "
-                f"{int(empty.sum())} — ok")
+            log(f"kernel flash_fwd {name} [{route}]: O err "
+                f"{float(o_err.max()):.3g}, lse err {lse_err:.3g}, fully "
+                f"masked rows {int(empty.sum())} — ok")
 
         timings = {}
         for name, b, t, h, d in (("serving_prefill", 8, 128, 8, 64),
@@ -314,20 +343,20 @@ def kernel_cases(torch):
                 qh, kh, vh, is_causal=True))
             bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
                                            causal=True)
-            timings[name] = {"shape": [b, t, h, d], "ms": ms,
+            timings[name] = {"shape": [b, t, h, d], "route": "tc", "ms": ms,
                              "plain_ms": plain, "library_ms": lib,
                              "bound_ms": bound, "bound_by": by}
-            log(f"time flash_fwd {name} B{b} T{t} H{h} D{d} causal bf16: "
-                f"kernel_ms {ms:.5f} plain_ms {plain:.5f} library_ms "
+            log(f"time flash_fwd {name} B{b} T{t} H{h} D{d} causal bf16 "
+                f"[tc]: kernel_ms {ms:.5f} plain_ms {plain:.5f} library_ms "
                 f"(sdpa) {lib:.5f} bound_ms {bound:.5f} ({by})")
-    return results, timings, worst
+    return results, timings
 
 
 def backward_cases(torch):
     """B2 and B3 against their plain versions on the same inputs (q, k, v,
     dO, the kernel forward's lse, delta = rowsum(dO·O) − dlse), in every
     mask case of phase 3, GQA, D 40/64/128/256, f32 and bf16, with and
-    without an lse cotangent. Returns ({case: errors}, worst error)."""
+    without an lse cotangent. Returns {case: errors}."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -359,15 +388,19 @@ def backward_cases(torch):
          {}, False, True),
         ("bf16_segments_gqa_lse_cotangent", 2, 256, 256, 8, 2, 64, bf16, {},
          True, True),
+        ("strided_v_qkv_views", 2, 256, 256, 8, 8, 64, bf16, {}, "qkv",
+         False),
+        ("ragged_t1000", 2, 1000, 1000, 8, 8, 64, bf16, {}, False, False),
+        ("head_dim_40_bf16_lse_cotangent", 2, 77, 77, 4, 4, 40, bf16, {},
+         False, True),
     ]
-    results, worst = {}, 0.0
+    results = {}
     with torch.inference_mode():
-        for name, b, tq, tk, h, hkv, d, dt, kw, segs, with_dlse in cases:
+        for name, b, tq, tk, h, hkv, d, dt, kw, extra, with_dlse in cases:
             kw = {"causal": True, **kw}
-            q = rand(b, tq, h, d, dtype=dt)
-            k = rand(b, tk, hkv, d, dtype=dt)
-            v = rand(b, tk, hkv, d, dtype=dt)
-            if segs:
+            q, k, v = _qkv_inputs(torch, rand, b, tq, tk, h, hkv, d, dt,
+                                  extra)
+            if extra is True:
                 kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
                     torch, gen, b, tq)
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
@@ -376,9 +409,13 @@ def backward_cases(torch):
             if with_dlse:
                 delta = delta - torch.randn(b, tq, h, generator=gen,
                                             device="cuda")
+            route = fa._route(dt, d)
+            tc0 = fa.launches_bwd_dkv_tc
             dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
             dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
             torch.cuda.synchronize()
+            check(fa.launches_bwd_dkv_tc - tc0 == (route == "tc"),
+                  f"{name}: B3 did not take the {route} route")
             ref = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, **kw),
                    *fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                                **kw))
@@ -403,20 +440,24 @@ def backward_cases(torch):
                 check(bool((dq.float()[empty] == 0).all()),
                       f"{name}: a fully masked row has a non-zero dq")
             errs["empty_rows"] = int(empty.sum())
-            worst = max(worst, errs["dq"], errs["dk"], errs["dv"])
+            errs["route"] = route
             results[name] = errs
-            log(f"kernel flash_bwd {name}: dq err {errs['dq']:.3g} (max "
+            log(f"kernel flash_bwd {name} [B2 simt, B3 {route}]: dq err "
+                f"{errs['dq']:.3g} (max "
                 f"{errs['dq_max_abs']:.3g}), dk err {errs['dk']:.3g} (max "
                 f"{errs['dk_max_abs']:.3g}), dv err {errs['dv']:.3g} (max "
                 f"{errs['dv_max_abs']:.3g}), fully masked rows "
                 f"{errs['empty_rows']} — ok")
-    return results, worst
+    return results
 
 
 def training_shape_timings(torch):
     """B1, B2 and B3 at the training shape (B8·H8·T1024·D64 causal bf16):
-    kernel, plain version and the card's bound; SDPA's forward and
-    backward on the same shape as a yardstick (the port never calls it)."""
+    kernel, plain version and the card's bound; B1 and B3 on both routes
+    (the tensor-core kernels the main path takes, and the CUDA-core ones
+    run on the same bf16 inputs, for the comparison); SDPA's forward and
+    backward on the same shape as a yardstick (the port never calls it).
+    Keys: the kernel's library name."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -428,24 +469,39 @@ def training_shape_timings(torch):
     with torch.inference_mode():
         out, lse = fa.flash_attention_with_lse(q, k, v)
         delta = (dout.float() * out.float()).sum(-1)
+    masks = dict(causal=True, window=None, sinks=0, q_offset=None)
+
+    def fwd(route):
+        return lambda: fa._launch(q, k, v, None, None, route=route, **masks)
+
+    def dkv(route):
+        return lambda: fa._launch_dkv(q, k, v, dout, lse, delta, None, None,
+                                      masks, route=route)
+
+    plain_fwd = lambda: fa.flash_attention_reference(q, k, v)  # noqa: E731
+    plain_dkv = lambda: fa.flash_bwd_dkv_reference(  # noqa: E731
+        q, k, v, dout, lse, delta)
+    # name: (B-number, route, kernel call, plain call)
     calls = {
-        "flash_fwd": (lambda: fa.flash_attention_with_lse(q, k, v),
-                      lambda: fa.flash_attention_reference(q, k, v)),
+        "flash_fwd_sm90": ("flash_fwd", "tc", fwd("tc"), plain_fwd),
+        "flash_fwd": ("flash_fwd", "simt", fwd("simt"), plain_fwd),
         "flash_bwd_dq": (
+            "flash_bwd_dq", "simt",
             lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta),
             lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta)),
-        "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta),
-            lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta)),
+        "flash_bwd_dkv_sm90": ("flash_bwd_dkv", "tc", dkv("tc"), plain_dkv),
+        "flash_bwd_dkv": ("flash_bwd_dkv", "simt", dkv("simt"), plain_dkv),
     }
-    out_t = {}
+    out_t, plain_ms = {}, {}
     with torch.inference_mode():
-        for name, (kernel, plain) in calls.items():
+        for name, (work, route, kernel, plain) in calls.items():
             bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
-                                           causal=True, kernel=name)
-            out_t[name] = {"ms": device_ms(torch, kernel, 20),
-                           "plain_ms": device_ms(torch, plain, 3),
-                           "bound_ms": bound, "bound_by": by}
+                                           causal=True, kernel=work)
+            if plain not in plain_ms:
+                plain_ms[plain] = device_ms(torch, plain, 3)
+            out_t[name] = {"route": route, "ms": device_ms(torch, kernel, 20),
+                           "plain_ms": plain_ms[plain], "bound_ms": bound,
+                           "bound_by": by}
     # SDPA ([B,H,T,D]): forward alone, then forward + backward; the
     # backward's time is their difference.
     qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
@@ -459,13 +515,12 @@ def training_shape_timings(torch):
         torch.autograd.grad(o, (qg, kg, vg), gh)
 
     sdpa_bwd = device_ms(torch, fwd_bwd, 20) - sdpa_fwd
-    out_t["flash_fwd"]["library_ms"] = sdpa_fwd
-    out_t["flash_bwd_dq"]["library_ms"] = sdpa_bwd
-    out_t["flash_bwd_dkv"]["library_ms"] = sdpa_bwd
     for name, r in out_t.items():
-        log(f"time {name} B{b} T{t} H{h} D{d} causal bf16: kernel_ms "
-            f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} library_ms "
-            f"{r['library_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
+        r["library_ms"] = sdpa_fwd if name.startswith("flash_fwd") \
+            else sdpa_bwd
+        log(f"time {name} B{b} T{t} H{h} D{d} causal bf16 [{r['route']}]: "
+            f"kernel_ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
+            f"library_ms {r['library_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
             f"({r['bound_by']})")
     return out_t
 
@@ -525,7 +580,7 @@ def main_path(torch):
         stream = [i % 2 == 0 for i in range(N_REQUESTS)]
         prefills0 = engine.stats()["prefill_calls_total"]
         calls0 = engine.stats()["device_calls_total"]
-        fa.launches = 0
+        fa.launches = fa.launches_tc = 0
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(N_REQUESTS) as pool:
             futs = [pool.submit(_post, f"{url}/v1/generate",
@@ -533,7 +588,7 @@ def main_path(torch):
                     for p, s in zip(prompts, stream)]
             replies = [f.result() for f in futs]
         wall = time.perf_counter() - t0
-        launches = fa.launches
+        launches, launches_tc = fa.launches, fa.launches_tc
         stats = engine.stats()
         prefills = stats["prefill_calls_total"] - prefills0
         device_calls = stats["device_calls_total"] - calls0
@@ -586,6 +641,9 @@ def main_path(torch):
           f"flash launches {launches} != n_layers × prefills "
           f"({MODEL['n_layers']} × {prefills})")
     check(launches > 0, "the main path never launched the flash kernel")
+    check(launches_tc == launches,
+          f"only {launches_tc} of {launches} B1 launches took the "
+          "tensor-core route")
     ttft.sort()
     serve = {
         "requests": N_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
@@ -594,7 +652,7 @@ def main_path(torch):
         "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
         "decode_tokens_per_s": N_REQUESTS * NEW_TOKENS / wall,
         "device_calls_total": device_calls, "prefill_dispatches": prefills,
-        "flash_launches": launches,
+        "flash_launches": launches, "flash_launches_tc": launches_tc,
         "equal_to_batch1_generate": f"{same_b1}/{N_REQUESTS}",
         "batch1_first_difference": margins,
     }
@@ -689,11 +747,13 @@ def main_vs_plain(torch):
     cpu = TransformerLM(**MODEL, compute_dtype=torch.float32, device="cpu",
                         seed=0)
     with torch.inference_mode():
-        before = fa.launches
+        before, before_tc = fa.launches, fa.launches_tc
         logits_gpu, _ = gpu.decode(prompt.to(DEVICE),
                                    max_decode_len=PROMPT_LEN + NEW_TOKENS)
         check(fa.launches - before == MODEL["n_layers"],
               "the f32 prefill did not run the flash kernel per layer")
+        check(fa.launches_tc == before_tc,
+              "the f32 prefill took the tensor-core route")
         logits_gpu = logits_gpu.cpu()
         logits_cpu, _ = cpu.decode(prompt,
                                    max_decode_len=PROMPT_LEN + NEW_TOKENS)
@@ -737,11 +797,14 @@ def train_path(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches_tc = fa.launches_bwd_dkv_tc = 0
     t0 = time.perf_counter()
     hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1)
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_bwd_dq,
-                "flash_bwd_dkv": fa.launches_bwd_dkv}
+                "flash_bwd_dkv": fa.launches_bwd_dkv,
+                "flash_fwd_tc": fa.launches_tc,
+                "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc}
     peak = torch.cuda.max_memory_allocated()
     losses = [e["loss"] for e in hist]
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
@@ -751,7 +814,8 @@ def train_path(torch):
     want = MODEL["n_layers"] * TRAIN_STEPS
     for name, n in launches.items():
         check(n == want, f"{name} launched {n} times in training, want "
-              f"n_layers × steps = {want}")
+              f"n_layers × steps = {want} (B1 and B3 all on the tensor-core "
+              "route)")
     # Steps after the first two (cuBLAS/allocator warm-up); each step's
     # host time ends with the fetch of its loss.
     steady = sorted(e["epoch_time_s"] * 1e3 for e in hist[2:])
@@ -793,7 +857,8 @@ def train_breakdown(torch, trainer, feed):
     kernels, by_name = device_kernels(torch, prof)
     busy_ms = sum(by_name.values())
     flash_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
-                for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                for k in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+                          "flash_bwd_dq_kernel", "flash_bwd_dkv_sm90_kernel",
                           "flash_bwd_dkv_kernel")}
     return {
         "wall_ms": wall_ms,
@@ -837,11 +902,17 @@ def train_vs_plain(torch):
         trainer = Trainer(model, DistributedOptimizer(adamw(lr)),
                           loss="module", seed=0, device=dev)
         before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        before_tc = (fa.launches_tc, fa.launches_bwd_dkv_tc)
         loss = float(trainer.train_step(x, y)["loss"])
         after = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        check((fa.launches_tc, fa.launches_bwd_dkv_tc) == before_tc,
+              f"a {dev} f32 training step took the tensor-core route")
         runs[dev, remat] = (loss, {n: (p.detach().cpu(), p.grad.cpu())
                                    for n, p in model.named_parameters()})
         got = tuple(b - a for a, b in zip(before, after))
+        if dev == DEVICE and not remat:
+            f32_launches = dict(zip(("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"), got))
         check(got == want, f"a {dev} training step (remat={remat}) launched "
               f"B1/B2/B3 {got} times, want {want}")
     # Remat recomputes the same kernels on the same inputs: expected bit
@@ -890,19 +961,36 @@ def train_vs_plain(torch):
               "grad_max_err_of_max": grad_err,
               "param_max_abs_err": param_err,
               "params_with_adam_bound_above_atol": n_amplified,
-              "params": n_total}
+              "params": n_total, "launches": f32_launches}
     log("train f32 step card (kernels) vs cpu (plain):", json.dumps(result))
     return result
 
 
+# name: (source, TPU kernel it replaces, route, the main path whose
+# launches it reports)
 KERNELS = {
+    "flash_fwd_sm90": ("horovod_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
+                       "horovod_tpu/ops/flash_attention.py:149", "tc",
+                       "bf16 training (phase 6)"),
     "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
-                  "horovod_tpu/ops/flash_attention.py:149"),
+                  "horovod_tpu/ops/flash_attention.py:149", "simt",
+                  "f32 training step (phase 7)"),
     "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-                     "horovod_tpu/ops/flash_attention.py:233"),
+                     "horovod_tpu/ops/flash_attention.py:233", "simt",
+                     "bf16 training (phase 6)"),
+    "flash_bwd_dkv_sm90": ("horovod_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu",
+                           "horovod_tpu/ops/flash_attention.py:300", "tc",
+                           "bf16 training (phase 6)"),
     "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-                      "horovod_tpu/ops/flash_attention.py:300"),
+                      "horovod_tpu/ops/flash_attention.py:300", "simt",
+                      "f32 training step (phase 7)"),
 }
+
+
+def _max_err(cases, keys, route):
+    """The largest error over the phase-3 cases of one route."""
+    return max((c[k] for c in cases.values() if c["route"] == route
+                for k in keys), default=None)
 
 
 def main() -> int:
@@ -922,30 +1010,46 @@ def main() -> int:
     try:
         card = toolchain(torch)
         build_kernels()
-        errs, timings, worst = kernel_cases(torch)
-        bwd_errs, bwd_worst = backward_cases(torch)
+        errs, timings = kernel_cases(torch)
+        bwd_errs = backward_cases(torch)
         train_timings = training_shape_timings(torch)
         serve_launches = main_path(torch)
         main_vs_plain(torch)
         train_launches = train_path(torch)
-        train_vs_plain(torch)
+        f32_step = train_vs_plain(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     b, t, h, d = TRAIN_ATTN_SHAPE
-    max_err = {
-        "flash_fwd": (errs["training_shape"]["o_max_abs_err"], worst),
-        "flash_bwd_dq": (bwd_errs["training_shape"]["dq"], bwd_worst),
-        "flash_bwd_dkv": (max(bwd_errs["training_shape"]["dk"],
-                              bwd_errs["training_shape"]["dv"]), bwd_worst),
+    launches = {
+        "flash_fwd_sm90": train_launches["flash_fwd_tc"],
+        "flash_fwd": f32_step["launches"]["flash_fwd"],
+        "flash_bwd_dq": train_launches["flash_bwd_dq"],
+        "flash_bwd_dkv_sm90": train_launches["flash_bwd_dkv_tc"],
+        "flash_bwd_dkv": f32_step["launches"]["flash_bwd_dkv"],
+    }
+    fwd_keys, dkv_keys = ("o_max_abs_err",), ("dk", "dv")
+    max_err = {  # (training shape, all phase-3 cases of the route)
+        "flash_fwd_sm90": (errs["training_shape"]["o_max_abs_err"],
+                           _max_err(errs, fwd_keys, "tc")),
+        "flash_fwd": (errs["f32_window"]["o_max_abs_err"],
+                      _max_err(errs, fwd_keys, "simt")),
+        "flash_bwd_dq": (bwd_errs["training_shape"]["dq"],
+                         max(c["dq"] for c in bwd_errs.values())),
+        "flash_bwd_dkv_sm90": (
+            max(bwd_errs["training_shape"][k] for k in dkv_keys),
+            _max_err(bwd_errs, dkv_keys, "tc")),
+        "flash_bwd_dkv": (
+            max(bwd_errs["f32_window_lse_cotangent"][k] for k in dkv_keys),
+            _max_err(bwd_errs, dkv_keys, "simt")),
     }
     lines = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, route, path) in KERNELS.items():
         tt = train_timings[name]
         entry = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": train_launches[name],
+            "name": name, "route": "cuda", "kernel_route": route,
+            "source": source, "replaces": replaces,
+            "launches": launches[name], "launches_on": path,
             "max_abs_err": max_err[name][0],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
@@ -954,7 +1058,7 @@ def main() -> int:
             "max_abs_err_all_cases": max_err[name][1],
             "card": card,
         }
-        if name == "flash_fwd":
+        if name == "flash_fwd_sm90":
             entry["launches_serve"] = serve_launches
             entry["serving_prefill"] = timings["serving_prefill"]
             entry["long_prompt"] = timings["long_prompt"]

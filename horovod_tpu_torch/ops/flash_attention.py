@@ -1,22 +1,35 @@
 """Flash attention — the wrappers around the hand-written CUDA kernels and
 their plain PyTorch versions.
 
-* forward: ``csrc/flash_fwd.cu``, the port of `horovod_tpu.ops.
-  flash_attention`'s TPU kernel ``_fwd_kernel`` (B1);
-* backward: ``csrc/flash_bwd.cu``, the ports of ``_bwd_dq_kernel`` (B2) and
-  ``_bwd_dkv_kernel`` (B3), behind a `torch.autograd.Function` around B1.
-  Gradients flow through ``out`` and ``lse`` (the lse cotangent folds into
-  delta = rowsum(dO·O) − dlse, as `_flash_bwd_core` does).
+* forward (B1, the port of `horovod_tpu.ops.flash_attention`'s TPU kernel
+  ``_fwd_kernel``): ``csrc/flash_fwd_sm90.cu`` on the tensor-core route,
+  ``csrc/flash_fwd.cu`` on the CUDA-core route;
+* backward, behind a `torch.autograd.Function` around B1: B2
+  (``_bwd_dq_kernel``) is ``csrc/flash_bwd.cu``'s ``hvt_flash_bwd_dq`` on
+  both routes; B3 (``_bwd_dkv_kernel``) is ``csrc/flash_bwd_dkv_sm90.cu`` on
+  the tensor-core route and ``flash_bwd.cu``'s ``hvt_flash_bwd_dkv`` on the
+  CUDA-core route. Gradients flow through ``out`` and ``lse`` (the lse
+  cotangent folds into delta = rowsum(dO·O) − dlse, as `_flash_bwd_core`
+  does).
+
+Routes (`_route`, by dtype and head dim only, never by failure): bf16 with
+D a multiple of 8 up to 128 takes the tensor-core kernels (wgmma, TMA);
+f32, or any other D up to 256, the CUDA-core kernels (bf16 tensor cores
+would round f32 operands; the dK/dV accumulators of D > 128 do not fit one
+warpgroup's registers).
 
 Device policy: a CPU tensor takes the plain versions
 (`flash_attention_reference`, `flash_attention_bwd_reference`); a CUDA
-tensor launches the kernels or raises. There is no fallback on CUDA — the
-kernels take every shape the model gives them (any Tq/Tk, D ≤ 256, GQA
-heads read in place).
+tensor launches the kernel of its route or raises. There is no fallback on
+CUDA — the kernels take every shape the model gives them (any Tq/Tk, D ≤
+256, GQA heads read in place; the tensor-core route reads strided views
+through TMA and raises on a base or stride that is not a multiple of 16
+bytes).
 
 ``launches``, ``launches_bwd_dq`` and ``launches_bwd_dkv`` count kernel
-launches (plain module integers), so a run can show that its main path
-went through the kernels.
+launches on either route, ``launches_tc`` and ``launches_bwd_dkv_tc`` the
+tensor-core route's (plain module integers), so a run can show that its
+main path went through the kernels, and which.
 """
 
 from __future__ import annotations
@@ -38,9 +51,47 @@ DEFAULT_BLOCK_K = 1024
 launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_tc = 0
+launches_bwd_dkv_tc = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
+# Rows of one tensor-core tile (the TMA box's T extent, wgmma's M) and the
+# columns of one 128-byte-swizzled chunk (its D extent).
+_TC_ROWS, _TC_COLS = 64, 64
+
+
+def _route(dtype, head_dim: int) -> str:
+    """``"tc"`` (tensor-core kernels) for bf16 with D a multiple of 8 up to
+    128, else ``"simt"`` (CUDA-core kernels)."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 128:
+        return "tc"
+    return "simt"
+
+
+def _tma_desc(t, name: str = "tensor") -> tuple:
+    """The tensor-map description of a bf16 ``[B, T, H, D]`` view for the
+    tensor-core kernels: ``(pointer, dims D, H, T, B, byte strides of H, T,
+    B, box D, H, T, B)``. Dims are ordered so that a contiguous tensor and
+    the fused-qkv views of `TransformerLM` have rising strides. TMA needs
+    the base and every stride on 16 bytes: anything else raises."""
+    b, tlen, h, d = t.shape
+    item = t.element_size()
+    sb, st, sh, sd = t.stride()
+    strides = (sh * item, st * item, sb * item)
+    if sd != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous")
+    if t.data_ptr() % 16 or any(s % 16 for s in strides):
+        raise ValueError(
+            f"{name}: the tensor-core kernels read through TMA, which needs "
+            f"a 16-byte aligned base and strides; got base {t.data_ptr()} "
+            f"and byte strides (H, T, B) {strides}"
+        )
+    return (t.data_ptr(), d, h, tlen, b, *strides, _TC_COLS, 1, _TC_ROWS, 1)
+
+
+def _desc_arg(t, name):
+    return (ctypes.c_longlong * 12)(*_tma_desc(t, name))
 
 
 def _check_segment_shapes(q, k, q_segment_ids, kv_segment_ids):
@@ -160,10 +211,19 @@ def _kernel(name):
     """The C entry ``hvt_<name>`` of its library, argtypes declared."""
     if name not in _fns:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        desc = ctypes.POINTER(ctypes.c_longlong)
         if name == "flash_fwd":
             fn = _build.library("flash_fwd").hvt_flash_fwd
             fn.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 9 + [i32] * 4
                            + [ctypes.c_float, i32, ptr])
+        elif name == "flash_fwd_sm90":
+            fn = _build.library(name).hvt_flash_fwd_sm90
+            fn.argtypes = ([desc] * 3 + [ptr] * 4 + [i32] * 10
+                           + [ctypes.c_float, ptr])
+        elif name == "flash_bwd_dkv_sm90":
+            fn = _build.library(name).hvt_flash_bwd_dkv_sm90
+            fn.argtypes = ([desc] * 4 + [ptr] * 5 + [i32] * 11
+                           + [ctypes.c_float, ptr])
         else:
             fn = getattr(_build.library("flash_bwd"), f"hvt_{name}")
             n_out = 1 if name == "flash_bwd_dq" else 2
@@ -219,8 +279,10 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset):
-    global launches
+def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset,
+            route=None):
+    """B1 on a CUDA tensor: the kernel of ``route`` (default `_route`)."""
+    global launches, launches_tc
     _check_inputs(q, k, v)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -228,18 +290,29 @@ def _launch(q, k, v, q_seg, kv_seg, *, causal, window, sinks, q_offset):
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    tc = (route or _route(q.dtype, d)) == "tc"
     q_seg, kv_seg = _segs(q, q_seg, kv_seg)
+    mask = _mask_args(q, k, causal, window, sinks, q_offset)
     with torch.cuda.device(q.device):
-        err = _kernel("flash_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg),
-            _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
-            b, tq, tk, h, hkv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *_mask_args(q, k, causal, window, sinks, q_offset),
-        )
+        if tc:  # the mask arguments without the dtype code: bf16 only
+            name = "flash_fwd_sm90"
+            err = _kernel(name)(
+                _desc_arg(q, "q"), _desc_arg(k, "k"), _desc_arg(v, "v"),
+                _ptr(q_seg), _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
+                b, tq, tk, h, hkv, d, *mask[:5], mask[6],
+            )
+        else:
+            name = "flash_fwd"
+            err = _kernel(name)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg),
+                _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
+                b, tq, tk, h, hkv, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *mask,
+            )
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_tc += tc
     return out, lse
 
 
@@ -297,28 +370,59 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
                   window: int | None = None, sinks: int = 0,
                   q_offset: int | None = None):
     """B3: ``(dK, dV)`` ``[B,Tk,Hkv,D]`` in k's/v's dtypes, inputs as
-    `flash_bwd_dq`. The kernel on a CUDA tensor, `flash_bwd_dkv_reference`
-    on a CPU one."""
-    global launches_bwd_dkv
+    `flash_bwd_dq`. The kernel of the route on a CUDA tensor,
+    `flash_bwd_dkv_reference` on a CPU one."""
     masks = dict(causal=causal, window=window, sinks=sinks, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(
             q, k, v, dout, lse, delta, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, **masks)
-    _alive, ins, tail = _bwd_args(q, k, v, dout, lse, delta, q_segment_ids,
-                                  kv_segment_ids, **masks)
+    return _launch_dkv(q, k, v, dout, lse, delta, q_segment_ids,
+                       kv_segment_ids, masks)
+
+
+def _launch_dkv(q, k, v, dout, lse, delta, q_seg, kv_seg, masks, route=None):
+    """B3 on a CUDA tensor: the kernel of ``route`` (default `_route`)."""
+    global launches_bwd_dkv, launches_bwd_dkv_tc
+    alive, ins, tail = _bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg,
+                                 **masks)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0 or q.numel() == 0:
         return dk.zero_(), dv.zero_()
+    tc = (route or _route(q.dtype, q.shape[-1])) == "tc"
     with torch.cuda.device(q.device):
-        err = _kernel("flash_bwd_dkv")(*ins, dk.data_ptr(), dv.data_ptr(),
-                                       *tail)
+        if tc:
+            name = "flash_bwd_dkv_sm90"
+            dout, lse, delta, q_seg, kv_seg = alive
+            stats = _tc_stats(lse, delta)
+            mask = _mask_args(q, k, **masks)
+            b, tq, h, d = q.shape
+            err = _kernel(name)(
+                _desc_arg(q, "q"), _desc_arg(k, "k"), _desc_arg(v, "v"),
+                _desc_arg(dout, "dout"), stats.data_ptr(), _ptr(q_seg),
+                _ptr(kv_seg), dk.data_ptr(), dv.data_ptr(), b, tq, k.shape[1],
+                h, k.shape[2], d, stats.shape[-1], *mask[:5], mask[6],
+            )
+        else:
+            name = "flash_bwd_dkv"
+            err = _kernel(name)(*ins, dk.data_ptr(), dv.data_ptr(), *tail)
     if err != 0:
-        raise RuntimeError(
-            f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches_bwd_dkv += 1
+    launches_bwd_dkv_tc += tc
     return dk, dv
+
+
+def _tc_stats(lse, delta):
+    """lse and delta ``[B,Tq,H]`` as the tensor-core B3 reads them: one f32
+    ``[2, B, H, Tq_pad]`` array, Tq padded with zeros to whole 64-row tiles,
+    so that each tile's 64 values are one aligned 256-byte run (one stack,
+    plus a pad where Tq is ragged)."""
+    tq = lse.shape[1]
+    stats = torch.stack((lse.transpose(1, 2), delta.transpose(1, 2)))
+    pad = -tq % _TC_ROWS
+    return torch.nn.functional.pad(stats, (0, pad)) if pad else stats
 
 
 def _forward(q, k, v, q_seg, kv_seg, kw):
