@@ -15,12 +15,12 @@ Phases (any failed check exits non-zero before the result line):
 3. kernels against their plain PyTorch versions on the card: B1 (forward)
    and B2/B3 (backward) in every mask case, GQA, head dims 40-256, f32 and
    bf16, with an lse cotangent, the model's strided V view, a ragged T and
-   the serving shape. Each case names the route it took: ``tc`` (the
-   tensor-core kernels, bf16 with D a multiple of 8 up to 128) or ``simt``
-   (the CUDA-core kernels, f32 or D > 128). B1's times at the serving
-   shapes, and B1/B2/B3's at the training shape on both routes, beside
-   their plain versions', SDPA's (a yardstick the port never calls) and the
-   card's bound;
+   the serving shape. Each case names the route B1, B2 and B3 took: ``tc``
+   (the tensor-core kernels, bf16 with D a multiple of 8 up to 128) or
+   ``simt`` (the CUDA-core kernels, f32 or D > 128). B1's times at the
+   serving shapes, and B1/B2/B3's at the training shape on both routes,
+   beside their plain versions', SDPA's (a yardstick the port never calls)
+   and the card's bound;
 4. serving main path — a `TransformerLM` at the bench LM's full width
    (vocab 8192, d_model 512, 8 heads, 8 layers, bf16 compute, seeded
    weights) is exported as a streaming bundle (batch 8, prompt_len 128, 64
@@ -34,8 +34,8 @@ Phases (any failed check exits non-zero before the result line):
 6. training main path — ``Trainer.fit`` of the same LM with the fused-CE
    head (8 chunks) and ``DistributedOptimizer(adamw(scale_lr(3e-4)))`` for
    30 steps of 8 × 1024 ``copy_task`` rows: every loss finite, the last
-   below the first, B1/B2/B3 each launched n_layers × steps times, B1 and
-   B3 every time on the tensor-core route; a
+   below the first, B1/B2/B3 each launched n_layers × steps times, every
+   time on the tensor-core route; a
    ``train`` line (tokens/s, step ms, peak memory) and a ``breakdown_train``
    line (one step under `torch.profiler`);
 7. training against the plain path — one f32 AdamW step at 2 × 256 on the
@@ -159,7 +159,8 @@ def build_kernels():
     """One nvcc per kernel source, all started together."""
     from horovod_tpu_torch.ops import _build
 
-    names = ["flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_fwd", "flash_bwd"]
+    names = ["flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+             "flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for name, fut in [(n, pool.submit(_build.library, n)) for n in names]:
@@ -410,11 +411,13 @@ def backward_cases(torch):
                 delta = delta - torch.randn(b, tq, h, generator=gen,
                                             device="cuda")
             route = fa._route(dt, d)
-            tc0 = fa.launches_bwd_dkv_tc
+            tc0 = (fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
             dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
             dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
             torch.cuda.synchronize()
-            check(fa.launches_bwd_dkv_tc - tc0 == (route == "tc"),
+            check(fa.launches_bwd_dq_tc - tc0[0] == (route == "tc"),
+                  f"{name}: B2 did not take the {route} route")
+            check(fa.launches_bwd_dkv_tc - tc0[1] == (route == "tc"),
                   f"{name}: B3 did not take the {route} route")
             ref = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, **kw),
                    *fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
@@ -442,7 +445,7 @@ def backward_cases(torch):
             errs["empty_rows"] = int(empty.sum())
             errs["route"] = route
             results[name] = errs
-            log(f"kernel flash_bwd {name} [B2 simt, B3 {route}]: dq err "
+            log(f"kernel flash_bwd {name} [B2 {route}, B3 {route}]: dq err "
                 f"{errs['dq']:.3g} (max "
                 f"{errs['dq_max_abs']:.3g}), dk err {errs['dk']:.3g} (max "
                 f"{errs['dk_max_abs']:.3g}), dv err {errs['dv']:.3g} (max "
@@ -453,9 +456,9 @@ def backward_cases(torch):
 
 def training_shape_timings(torch):
     """B1, B2 and B3 at the training shape (B8·H8·T1024·D64 causal bf16):
-    kernel, plain version and the card's bound; B1 and B3 on both routes
-    (the tensor-core kernels the main path takes, and the CUDA-core ones
-    run on the same bf16 inputs, for the comparison); SDPA's forward and
+    kernel, plain version and the card's bound; each on both routes (the
+    tensor-core kernels the main path takes, and the CUDA-core ones run on
+    the same bf16 inputs, for the comparison); SDPA's forward and
     backward on the same shape as a yardstick (the port never calls it).
     Keys: the kernel's library name."""
     import torch.nn.functional as F
@@ -474,21 +477,25 @@ def training_shape_timings(torch):
     def fwd(route):
         return lambda: fa._launch(q, k, v, None, None, route=route, **masks)
 
+    def dq(route):
+        return lambda: fa._launch_dq(q, k, v, dout, lse, delta, None, None,
+                                     masks, route=route)
+
     def dkv(route):
         return lambda: fa._launch_dkv(q, k, v, dout, lse, delta, None, None,
                                       masks, route=route)
 
     plain_fwd = lambda: fa.flash_attention_reference(q, k, v)  # noqa: E731
+    plain_dq = lambda: fa.flash_bwd_dq_reference(  # noqa: E731
+        q, k, v, dout, lse, delta)
     plain_dkv = lambda: fa.flash_bwd_dkv_reference(  # noqa: E731
         q, k, v, dout, lse, delta)
     # name: (B-number, route, kernel call, plain call)
     calls = {
         "flash_fwd_sm90": ("flash_fwd", "tc", fwd("tc"), plain_fwd),
         "flash_fwd": ("flash_fwd", "simt", fwd("simt"), plain_fwd),
-        "flash_bwd_dq": (
-            "flash_bwd_dq", "simt",
-            lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta),
-            lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta)),
+        "flash_bwd_dq_sm90": ("flash_bwd_dq", "tc", dq("tc"), plain_dq),
+        "flash_bwd_dq": ("flash_bwd_dq", "simt", dq("simt"), plain_dq),
         "flash_bwd_dkv_sm90": ("flash_bwd_dkv", "tc", dkv("tc"), plain_dkv),
         "flash_bwd_dkv": ("flash_bwd_dkv", "simt", dkv("simt"), plain_dkv),
     }
@@ -797,13 +804,14 @@ def train_path(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
-    fa.launches_tc = fa.launches_bwd_dkv_tc = 0
+    fa.launches_tc = fa.launches_bwd_dq_tc = fa.launches_bwd_dkv_tc = 0
     t0 = time.perf_counter()
     hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1)
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_bwd_dq,
                 "flash_bwd_dkv": fa.launches_bwd_dkv,
                 "flash_fwd_tc": fa.launches_tc,
+                "flash_bwd_dq_tc": fa.launches_bwd_dq_tc,
                 "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc}
     peak = torch.cuda.max_memory_allocated()
     losses = [e["loss"] for e in hist]
@@ -814,8 +822,7 @@ def train_path(torch):
     want = MODEL["n_layers"] * TRAIN_STEPS
     for name, n in launches.items():
         check(n == want, f"{name} launched {n} times in training, want "
-              f"n_layers × steps = {want} (B1 and B3 all on the tensor-core "
-              "route)")
+              f"n_layers × steps = {want} (all on the tensor-core route)")
     # Steps after the first two (cuBLAS/allocator warm-up); each step's
     # host time ends with the fetch of its loss.
     steady = sorted(e["epoch_time_s"] * 1e3 for e in hist[2:])
@@ -858,8 +865,8 @@ def train_breakdown(torch, trainer, feed):
     busy_ms = sum(by_name.values())
     flash_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
                 for k in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
-                          "flash_bwd_dq_kernel", "flash_bwd_dkv_sm90_kernel",
-                          "flash_bwd_dkv_kernel")}
+                          "flash_bwd_dq_sm90_kernel", "flash_bwd_dq_kernel",
+                          "flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel")}
     return {
         "wall_ms": wall_ms,
         "kernel_launches": len(kernels),
@@ -902,10 +909,12 @@ def train_vs_plain(torch):
         trainer = Trainer(model, DistributedOptimizer(adamw(lr)),
                           loss="module", seed=0, device=dev)
         before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
-        before_tc = (fa.launches_tc, fa.launches_bwd_dkv_tc)
+        before_tc = (fa.launches_tc, fa.launches_bwd_dq_tc,
+                     fa.launches_bwd_dkv_tc)
         loss = float(trainer.train_step(x, y)["loss"])
         after = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
-        check((fa.launches_tc, fa.launches_bwd_dkv_tc) == before_tc,
+        check((fa.launches_tc, fa.launches_bwd_dq_tc,
+               fa.launches_bwd_dkv_tc) == before_tc,
               f"a {dev} f32 training step took the tensor-core route")
         runs[dev, remat] = (loss, {n: (p.detach().cpu(), p.grad.cpu())
                                    for n, p in model.named_parameters()})
@@ -975,9 +984,12 @@ KERNELS = {
     "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                   "horovod_tpu/ops/flash_attention.py:149", "simt",
                   "f32 training step (phase 7)"),
+    "flash_bwd_dq_sm90": ("horovod_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu",
+                          "horovod_tpu/ops/flash_attention.py:233", "tc",
+                          "bf16 training (phase 6)"),
     "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                      "horovod_tpu/ops/flash_attention.py:233", "simt",
-                     "bf16 training (phase 6)"),
+                     "f32 training step (phase 7)"),
     "flash_bwd_dkv_sm90": ("horovod_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu",
                            "horovod_tpu/ops/flash_attention.py:300", "tc",
                            "bf16 training (phase 6)"),
@@ -1024,18 +1036,21 @@ def main() -> int:
     launches = {
         "flash_fwd_sm90": train_launches["flash_fwd_tc"],
         "flash_fwd": f32_step["launches"]["flash_fwd"],
-        "flash_bwd_dq": train_launches["flash_bwd_dq"],
+        "flash_bwd_dq_sm90": train_launches["flash_bwd_dq_tc"],
+        "flash_bwd_dq": f32_step["launches"]["flash_bwd_dq"],
         "flash_bwd_dkv_sm90": train_launches["flash_bwd_dkv_tc"],
         "flash_bwd_dkv": f32_step["launches"]["flash_bwd_dkv"],
     }
-    fwd_keys, dkv_keys = ("o_max_abs_err",), ("dk", "dv")
+    fwd_keys, dq_keys, dkv_keys = ("o_max_abs_err",), ("dq",), ("dk", "dv")
     max_err = {  # (training shape, all phase-3 cases of the route)
         "flash_fwd_sm90": (errs["training_shape"]["o_max_abs_err"],
                            _max_err(errs, fwd_keys, "tc")),
         "flash_fwd": (errs["f32_window"]["o_max_abs_err"],
                       _max_err(errs, fwd_keys, "simt")),
-        "flash_bwd_dq": (bwd_errs["training_shape"]["dq"],
-                         max(c["dq"] for c in bwd_errs.values())),
+        "flash_bwd_dq_sm90": (bwd_errs["training_shape"]["dq"],
+                              _max_err(bwd_errs, dq_keys, "tc")),
+        "flash_bwd_dq": (bwd_errs["f32_window_lse_cotangent"]["dq"],
+                         _max_err(bwd_errs, dq_keys, "simt")),
         "flash_bwd_dkv_sm90": (
             max(bwd_errs["training_shape"][k] for k in dkv_keys),
             _max_err(bwd_errs, dkv_keys, "tc")),

@@ -1,7 +1,7 @@
 // Flash-attention dK/dV on Hopper's tensor cores (sm_90a), CUDA C++ with a
 // plain C entry: the tensor-core route of B3 (bf16, D a multiple of 8 up to
 // 128). flash_bwd.cu's `hvt_flash_bwd_dkv` stays the CUDA-core route (f32,
-// D > 128); B2 (dQ) keeps its one route there.
+// D > 128); B2 (dQ) has its tensor-core route in flash_bwd_dq_sm90.cu.
 //
 // Replaces the TPU kernel `horovod_tpu/ops/flash_attention.py:
 // _bwd_dkv_kernel` (launched by `_flash_bwd_core`, twice with sinks: the

@@ -5,9 +5,10 @@ their plain PyTorch versions.
   ``_fwd_kernel``): ``csrc/flash_fwd_sm90.cu`` on the tensor-core route,
   ``csrc/flash_fwd.cu`` on the CUDA-core route;
 * backward, behind a `torch.autograd.Function` around B1: B2
-  (``_bwd_dq_kernel``) is ``csrc/flash_bwd.cu``'s ``hvt_flash_bwd_dq`` on
-  both routes; B3 (``_bwd_dkv_kernel``) is ``csrc/flash_bwd_dkv_sm90.cu`` on
-  the tensor-core route and ``flash_bwd.cu``'s ``hvt_flash_bwd_dkv`` on the
+  (``_bwd_dq_kernel``) is ``csrc/flash_bwd_dq_sm90.cu`` on the tensor-core
+  route and ``csrc/flash_bwd.cu``'s ``hvt_flash_bwd_dq`` on the CUDA-core
+  route; B3 (``_bwd_dkv_kernel``) is ``csrc/flash_bwd_dkv_sm90.cu`` on the
+  tensor-core route and ``flash_bwd.cu``'s ``hvt_flash_bwd_dkv`` on the
   CUDA-core route. Gradients flow through ``out`` and ``lse`` (the lse
   cotangent folds into delta = rowsum(dO·O) − dlse, as `_flash_bwd_core`
   does).
@@ -27,9 +28,9 @@ through TMA and raises on a base or stride that is not a multiple of 16
 bytes).
 
 ``launches``, ``launches_bwd_dq`` and ``launches_bwd_dkv`` count kernel
-launches on either route, ``launches_tc`` and ``launches_bwd_dkv_tc`` the
-tensor-core route's (plain module integers), so a run can show that its
-main path went through the kernels, and which.
+launches on either route, ``launches_tc``, ``launches_bwd_dq_tc`` and
+``launches_bwd_dkv_tc`` the tensor-core route's (plain module integers), so
+a run can show that its main path went through the kernels, and which.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
 launches_tc = 0
+launches_bwd_dq_tc = 0
 launches_bwd_dkv_tc = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -220,6 +222,10 @@ def _kernel(name):
             fn = _build.library(name).hvt_flash_fwd_sm90
             fn.argtypes = ([desc] * 3 + [ptr] * 4 + [i32] * 10
                            + [ctypes.c_float, ptr])
+        elif name == "flash_bwd_dq_sm90":
+            fn = _build.library(name).hvt_flash_bwd_dq_sm90
+            fn.argtypes = ([desc] * 4 + [ptr] * 5 + [i32] * 10
+                           + [ctypes.c_float, ptr])
         elif name == "flash_bwd_dkv_sm90":
             fn = _build.library(name).hvt_flash_bwd_dkv_sm90
             fn.argtypes = ([desc] * 4 + [ptr] * 5 + [i32] * 11
@@ -345,23 +351,45 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                  q_offset: int | None = None):
     """B2: dQ ``[B,Tq,H,D]`` in q's dtype from q, k, v, dO, the forward's
     lse ``[B,Tq,H]`` and delta = rowsum(dO·O) − dlse ``[B,Tq,H]``. The
-    kernel on a CUDA tensor, `flash_bwd_dq_reference` on a CPU one."""
-    global launches_bwd_dq
+    kernel of the route on a CUDA tensor, `flash_bwd_dq_reference` on a CPU
+    one."""
     masks = dict(causal=causal, window=window, sinks=sinks, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(
             q, k, v, dout, lse, delta, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, **masks)
-    _alive, ins, tail = _bwd_args(q, k, v, dout, lse, delta, q_segment_ids,
-                                  kv_segment_ids, **masks)
+    return _launch_dq(q, k, v, dout, lse, delta, q_segment_ids,
+                      kv_segment_ids, masks)
+
+
+def _launch_dq(q, k, v, dout, lse, delta, q_seg, kv_seg, masks, route=None):
+    """B2 on a CUDA tensor: the kernel of ``route`` (default `_route`)."""
+    global launches_bwd_dq, launches_bwd_dq_tc
+    alive, ins, tail = _bwd_args(q, k, v, dout, lse, delta, q_seg, kv_seg,
+                                 **masks)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or k.numel() == 0:
         return dq.zero_()
+    tc = (route or _route(q.dtype, q.shape[-1])) == "tc"
     with torch.cuda.device(q.device):
-        err = _kernel("flash_bwd_dq")(*ins, dq.data_ptr(), *tail)
+        if tc:
+            name = "flash_bwd_dq_sm90"
+            dout, lse, delta, q_seg, kv_seg = alive
+            mask = _mask_args(q, k, **masks)
+            b, tq, h, d = q.shape
+            err = _kernel(name)(
+                _desc_arg(q, "q"), _desc_arg(k, "k"), _desc_arg(v, "v"),
+                _desc_arg(dout, "dout"), lse.data_ptr(), delta.data_ptr(),
+                _ptr(q_seg), _ptr(kv_seg), dq.data_ptr(), b, tq, k.shape[1],
+                h, k.shape[2], d, *mask[:5], mask[6],
+            )
+        else:
+            name = "flash_bwd_dq"
+            err = _kernel(name)(*ins, dq.data_ptr(), *tail)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches_bwd_dq += 1
+    launches_bwd_dq_tc += tc
     return dq
 
 
@@ -433,7 +461,10 @@ def _forward(q, k, v, q_seg, kv_seg, kw):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B1 forward, B2 + B3 backward (their plain versions on the CPU)."""
+    """B1 forward, B2 + B3 backward: on a CUDA tensor each launches the
+    kernel of `_route` (``csrc/*_sm90.cu`` on the tensor-core route,
+    ``flash_fwd.cu``/``flash_bwd.cu`` on the CUDA-core route); their plain
+    versions on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, window, sinks,

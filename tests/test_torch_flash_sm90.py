@@ -1,24 +1,25 @@
 """The tensor-core route of the port's flash attention (B1
-``csrc/flash_fwd_sm90.cu``, B3 ``csrc/flash_bwd_dkv_sm90.cu``): what of it
-runs on the CPU.
+``csrc/flash_fwd_sm90.cu``, B2 ``csrc/flash_bwd_dq_sm90.cu``, B3
+``csrc/flash_bwd_dkv_sm90.cu``): what of it runs on the CPU.
 
 * `_route` by dtype and head dim;
 * the TMA tensor-map descriptions the wrappers compute in Python for the
   strided q/k/v views of `TransformerLM` (shape, byte strides, box), and the
   refusal of a base or stride off 16 bytes;
-* a precision rehearsal of the new B3 arithmetic: P and dS fed to the two
-  transposed products as bf16 hi + lo pairs, at a reduced causal shape
+* precision rehearsals of the B2 and B3 arithmetic: dS (and, for B3, P)
+  fed to the products as bf16 hi + lo pairs, at a reduced causal shape
   (B2·H4·T256·D64, bf16 inputs from a numpy seed), held to
   ``chip_smoke.py``'s bf16 ``GRAD_TOL`` against the plain
-  `flash_bwd_dkv_reference` and against the JAX kernels (interpret mode)
-  run on the same residuals (out, lse);
-* the lse/delta staging array B3 reads, and the build's library hash over
-  the shared headers.
+  `flash_bwd_dq_reference` / `flash_bwd_dkv_reference` and against the JAX
+  kernels (interpret mode) run on the same residuals (out, lse);
+* the lse/delta staging array B3 reads, the C entries' argument counts,
+  and the build's library hash over the shared headers.
 
 The kernels themselves run only on the card (`cuda`-marked tests below and
 ``chip_smoke.py``).
 """
 
+import ctypes
 import os
 import shutil
 import types
@@ -119,6 +120,36 @@ def _tc_dkv(q, k, v, dout, lse, delta):
     return (dk * q.shape[-1] ** -0.5).to(BF16), dv.to(BF16)
 
 
+def _tc_dq(q, k, v, dout, lse, delta):
+    """B2's tensor-core arithmetic in plain PyTorch (MHA): S and dP from the
+    bf16 inputs in f32, dS fed as a hi + lo pair, f32 sums, one rounding to
+    bf16 at the end."""
+    _, kf, _, _, ds = tfa._probs(q, k, v, dout, lse, delta)
+    dq = sum(torch.einsum("bhqk,bkhd->bqhd", x, kf) for x in _split(ds))
+    return (dq * q.shape[-1] ** -0.5).to(BF16)
+
+
+def _rehearsal_inputs(seed):
+    """Causal B2·H4·T256·D64 bf16 inputs from a numpy seed, with the
+    forward's out and lse and delta = rowsum(dO·O)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, dout = (torch.from_numpy(rng.randn(2, 256, 4, 64).astype(
+        np.float32)).to(BF16) for _ in range(4))
+    out, lse = tfa.flash_attention_reference(q, k, v)
+    return q, k, v, dout, out, lse, tfa._delta(out, dout, None)
+
+
+def _jax_grads(q, k, v, dout, out, lse):
+    """The JAX kernels (interpret mode) on the same residuals: f32 copies of
+    the bf16 inputs and of the port's out, its lse as [B, H, T, 1]."""
+    j = lambda x: jnp.asarray(x.float().numpy())  # noqa: E731
+    res = (j(q), j(k), j(v), None, None, j(out),
+           jnp.transpose(j(lse), (0, 2, 1))[..., None])
+    grads = jfa._flash_bwd_core(True, None, 0, None, 64, 64, True, res,
+                                j(dout), None)
+    return [torch.from_numpy(np.array(x)) for x in grads[:3]]
+
+
 def _tol_share(got, want):
     """The largest error as a share of chip_smoke's bf16 GRAD_TOL."""
     w = want.float()
@@ -133,13 +164,23 @@ def _assert_grad_tol(got, want, name):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
+def test_precision_rehearsal_of_tc_dq(seed):
+    q, k, v, dout, out, lse, delta = _rehearsal_inputs(seed)
+    dq = _tc_dq(q, k, v, dout, lse, delta)
+    ref_dq = tfa.flash_bwd_dq_reference(q, k, v, dout, lse, delta)
+    _assert_grad_tol(dq, ref_dq, "dq vs plain")
+    # One bf16 rounding of dS (no lo product) lands further off.
+    _, kf, _, _, ds = tfa._probs(q, k, v, dout, lse, delta)
+    dq1 = (torch.einsum("bhqk,bkhd->bqhd", ds.to(BF16).float(), kf)
+           * q.shape[-1] ** -0.5).to(BF16)
+    assert _tol_share(dq, ref_dq) < _tol_share(dq1, ref_dq)
+    _assert_grad_tol(dq, _jax_grads(q, k, v, dout, out, lse)[0], "dq vs jax")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
 def test_precision_rehearsal_of_tc_dkv(seed):
-    b, t, h, d = 2, 256, 4, 64
-    rng = np.random.RandomState(seed)
-    q, k, v, dout = (torch.from_numpy(rng.randn(b, t, h, d).astype(
-        np.float32)).to(BF16) for _ in range(4))
-    out, lse = tfa.flash_attention_reference(q, k, v)
-    delta = tfa._delta(out, dout, None)
+    q, k, v, dout, out, lse, delta = _rehearsal_inputs(seed)
+    d = q.shape[-1]
     dk, dv = _tc_dkv(q, k, v, dout, lse, delta)
     ref_dk, ref_dv = tfa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta)
     _assert_grad_tol(dk, ref_dk, "dk vs plain")
@@ -151,14 +192,7 @@ def test_precision_rehearsal_of_tc_dkv(seed):
     dv1 = torch.einsum("bhqk,bqhd->bkhd", r(p), dof).to(BF16)
     assert _tol_share(dk, ref_dk) < _tol_share(dk1, ref_dk)
     assert _tol_share(dv, ref_dv) < _tol_share(dv1, ref_dv)
-    # The JAX kernels (interpret mode) on the same residuals: f32 copies of
-    # the bf16 inputs and of the port's out, its lse as [B, H, T, 1].
-    j = lambda x: jnp.asarray(x.float().numpy())  # noqa: E731
-    res = (j(q), j(k), j(v), None, None, j(out),
-           jnp.transpose(j(lse), (0, 2, 1))[..., None])
-    grads = jfa._flash_bwd_core(True, None, 0, None, 64, 64, True, res,
-                                j(dout), None)
-    jax_dk, jax_dv = (torch.from_numpy(np.array(x)) for x in grads[1:3])
+    jax_dk, jax_dv = _jax_grads(q, k, v, dout, out, lse)[1:]
     _assert_grad_tol(dk, jax_dk, "dk vs jax")
     _assert_grad_tol(dv, jax_dv, "dv vs jax")
 
@@ -166,7 +200,8 @@ def test_precision_rehearsal_of_tc_dkv(seed):
 def test_build_hash_covers_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    names = ("flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_fwd")
+    names = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+             "flash_fwd")
     before = {n: _build.library_path(n, str(csrc)) for n in names}
     assert before == {n: _build.library_path(n) for n in names}
     header = csrc / "sm90.cuh"
@@ -197,14 +232,36 @@ def test_build_passes_csrc_include(monkeypatch, tmp_path):
     assert os.path.basename(lib).startswith("libflash_fwd_sm90-")
 
 
+# The C entries of the tensor-core kernels and their argument counts
+# (hvt_flash_fwd_sm90: 3 descriptions, 4 pointers, 10 ints, scale, stream).
+@pytest.mark.parametrize("name,n_args", [
+    ("flash_fwd_sm90", 19), ("flash_bwd_dq_sm90", 21),
+    ("flash_bwd_dkv_sm90", 22),
+])
+def test_tc_entry_argtypes(monkeypatch, name, n_args):
+    entry = types.SimpleNamespace()
+    lib = types.SimpleNamespace(**{f"hvt_{name}": entry})
+    monkeypatch.setattr(_build, "library", lambda n: lib)
+    monkeypatch.setattr(tfa, "_fns", {})
+    assert tfa._kernel(name) is entry
+    assert len(entry.argtypes) == n_args and entry.restype is ctypes.c_int
+    assert entry.argtypes[-2] is ctypes.c_float  # scale, then the stream
+
+
 def test_cpu_calls_count_no_tc_launch():
     g = torch.Generator().manual_seed(2)
     q, k, v, dout = (torch.randn(1, 64, 2, 64, generator=g).to(BF16)
                      for _ in range(4))
-    before = (tfa.launches_tc, tfa.launches_bwd_dkv_tc)
+    counts = lambda: (tfa.launches_tc, tfa.launches_bwd_dq,  # noqa: E731
+                      tfa.launches_bwd_dq_tc, tfa.launches_bwd_dkv_tc)
+    before = counts()
     out, lse = tfa.flash_attention_with_lse(q, k, v)
-    tfa.flash_bwd_dkv(q, k, v, dout, lse, tfa._delta(out, dout, None))
-    assert (tfa.launches_tc, tfa.launches_bwd_dkv_tc) == before
+    delta = tfa._delta(out, dout, None)
+    dq = tfa.flash_bwd_dq(q, k, v, dout, lse, delta)
+    tfa.flash_bwd_dkv(q, k, v, dout, lse, delta)
+    assert counts() == before
+    torch.testing.assert_close(
+        dq, tfa.flash_bwd_dq_reference(q, k, v, dout, lse, delta))
 
 
 # -- the kernels (skip without a card) ------------------------------------
@@ -230,17 +287,21 @@ def test_tc_kernels_match_plain_version(cuda, d, layout):
     else:
         q, k, v = (torch.randn(b, t, h, d, generator=g, device=cuda).to(BF16)
                    for _ in range(3))
-    before = (tfa.launches_tc, tfa.launches_bwd_dkv_tc)
+    before = (tfa.launches_tc, tfa.launches_bwd_dq_tc,
+              tfa.launches_bwd_dkv_tc)
     out, lse = tfa.flash_attention_with_lse(q, k, v)
     dout = torch.randn(b, t, h, d, generator=g, device=cuda).to(BF16)
     delta = tfa._delta(out, dout, None)
+    dq = tfa.flash_bwd_dq(q, k, v, dout, lse, delta)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, dout, lse, delta)
     torch.cuda.synchronize()
-    assert (tfa.launches_tc, tfa.launches_bwd_dkv_tc) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert (tfa.launches_tc, tfa.launches_bwd_dq_tc,
+            tfa.launches_bwd_dkv_tc) == tuple(n + 1 for n in before)
     ro, rl = tfa.flash_attention_reference(q, k, v)
     torch.testing.assert_close(out.float(), ro.float(), atol=2e-2, rtol=1e-2)
     torch.testing.assert_close(lse, rl, atol=1e-3, rtol=0)
+    _assert_grad_tol(dq, tfa.flash_bwd_dq_reference(q, k, v, dout, lse, delta),
+                     "dq")
     for got, want, n in zip((dk, dv), tfa.flash_bwd_dkv_reference(
             q, k, v, dout, lse, delta), ("dk", "dv")):
         _assert_grad_tol(got, want, n)
