@@ -43,8 +43,40 @@ Phases (any failed check exits non-zero before the result line):
    updated parameters compared, all on the CUDA-core route; the card's
    step again with remat (B1 launched twice per layer, the same loss and
    gradients, bit for bit);
-8. the ``kernels`` JSON line, then the last line
+8. ``mnist_tf2`` — the twin of the TF2 MNIST script
+   (``horovod_tpu_torch.examples.tf2_style_mnist``: Adam(0.001 × size),
+   warmup, rank-0 checkpoints and scalar log) under ``python -m
+   horovod_tpu_torch.launch run --nprocs 1``: a world of one NCCL rank, so
+   the gradient averaging is a real NCCL all-reduce; 500 steps × 24 epochs
+   at 128 unless cut. The loss must fall and every epoch's checkpoint be
+   intact; images/s, warmup scales and peak memory are printed;
+9. ``mnist_tf1`` — the twin of the TF1 MNIST script (Adadelta(1.0 × size),
+   per-epoch validation, final evaluate, save/reload, serving export) at
+   ``--nprocs 1``, 12 epochs on 60k/10k. It fails unless the mean of the
+   ``loss`` records in ``metrics.jsonl`` lies in [0, 0.3] (the CI gate); a
+   resume from the newest checkpoint restores the script's final training
+   state bit for bit (its state digest) and evaluates to the script's test
+   loss within 1e-6; and the exported bundle holds those parameters bit for
+   bit and computes ``Trainer.predict``'s probabilities within 1e-6
+   absolute and 1e-5 relative (every entry above 1e-30) on test images and
+   on blends of two, where the trained model is not saturated.
+   val_accuracy per epoch and the epoch and seconds at which it first
+   reaches 98 % are printed;
+10. ``mnist_2rank`` — the TF2 twin at ``--nprocs 2``, both ranks on the one
+   card over gloo, named with ``HVT_BACKEND=gloo`` (an H100 cannot host two
+   NCCL ranks, so without it ``init`` refuses): a correctness
+   check, not a speed. It fails unless the two ranks' parameters and
+   optimizer state are bit-identical after ``fit`` (an allgathered
+   digest), only rank 0 wrote checkpoints, ``events.jsonl`` and
+   ``metrics.jsonl``, and the loss falls; then a ``breakdown_mnist`` line:
+   where a phase-8 step's time goes (loader, step, device busy share, top
+   kernels), measured in this process at one NCCL rank;
+11. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8 and 9, at
+N NCCL ranks, one card each, with the reference budgets for N ranks: the
+multi-rank NCCL path that one card cannot host.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -105,6 +137,24 @@ MODEL = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=8,
              dropout=0.0)
 BATCH, PROMPT_LEN, NEW_TOKENS, CHUNK = 8, 128, 64, 16
 N_REQUESTS = 12
+# Phases 8-10: the reference budgets (tf2: steps_per_epoch = 500 // size,
+# 24 epochs at 128; tf1: ceil(12 / size) epochs over 60k at 128), each cut
+# through the scripts' DRIVE_* knobs only where set here.
+MNIST_BATCH = 128
+# The full tf2 budget took 122 s on the H100 (24 epochs at ~3.2 s and
+# ~45 s of process start, data synthesis and checkpoints); 5 epochs keep
+# phase 8 near a minute. tf1's full budget took 80 s and runs uncut.
+MNIST_TF2_CUT = {"DRIVE_EPOCHS": "5"}
+MNIST_2RANK_CUT = {"DRIVE_STEPS": "20", "DRIVE_EPOCHS": "3"}
+CI_LOSS_GATE = (0.0, 0.3)  # launch/jobs/mnist-ci.yaml's loss range
+SERVE_ATOL = RESUME_ATOL = 1e-6
+# The bundle against predict, entry by entry: the same f32 ops on the same
+# card in the same batches, so any difference is rounding. The relative
+# limit reaches the entries far below the top class, which an absolute one
+# cannot see once the model is saturated (probabilities under 1e-30 are
+# compared absolutely).
+SERVE_RTOL, SERVE_REL_FLOOR = 1e-5, 1e-30
+MNIST_TIMEOUT_S = 400
 
 
 class SmokeFailure(RuntimeError):
@@ -806,7 +856,8 @@ def train_path(torch):
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     fa.launches_tc = fa.launches_bwd_dq_tc = fa.launches_bwd_dkv_tc = 0
     t0 = time.perf_counter()
-    hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1)
+    hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1,
+                       verbose=0)
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_bwd_dq,
                 "flash_bwd_dkv": fa.launches_bwd_dkv,
@@ -975,6 +1026,346 @@ def train_vs_plain(torch):
     return result
 
 
+# -- phases 8-10 ----------------------------------------------------------------
+
+def _launch(name, nprocs, script, knobs):
+    """Run ``horovod_tpu_torch.examples.<script>`` under the port's
+    launcher with ``nprocs`` ranks and the env ``knobs``, its artifacts
+    under WORK/<name> and the dataset cache under WORK/data. Returns
+    (output lines, wall seconds, launch wall-clock time, model path); the
+    whole output is kept in WORK/<name>.log."""
+    import signal
+
+    model_path = os.path.join(WORK, name)
+    env = dict(os.environ, PS_MODEL_PATH=model_path,
+               HVT_DATA_DIR=os.path.join(WORK, "data"),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p),
+               **knobs)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.launch", "run",
+           "--nprocs", str(nprocs), "--", sys.executable, "-m",
+           f"horovod_tpu_torch.examples.{script}"]
+    started = time.time()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=MNIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(WORK, f"{name}.log"), "w") as f:
+        f.write(out)
+    lines = out.splitlines()
+    check(proc.returncode == 0,
+          f"{name}: the launch exited {proc.returncode}; last lines:\n"
+          + "\n".join(lines[-15:]))
+    return lines, wall, started, model_path
+
+
+def _rank0(lines, prefix):
+    """The rest of rank 0's first output line starting with ``prefix``."""
+    tag = f"[rank 0] {prefix}"
+    for line in lines:
+        if line.startswith(tag):
+            return line[len(tag):].strip()
+    raise SmokeFailure(f"no rank-0 line {prefix!r} in the output")
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _checkpoints(model_dir):
+    """The epoch checkpoint files in ``model_dir``; each must be intact."""
+    from horovod_tpu_torch import checkpoint
+
+    names = sorted((n for n in os.listdir(model_dir)
+                    if checkpoint.CHECKPOINT_RE.search(n)),
+                   key=lambda n: int(checkpoint.CHECKPOINT_RE.search(n)[1]))
+    for n in names:
+        check(checkpoint.checkpoint_intact(os.path.join(model_dir, n)),
+              f"checkpoint {n} fails its digest")
+    return names
+
+
+def _world(lines, nprocs, backend):
+    world = _rank0(lines, "World:")
+    check(f"process_count={nprocs}," in world
+          and f"backend='{backend}'" in world,
+          f"want {nprocs} rank(s) on {backend}, got {world}")
+    return world
+
+
+def _tf2_summary(lines, model_path, steps_per_epoch, nprocs):
+    """Per-epoch figures of a tf2 twin run from its rank-0 event log."""
+    model_dir = os.path.join(model_path, "horovod-mnist")
+    records = _jsonl(os.path.join(model_dir, "events.jsonl"))
+    epochs = [r for r in records if "epoch/loss" in r]
+    losses = [r["epoch/loss"] for r in epochs]
+    check(losses and all(map(math.isfinite, losses)),
+          f"non-finite MNIST loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"MNIST loss did not fall: {losses[0]:.4f} → {losses[-1]:.4f}")
+    ips = sorted(steps_per_epoch * MNIST_BATCH * nprocs
+                 / r["epoch/epoch_time_s"] for r in epochs)
+    digests = _rank0(lines, "State digests:").split()
+    check(len(digests) == nprocs and len(set(digests)) == 1,
+          f"ranks' training states differ after fit: {digests}")
+    return {
+        "epochs": len(epochs), "steps": steps_per_epoch * len(epochs),
+        "images_per_s_median": ips[len(ips) // 2],
+        "images_per_s_min": ips[0], "images_per_s_max": ips[-1],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "checkpoints": _checkpoints(model_dir),
+        "state_digest": digests[0][:16],
+    }, records
+
+
+def mnist_tf2(torch, nprocs=1, cut=MNIST_TF2_CUT):
+    """Phase 8: the tf2 twin at ``nprocs`` NCCL ranks (one card each), the
+    reference budget (500 // nprocs steps × 24 epochs) unless cut."""
+    lines, wall, _, model_path = _launch("mnist_tf2", nprocs,
+                                         "tf2_style_mnist", cut)
+    world = _world(lines, nprocs, "nccl")
+    steps = int(cut.get("DRIVE_STEPS", 500 // nprocs))
+    result, _ = _tf2_summary(lines, model_path, steps, nprocs)
+    check(result["epochs"] == int(cut.get("DRIVE_EPOCHS", 24)),
+          f"{result['epochs']} epoch records")
+    check(len(result["checkpoints"]) == result["epochs"],
+          f"checkpoints {result['checkpoints']}")
+    warmup = [float(line.split()[-1]) for line in lines
+              if "LearningRateWarmup:" in line]
+    result.update({
+        "world": world, "backend": "nccl", "cut": cut or None,
+        "warmup_scales": warmup, "wall_s": wall,
+        "peak_memory_bytes": int(_rank0(lines,
+                                        "Peak device memory (bytes):")),
+    })
+    log("mnist_tf2", json.dumps(result))
+    return result
+
+
+def _serving_probe(x):
+    """The first 128 test images and 128 halfway blends of two neighbouring
+    ones: on a blend the trained model puts weight on two classes, so its
+    small probabilities are far from 0 and the comparison sees them."""
+    import numpy as np
+
+    return np.concatenate([x[:128], 0.5 * (x[:128] + x[128:256])])
+
+
+def check_serving(trainer, bundle, x, device):
+    """The bundle against ``trainer``: its parameters bit for bit, and its
+    probabilities against ``Trainer.predict`` on ``x`` in the same batches.
+    Returns the figures; raises SmokeFailure on a difference."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import checkpoint
+
+    held = torch.export.load(
+        os.path.join(bundle, checkpoint.PROGRAM_FILE)).state_dict
+    params = dict(trainer.module.named_parameters())
+    check(sorted(held) == sorted(f"module.{k}" for k in params)
+          and all(torch.equal(held[f"module.{k}"].cpu(), p.detach().cpu())
+                  for k, p in params.items()),
+          "the bundle's parameters are not the trained state's")
+    serve = checkpoint.load_serving(bundle, device=device)
+    served = np.concatenate([serve(x[i:i + MNIST_BATCH])
+                             for i in range(0, len(x), MNIST_BATCH)])
+    predicted = trainer.predict(x, batch_size=MNIST_BATCH)
+    diff = np.abs(served - predicted)
+    top = np.maximum(served, predicted)
+    seen = top >= SERVE_REL_FLOOR
+    result = {
+        "serve_max_abs_err": float(diff.max()),
+        "serve_max_rel_err": float((diff[seen] / top[seen]).max()),
+        "serve_entries_compared_rel": int(seen.sum()),
+        "serve_rows_unsaturated": int((predicted.max(-1) < 0.999).sum()),
+    }
+    check(served.shape == predicted.shape == (len(x), 10)
+          and result["serve_max_abs_err"] <= SERVE_ATOL
+          and result["serve_max_rel_err"] <= SERVE_RTOL
+          and result["serve_entries_compared_rel"] > len(x),
+          f"serving bundle vs predict: {served.shape}, {result}")
+    return result
+
+
+def mnist_tf1(torch, nprocs=1):
+    """Phase 9: the tf1 twin at ``nprocs`` NCCL ranks, the reference budget
+    (ceil(12 / nprocs) epochs); its CI loss gate, a resume from its newest
+    checkpoint and its serving export, checked here, in one process, from
+    the script's artifacts."""
+    import numpy as np
+
+    from horovod_tpu_torch import (DistributedOptimizer, Trainer, adadelta,
+                                   checkpoint)
+    from horovod_tpu_torch.data import datasets
+    from horovod_tpu_torch.models.cnn import MnistCNN
+
+    lines, wall, started, model_path = _launch("mnist_tf1", nprocs,
+                                               "tf1_style_mnist", {})
+    world = _world(lines, nprocs, "nccl")
+    model_dir = os.path.join(model_path, "horovod-mnist")
+    epochs = [r for r in _jsonl(os.path.join(model_dir, "eval",
+                                             "events.jsonl"))
+              if "epoch/val_accuracy" in r]
+    val_acc = [r["epoch/val_accuracy"] for r in epochs]
+    first98 = next((i for i, a in enumerate(val_acc) if a >= 0.98), None)
+    test_loss = float(_rank0(lines, "Test loss:"))
+    test_acc = float(_rank0(lines, "Test accuracy:"))
+    final_digest = _rank0(lines, "State digests:").split()[0]
+    gate = [r["value"] for r in _jsonl(os.path.join(model_path,
+                                                    "metrics.jsonl"))
+            if r["name"] == "loss"]
+    gate_mean = sum(gate) / len(gate)
+    check(CI_LOSS_GATE[0] <= gate_mean <= CI_LOSS_GATE[1],
+          f"CI gate: mean loss {gate_mean} outside {CI_LOSS_GATE}")
+    # The script's artifacts, read back in this process.
+    (_, _), (x_test, y_test) = datasets.mnist(
+        cache_dir=os.path.join(WORK, "data"))
+    x_test = (x_test.astype(np.float32) / 255.0)[..., None]
+    y_test = np.eye(10, dtype=np.float32)[y_test]
+    trainer = Trainer(MnistCNN(device=DEVICE),
+                      DistributedOptimizer(adadelta(1.0)),
+                      loss="categorical_crossentropy", device=DEVICE)
+    trainer.build()
+    _, resumed_epoch = checkpoint.restore_latest_and_broadcast(
+        model_dir, trainer.state)
+    check(resumed_epoch == len(epochs),
+          f"resumed epoch {resumed_epoch}, trained {len(epochs)}")
+    check(checkpoint.state_digest(trainer.state) == final_digest,
+          "resume: the newest checkpoint is not the script's final state")
+    resumed_loss = trainer.evaluate(x_test, y_test, batch_size=MNIST_BATCH)[
+        "loss"]
+    check(abs(resumed_loss - test_loss) <= RESUME_ATOL,
+          f"resume: loss {resumed_loss} vs the script's {test_loss}")
+    serving = check_serving(trainer, _rank0(lines, "Exported serving bundle:"),
+                            _serving_probe(x_test), DEVICE)
+    per_epoch = 60000 // nprocs // MNIST_BATCH * MNIST_BATCH * nprocs
+    result = {
+        "world": world, "backend": "nccl",
+        "epochs": len(epochs), "val_accuracy": val_acc,
+        "first_epoch_98": None if first98 is None else first98 + 1,
+        "train_s_to_98": None if first98 is None else sum(
+            r["epoch/epoch_time_s"] for r in epochs[:first98 + 1]),
+        "wall_s_to_98": None if first98 is None
+        else epochs[first98]["wall_time"] - started,
+        "images_per_s_median": sorted(
+            per_epoch / r["epoch/epoch_time_s"]
+            for r in epochs)[len(epochs) // 2],
+        "test_loss": test_loss, "test_accuracy": test_acc,
+        "ci_gate_mean_loss": gate_mean, "ci_gate_records": len(gate),
+        "resume_state_bit_identical": True,
+        "resume_loss_abs_err": abs(resumed_loss - test_loss),
+        "bundle_params_bit_identical": True, **serving,
+        "wall_s": wall,
+        "peak_memory_bytes": int(_rank0(lines,
+                                        "Peak device memory (bytes):")),
+    }
+    log("mnist_tf1", json.dumps(result))
+    return result
+
+
+def mnist_2rank(torch):
+    """Phase 10: the tf2 twin at two gloo ranks on the one card, a few
+    epochs of a few steps: the ranks end bit-identical and only rank 0
+    writes."""
+    lines, wall, _, model_path = _launch(
+        "mnist_2rank", 2, "tf2_style_mnist",
+        dict(MNIST_2RANK_CUT, HVT_BACKEND="gloo"))
+    world = _world(lines, 2, "gloo")
+    steps = int(MNIST_2RANK_CUT["DRIVE_STEPS"])
+    n_epochs = int(MNIST_2RANK_CUT["DRIVE_EPOCHS"])
+    result, records = _tf2_summary(lines, model_path, steps, 2)
+    model_dir = os.path.join(model_path, "horovod-mnist")
+    # One writer: a second would double every record of the shared files.
+    n_batch = sum(1 for r in records if "batch/loss" in r)
+    n_gate = sum(1 for r in _jsonl(os.path.join(model_path, "metrics.jsonl"))
+                 if r["name"] == "loss")
+    n_tb = sum(1 for n in os.listdir(model_dir)
+               if n.startswith("events.out.tfevents."))
+    check((result["epochs"], n_batch, n_gate, n_tb)
+          == (n_epochs, n_epochs * steps, n_epochs, 1),
+          f"artifacts from more than rank 0: {result['epochs']} epoch, "
+          f"{n_batch} batch, {n_gate} metrics.jsonl loss records, "
+          f"{n_tb} TensorBoard files")
+    check(len(result["checkpoints"]) == n_epochs,
+          f"checkpoints {result['checkpoints']}")
+    result.update({"world": world, "backend": "gloo",
+                   "ranks_bit_identical": True, "rank0_only_artifacts": True,
+                   "wall_s": wall, "note": "correctness check, not a speed"})
+    log("mnist_2rank", json.dumps(result))
+    return result
+
+
+def mnist_breakdown(torch):
+    """Where a tf2 step's time goes (phase 8's configuration: bf16
+    `MnistCNN`, Adam, batch 128, a world of one NCCL rank), measured in
+    this process after the phases' checks; not a check. The host time of
+    the loader alone, of 200 steps on preloaded batches, and one profiled
+    window of 20 steps (kernel launches, device busy time and top kernels
+    per step)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch import (DistributedOptimizer, Trainer, adam,
+                                   runtime)
+    from horovod_tpu_torch.data import datasets
+    from horovod_tpu_torch.data.loader import ArrayDataset
+    from horovod_tpu_torch.launch.launcher import pick_free_port
+    from horovod_tpu_torch.models.cnn import MnistCNN
+
+    (x, y), _ = datasets.mnist(path="mnist-0.npz",
+                               cache_dir=os.path.join(WORK, "data"))
+    x = (x.astype(np.float32) / 255.0)[..., None]
+    it = iter(ArrayDataset((x, y.astype(np.int64))).repeat()
+              .shuffle(10000, seed=0).batch(MNIST_BATCH))
+    runtime.init(f"127.0.0.1:{pick_free_port()}", 1, 0, device=DEVICE)
+    try:
+        trainer = Trainer(MnistCNN(compute_dtype=torch.bfloat16,
+                                   device=DEVICE),
+                          DistributedOptimizer(adam(1e-3)), device=DEVICE)
+        for _ in range(20):
+            trainer.train_step(*next(it))
+        torch.cuda.synchronize()
+        n, window = 200, 20
+        t = time.perf_counter()
+        batches = [next(it) for _ in range(n)]
+        load_ms = (time.perf_counter() - t) * 1e3 / n
+        t = time.perf_counter()
+        for b in batches:
+            trainer.train_step(*b)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for b in batches[:window]:
+                trainer.train_step(*b)
+            torch.cuda.synchronize()
+        kernels, by_name = device_kernels(torch, prof)
+        backend = runtime.backend()
+    finally:
+        runtime.shutdown()
+    busy = sum(by_name.values()) / window
+    return {
+        "backend": backend, "batch": MNIST_BATCH,
+        "loader_ms_per_batch": load_ms,
+        "step_ms_preloaded": step_ms,
+        "images_per_s_preloaded": MNIST_BATCH / (step_ms / 1e3),
+        "kernel_launches_per_step": len(kernels) / window,
+        "device_busy_ms_per_step": busy if kernels else "not measured",
+        "device_busy_share": busy / step_ms if kernels else "not measured",
+        "top_kernels_ms_per_step": [
+            [k[:80], ms / window] for k, ms in
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+    }
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -1005,7 +1396,37 @@ def _max_err(cases, keys, route):
                 for k in keys), default=None)
 
 
-def main() -> int:
+def multi_card(torch, ranks: int) -> int:
+    """``--ranks N``: only the MNIST twins, at N NCCL ranks, one card each
+    (the multi-rank NCCL path one card cannot host), then the result
+    line."""
+    t_start = time.perf_counter()
+    try:
+        check(torch.cuda.device_count() >= ranks,
+              f"--ranks {ranks} needs {ranks} cards, this host has "
+              f"{torch.cuda.device_count()}")
+        toolchain(torch)
+        mnist_tf2(torch, ranks, cut={})
+        mnist_tf1(torch, ranks)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    parser.add_argument(
+        "--ranks", type=int, default=1,
+        help="N > 1: run only the MNIST twins at N NCCL ranks (N cards)")
+    args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
               "script", file=sys.stderr)
@@ -1018,6 +1439,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    if args.ranks > 1:
+        return multi_card(torch, args.ranks)
     t_start = time.perf_counter()
     try:
         card = toolchain(torch)
@@ -1029,6 +1452,10 @@ def main() -> int:
         main_vs_plain(torch)
         train_launches = train_path(torch)
         f32_step = train_vs_plain(torch)
+        mnist_tf2(torch)
+        mnist_tf1(torch)
+        mnist_2rank(torch)
+        log("breakdown_mnist", json.dumps(mnist_breakdown(torch)))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

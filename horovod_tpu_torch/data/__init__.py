@@ -1,1 +1,1 @@
-"""Datasets of the port (numpy only)."""
+"""Datasets and the input pipeline of the port (numpy only)."""

@@ -1,1 +1,2 @@
-"""Entry points: the HTTP generation server."""
+"""Entry points: the local multi-process launcher and the HTTP generation
+server."""

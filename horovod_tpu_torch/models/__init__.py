@@ -1,2 +1,2 @@
-"""Models: the decoder-only `TransformerLM`, its decode loop and the flax
-param converter."""
+"""Models: the decoder-only `TransformerLM` and its decode loop, the MNIST
+CNN, and the flax param converters."""

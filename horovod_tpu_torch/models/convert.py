@@ -1,4 +1,4 @@
-"""flax param tree ⇄ `TransformerLM` state_dict.
+"""flax param tree ⇄ `TransformerLM` / `MnistCNN` state_dict.
 
 The input of `params_from_flax` is the JAX model's ``params`` tree as
 nested dicts of numpy arrays (``jax.device_get`` of it) — this module
@@ -119,4 +119,40 @@ def params_to_flax(state_dict, *, n_heads: int) -> dict:
             "kernel": np.ascontiguousarray(sd[pre + "mlp_down.weight"].T)
         }
         tree[f"Block_{i}"] = blk
+    return tree
+
+
+# -- MnistCNN ------------------------------------------------------------------
+#
+# flax side: ``Conv_0``/``Conv_1`` kernels HWIO ``[3, 3, in, out]``,
+# ``Dense_0`` ``[9216, 128]`` over the NHWC flatten, ``Dense_1`` ``[128, 10]``;
+# all with ``bias``. Torch side: conv weights OIHW, linear weights
+# ``[out, in]``. `MnistCNN` flattens in NHWC order too, so Dense_0 needs no
+# row permutation.
+
+_CNN_LAYERS = (("Conv_0", "conv1"), ("Conv_1", "conv2"),
+               ("Dense_0", "dense1"), ("Dense_1", "dense2"))
+
+
+def cnn_params_from_flax(tree) -> dict:
+    """flax ``MnistCNN`` params tree → `MnistCNN` state_dict (f32)."""
+    sd = {}
+    for flax_name, name in _CNN_LAYERS:
+        kernel = np.asarray(tree[flax_name]["kernel"])
+        perm = (3, 2, 0, 1) if kernel.ndim == 4 else (1, 0)
+        sd[f"{name}.weight"] = _t(np.ascontiguousarray(kernel.transpose(perm)))
+        sd[f"{name}.bias"] = _t(tree[flax_name]["bias"])
+    return sd
+
+
+def cnn_params_to_flax(state_dict) -> dict:
+    """`MnistCNN` state_dict → flax params tree of f32 numpy arrays; the
+    exact inverse of `cnn_params_from_flax`."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    tree = {}
+    for flax_name, name in _CNN_LAYERS:
+        w = sd[f"{name}.weight"]
+        perm = (2, 3, 1, 0) if w.ndim == 4 else (1, 0)
+        tree[flax_name] = {"kernel": np.ascontiguousarray(w.transpose(perm)),
+                           "bias": sd[f"{name}.bias"]}
     return tree

@@ -1,1 +1,2 @@
-"""Training: the trainer core, its state and the distributed optimizer."""
+"""Training: the trainer, its state, the distributed optimizer and the
+callbacks."""

@@ -1,0 +1,304 @@
+"""Callback protocol — port of `horovod_tpu.training.callbacks` (the
+``hvd.callbacks.*`` parity surface plus the rank-0 Keras I/O pair).
+
+* `BroadcastGlobalVariablesCallback` — params AND optimizer state from the
+  root rank at train begin.
+* `MetricAverageCallback` — epoch-end cross-rank mean of the logs; keep it
+  ahead of metric-consuming callbacks (callbacks run in list order).
+* `LearningRateWarmupCallback` / `LearningRateScheduleCallback` — scale
+  the update by s(e) through ``trainer.update_scale``.
+* `ModelCheckpoint` / `ScalarLogger` — rank-0-only checkpoints and scalar
+  logs (``events.jsonl`` and TensorBoard event files).
+
+Not ported yet (ROADMAP queue A item 13, the control plane): preemption
+checkpoints, heartbeats, the metrics-push callback, env-requested
+callbacks, asynchronous and sharded checkpoints.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+from horovod_tpu_torch import runtime
+from horovod_tpu_torch.parallel import collectives
+
+
+class Callback:
+    """Base callback; hooks mirror the Keras/Horovod set the reference
+    uses."""
+
+    trainer = None
+
+    def set_trainer(self, trainer):
+        self.trainer = trainer
+
+    def on_train_begin(self, logs=None):
+        pass
+
+    def on_train_end(self, logs=None):
+        pass
+
+    def on_epoch_begin(self, epoch: int, logs=None):
+        pass
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        pass
+
+    def on_batch_end(self, batch: int, logs=None):
+        pass
+
+
+def agree_any(flag: bool) -> bool:
+    """True on ANY rank → True on EVERY rank (a collective: every rank
+    enters it at the same point)."""
+    if runtime.size() == 1:
+        return bool(flag)
+    return any(collectives.allgather_object(bool(flag)))
+
+
+class BroadcastGlobalVariablesCallback(Callback):
+    """Broadcast the whole training state (params, optimizer state, step)
+    from ``root_rank`` at train begin: a consistent start from random
+    weights or from a checkpoint the root restored."""
+
+    def __init__(self, root_rank: int = 0):
+        self.root_rank = root_rank
+
+    def on_train_begin(self, logs=None):
+        if runtime.size() == 1:
+            return
+        from horovod_tpu_torch import checkpoint
+
+        self.trainer.state = checkpoint.broadcast_parameters(
+            self.trainer.state, self.root_rank)
+
+
+class MetricAverageCallback(Callback):
+    """Epoch-end cross-rank mean of the logged metrics. Each rank's step
+    metrics are over its own shard of the batch, so this turns them into
+    the global batch's."""
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        if logs is None or runtime.size() == 1:
+            return
+        logs.update(collectives.metric_mean(logs))
+
+
+class LearningRateWarmupCallback(Callback):
+    """Ramp the effective LR from ``base`` to ``base × world_size`` over the
+    first ``warmup_epochs`` epochs: the optimizer is built with the scaled
+    LR and this multiplies the update by s(e) = (1 + e/W·(size − 1)) /
+    size, from 1/size at epoch 0 to 1 from epoch W on."""
+
+    def __init__(self, warmup_epochs: int = 3, world_size: int | None = None,
+                 verbose: int = 0):
+        self.warmup_epochs = warmup_epochs
+        self.world_size = world_size
+        self.verbose = verbose
+
+    def on_epoch_begin(self, epoch: int, logs=None):
+        size = self.world_size or runtime.size()
+        if epoch >= self.warmup_epochs or size == 1:
+            scale = 1.0
+        else:
+            frac = epoch / self.warmup_epochs
+            scale = (1.0 + frac * (size - 1)) / size
+        self.trainer.update_scale = scale
+        if self.verbose and runtime.is_primary() and epoch <= self.warmup_epochs:
+            print(f"LearningRateWarmup: epoch {epoch} lr scale {scale:.4f}",
+                  flush=True)
+
+
+class LearningRateScheduleCallback(Callback):
+    """Multiply the update by ``multiplier`` (a float, or ``epoch ->
+    float``) within ``[start_epoch, end_epoch)``; composes with the warmup
+    in callback-list order (the trainer resets the scale to 1 each
+    epoch)."""
+
+    def __init__(self, multiplier, start_epoch: int = 0,
+                 end_epoch: int | None = None, verbose: int = 0):
+        self.multiplier = multiplier
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+        self.verbose = verbose
+
+    def on_epoch_begin(self, epoch: int, logs=None):
+        if epoch < self.start_epoch:
+            return
+        if self.end_epoch is not None and epoch >= self.end_epoch:
+            return
+        m = self.multiplier(epoch) if callable(self.multiplier) else self.multiplier
+        self.trainer.update_scale *= float(m)
+        if self.verbose and runtime.is_primary():
+            print(f"LearningRateSchedule: epoch {epoch} "
+                  f"lr scale {self.trainer.update_scale:.4f}", flush=True)
+
+
+def save_state(filepath_template: str, epoch: int, state, *,
+               step: int = 0) -> str | None:
+    """One single-file checkpoint of ``state`` by the primary rank (others
+    return None). ``step == 0``: the end of 0-based epoch ``epoch`` — file
+    ``checkpoint-{epoch+1}``, manifest ``(epoch+1, 0)``. ``step > 0``: a
+    mid-epoch save after ``step`` optimizer steps of epoch ``epoch`` — file
+    ``checkpoint-{epoch}`` (advanced in place), manifest ``(epoch,
+    step)``."""
+    from horovod_tpu_torch import checkpoint
+
+    if not runtime.is_primary():
+        return None
+    completed = epoch + 1 if step == 0 else epoch
+    path = filepath_template.format(epoch=completed)
+    return checkpoint.save(path, state, progress=(completed, step))
+
+
+class ModelCheckpoint(Callback):
+    """Per-epoch full-state checkpoint, written by the primary rank only.
+    ``filepath`` may hold ``{epoch}`` (``'checkpoint-{epoch}.pt'``).
+
+    ``save_every_steps=N`` also saves every N optimizer steps within an
+    epoch (default ``HVT_SAVE_EVERY_STEPS``, else 0 = epoch cadence only),
+    counted from the fit's resume step, with an ``(epoch, step)`` manifest
+    so a restart resumes at that step. Saves are synchronous."""
+
+    def __init__(self, filepath: str, async_save: bool = False,
+                 save_every_steps: int | None = None):
+        if async_save:
+            raise NotImplementedError(
+                "ModelCheckpoint(async_save=True) is not ported yet — "
+                "ROADMAP queue A item 13 (asynchronous checkpoints)"
+            )
+        self.filepath = filepath
+        if save_every_steps is None:
+            save_every_steps = int(os.environ.get("HVT_SAVE_EVERY_STEPS") or 0)
+        self.save_every_steps = max(0, int(save_every_steps))
+        self._epoch = 0
+        self._last_save_step = 0
+
+    def on_epoch_begin(self, epoch: int, logs=None):
+        self._epoch = epoch
+        self._last_save_step = 0
+        if self.trainer is not None and epoch == getattr(
+                self.trainer, "_resume_epoch", 0):
+            self._last_save_step = int(getattr(self.trainer, "_resume_step", 0))
+
+    def on_batch_end(self, batch: int, logs=None):
+        if not self.save_every_steps:
+            return
+        done = batch + 1
+        if done - self._last_save_step < self.save_every_steps:
+            return
+        self._last_save_step = done
+        save_state(self.filepath, self._epoch, self.trainer.state, step=done)
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        save_state(self.filepath, epoch, self.trainer.state)
+
+
+class ScalarLogger(Callback):
+    """Rank-0 scalar event log: TensorBoard event files
+    (`horovod_tpu_torch.tbevents`) and ``events.jsonl`` (one line per
+    record) side by side. ``update_freq="batch"`` also logs every
+    ``log_every``-th batch; epoch records are always written. With
+    ``metrics.init(sync_tensorboard=True)`` epoch scalars are pushed to the
+    metrics sink too.
+
+    Batch records hold device tensors until flushed — reading them each
+    step would wait for the device every step — and are flushed when
+    ``flush_every`` records pile up or ``flush_secs`` have passed."""
+
+    def __init__(self, log_dir: str, update_freq: str = "epoch",
+                 log_every: int = 1, flush_every: int = 100,
+                 flush_secs: float = 10.0):
+        self.log_dir = log_dir
+        self.update_freq = update_freq
+        self.log_every = max(1, log_every)
+        self.flush_every = max(1, flush_every)
+        self.flush_secs = flush_secs
+        self._last_flush = time.time()
+        self._fh = None
+        self._tb_writer = None
+        self._step = 0
+        self._pending: list[tuple[int, float, dict]] = []
+
+    def _writer(self):
+        if self._fh is None:
+            os.makedirs(self.log_dir, exist_ok=True)
+            self._fh = open(os.path.join(self.log_dir, "events.jsonl"), "a")
+        return self._fh
+
+    def _tb(self):
+        if self._tb_writer is None:
+            from horovod_tpu_torch.tbevents import TBEventWriter
+
+            self._tb_writer = TBEventWriter(self.log_dir)
+        return self._tb_writer
+
+    def _emit(self, tag_prefix: str, logs: dict, step: int, wall_time=None):
+        if not runtime.is_primary() or not logs:
+            return
+        wall = wall_time or time.time()
+        record = {"wall_time": wall, "step": step}
+        scalars = {}
+        for k, v in logs.items():
+            try:
+                scalars[k] = float(v)
+            except (TypeError, ValueError):
+                continue
+            record[f"{tag_prefix}{k}"] = scalars[k]
+        self._writer().write(json.dumps(record) + "\n")
+        if scalars:
+            self._tb().scalars(
+                {f"{tag_prefix}{k}": v for k, v in scalars.items()},
+                step, wall_time=wall)
+        if tag_prefix == "epoch/" and scalars:
+            from horovod_tpu_torch import metrics
+
+            if metrics.sync_tensorboard_enabled():
+                for k, v in scalars.items():
+                    metrics.push(k, v, step=step)
+
+    def _flush_pending(self):
+        for step, wall, logs in self._pending:
+            self._emit("batch/", logs, step, wall_time=wall)
+        self._pending = []
+        if self._fh:
+            self._fh.flush()
+        if self._tb_writer is not None:
+            self._tb_writer.flush()
+        self._last_flush = time.time()
+
+    def on_train_begin(self, logs=None):
+        # A resumed run's batch records continue the restored step count.
+        if self._step == 0 and getattr(self.trainer, "state", None) is not None:
+            self._step = int(self.trainer.state.step)
+
+    def on_batch_end(self, batch: int, logs=None):
+        self._step += 1
+        if (self.update_freq == "batch" and self._step % self.log_every == 0
+                and logs and runtime.is_primary()):
+            now = time.time()
+            self._pending.append((self._step, now, dict(logs)))
+            if (len(self._pending) >= self.flush_every
+                    or now - self._last_flush >= self.flush_secs):
+                self._flush_pending()
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        self._flush_pending()
+        self._emit("epoch/", logs or {}, epoch + 1)
+        if self._fh:
+            self._fh.flush()
+
+    def on_train_end(self, logs=None):
+        self._flush_pending()
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+        if self._tb_writer is not None:
+            self._tb_writer.close()
+            self._tb_writer = None
+
+
+# Keras-name alias: the reference registers this under TensorBoard.
+TensorBoard = ScalarLogger

@@ -1,5 +1,5 @@
-"""TrainState and the Trainer's loss/metric helpers — port of
-`horovod_tpu.training.train_state` (the parts the LM step needs)."""
+"""TrainState and the Trainer's loss/metric/callback helpers — port of
+`horovod_tpu.training.train_state`."""
 
 from __future__ import annotations
 
@@ -65,3 +65,29 @@ def _correct(logits, labels):
 
 def _accuracy(logits, labels):
     return _correct(logits, labels).mean()
+
+
+def _run_train_end(callbacks) -> None:
+    """on_train_end on the success path: every hook runs even when an
+    earlier one raises (writers must still flush and close); the first
+    exception propagates after all ran."""
+    first: BaseException | None = None
+    for cb in callbacks:
+        try:
+            cb.on_train_end()
+        except BaseException as e:
+            if first is None:
+                first = e
+    if first is not None:
+        raise first
+
+
+def _teardown_callbacks(callbacks) -> None:
+    """Best-effort on_train_end while a training error unwinds: teardown
+    hooks still run, and their own failures do not mask the original
+    error (the caller re-raises it)."""
+    for cb in callbacks:
+        try:
+            cb.on_train_end()
+        except BaseException:  # noqa: BLE001 — the training error wins
+            pass

@@ -1,22 +1,25 @@
-"""Trainer — the core of `horovod_tpu.training.trainer`: build, fit,
-evaluate and predict on one device.
+"""Trainer — port of `horovod_tpu.training.trainer` and its feeding paths
+(`horovod_tpu.training.feeding`): build, fit, evaluate and predict, one
+device per rank, data-parallel over `torch.distributed`.
 
-The JAX trainer jit-compiles its step over a device mesh. Here a step is
-eager PyTorch on one card (or the CPU when asked): forward in train mode
-with the step's dropout seed, loss (the module's own under
-``loss="module"``, else ``loss_fn(logits, y)``), backward (the flash
-attention kernels' backward on the card), then the optimizer step scaled
-by ``update_scale``.
+A step is eager PyTorch: forward in train mode with the step's dropout
+seed, loss (the module's own under ``loss="module"``, else ``loss_fn(
+logits, y)``), backward, then `DistributedOptimizer.step`, which averages
+the gradients over the ranks and applies the update scaled by
+``update_scale``. With ``backward_passes_per_step=K`` a step runs K
+microbatch backwards (the gradients sum in ``.grad``) before the one
+reduction. Each rank's step metrics are over its own batch;
+`MetricAverageCallback` averages the epoch logs over the ranks.
 
 Module contract: ``module(x, train=bool, dropout_seed=int)`` returns
 logits; with ``loss="module"`` it also takes ``labels=y`` and returns
 ``(per_token_loss, per_token_correct)``, as the port's `TransformerLM`
 does.
 
-Not ported yet, each raising `NotImplementedError` naming its ROADMAP
-item: callbacks (queue A item 5; checkpointing rides them, item 6),
-gradient accumulation (item 4), meshes and sharded layouts (items 1-2, 11,
-12) and multi-step executions (item 5).
+``fit(x=, y=)`` feeds ``ArrayDataset((x, y)).shard(rank, size)`` through
+the python `training_pipeline` seeded with ``seed``, epoch-anchored, so its
+batches are byte-identical to the JAX trainer's python engine. Options not
+ported raise `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,45 +29,67 @@ import time
 import numpy as np
 import torch
 
+from horovod_tpu_torch import runtime
+from horovod_tpu_torch.data.loader import ArrayDataset, training_pipeline
+from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.runtime import derive_seed, resolve_device
 from horovod_tpu_torch.training.optimizer import DistributedOptimizer
 from horovod_tpu_torch.training.train_state import (
-    TrainState, _correct, _resolve_loss,
+    TrainState, _correct, _resolve_loss, _run_train_end, _teardown_callbacks,
 )
 
 # Trainer options of the JAX package not carried here, with the ROADMAP
 # item that ports each.
 _NOT_PORTED = {
-    "mesh": "queue A items 1-2 (runtime + collectives)",
+    "mesh": "queue A item 12 (device meshes; the port runs one device per "
+            "rank)",
     "param_specs": "queue A item 12 (sharded layouts)",
     "batch_specs": "queue A item 12 (sharded layouts)",
-    "steps_per_execution": "queue A item 5 (trainer)",
+    "steps_per_execution": "queue A item 5 (multi-step executions)",
     "shard_update": "queue A item 11 (ZeRO-1 reduction)",
-    "bucket_bytes": "queue A item 11 (bucketed reduction)",
     "overlap_reduction": "queue A item 11 (bucketed reduction)",
     "bucket_order": "queue A item 11 (bucketed reduction)",
 }
 _DEFAULTS = {"steps_per_execution": 1}
 
 
+def _normalize_resume(initial_epoch: int, initial_step: int,
+                      steps_per_epoch: int) -> tuple[int, int]:
+    """A resume step at or past the epoch's end rolls into the next epoch,
+    so callers may hand back exactly what a checkpoint manifest
+    recorded."""
+    initial_epoch, initial_step = int(initial_epoch), int(initial_step)
+    if initial_step < 0:
+        raise ValueError(f"initial_step must be >= 0, got {initial_step}")
+    if initial_step and steps_per_epoch:
+        initial_epoch += initial_step // steps_per_epoch
+        initial_step %= steps_per_epoch
+    return initial_epoch, initial_step
+
+
 class Trainer:
-    """build + fit + evaluate + predict for a torch module on one device.
+    """build + fit + evaluate + predict for a torch module, one device per
+    rank.
 
     Args:
       module: a `torch.nn.Module` following the contract in the module
         docstring. `build` moves it to ``device``.
       optimizer: a `DistributedOptimizer`, or what one wraps (an optimizer
-        or a factory such as `training.optimizer.adamw`).
+        or a factory such as `training.optimizer.adam`).
       loss: Keras-style name, ``"module"``, or ``fn(logits, labels) ->
         per-example loss``.
-      seed: the root of the per-step dropout seeds.
+      seed: the root of the per-step dropout seeds and of the ``x=``/``y=``
+        shuffle.
+      bucket_bytes: the gradient fusion-bucket size; default
+        ``HVT_BUCKET_BYTES``, else 64 MB (the JAX Trainer's knob).
       device: ``"cuda"`` (default) or ``"cpu"``; CUDA is never replaced by
         the CPU silently.
     """
 
     def __init__(self, module, optimizer,
                  loss="sparse_categorical_crossentropy", seed: int = 0,
-                 device="cuda", **not_ported):
+                 device="cuda", bucket_bytes: int | None = None,
+                 **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -78,15 +103,21 @@ class Trainer:
         self.module = module
         self.tx = (optimizer if isinstance(optimizer, DistributedOptimizer)
                    else DistributedOptimizer(optimizer))
+        if bucket_bytes:
+            self.tx.bucket_bytes = int(bucket_bytes)
+        self._accum_steps = self.tx.backward_passes_per_step
         self.loss_fn = _resolve_loss(loss)
         self._module_loss = loss == "module"
         self.seed = int(seed)
         self.state: TrainState | None = None
-        # Multiplies the optimizer's update (the knob JAX's LR callbacks
+        # Multiplies the optimizer's update (the knob the LR callbacks
         # turn); reset to 1.0 at every epoch begin.
         self.update_scale = 1.0
         self.stop_training = False
         self.history: list[dict] = []
+        # Where the current fit resumed, for resume-aware callbacks.
+        self._resume_epoch = 0
+        self._resume_step = 0
 
     # -- state ---------------------------------------------------------------
 
@@ -104,6 +135,8 @@ class Trainer:
         return self.state
 
     def _tensor(self, a):
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     def _loss_and_correct(self, x, y, *, train: bool, seed=None):
@@ -113,115 +146,189 @@ class Trainer:
         logits = self.module(x, train=train, dropout_seed=seed)
         return self.loss_fn(logits, y), _correct(logits, y)
 
+    def _dropout_seed(self, micro: int) -> int:
+        """The step's seed (JAX's ``fold_in(rng, step)``), made distinct per
+        rank and, when accumulating, per microbatch."""
+        seed = self.state.step_seed()
+        if runtime.size() > 1:
+            seed = derive_seed(seed, runtime.rank())
+        if self._accum_steps > 1:
+            seed = derive_seed(seed, micro)
+        return seed
+
     def train_step(self, x, y) -> dict:
-        """One optimizer step on the batch ``(x, y)`` (numpy or tensors):
-        ``{"loss", "accuracy"}`` as 0-d tensors on the device (no host
-        sync). Gradients stay in ``.grad`` until the next step."""
+        """One optimizer step on the batch ``(x, y)`` (numpy or tensors) —
+        with ``backward_passes_per_step=K``, on K microbatches: ``x``/``y``
+        are then length-K sequences (or arrays with a leading K axis).
+        Returns ``{"loss", "accuracy"}`` (the mean over the microbatches)
+        as 0-d tensors on the device, with no host sync. Gradients stay in
+        ``.grad`` until the next step."""
         state = self.build(x, y)
-        x, y = self._tensor(x), self._tensor(y)
+        micro = [(x, y)] if self._accum_steps == 1 else list(zip(x, y))
+        if len(micro) != self._accum_steps:
+            raise ValueError(f"got {len(micro)} microbatches, want "
+                             f"backward_passes_per_step={self._accum_steps}")
         self.tx.zero_grad()
-        loss_vec, correct = self._loss_and_correct(
-            x, y, train=True, seed=state.step_seed())
-        loss = loss_vec.mean()
-        loss.backward()
+        losses, accs = [], []
+        for k, (xb, yb) in enumerate(micro):
+            loss_vec, correct = self._loss_and_correct(
+                self._tensor(xb), self._tensor(yb), train=True,
+                seed=self._dropout_seed(k))
+            loss = loss_vec.mean()
+            loss.backward()
+            losses.append(loss.detach())
+            accs.append(correct.mean().detach())
         self.tx.step(self.update_scale)
         state.step += 1
-        return {"loss": loss.detach(), "accuracy": correct.mean().detach()}
+        if len(micro) == 1:
+            return {"loss": losses[0], "accuracy": accs[0]}
+        return {"loss": torch.stack(losses).mean(),
+                "accuracy": torch.stack(accs).mean()}
 
     # -- verbs ---------------------------------------------------------------
 
-    def _array_batches(self, x, y, batch_size: int, steps_per_epoch: int,
-                       epochs: int):
-        """Full batches of a seeded per-epoch permutation (one
-        ``RandomState(derive_seed(seed, epoch))`` shuffle per epoch). The
-        JAX `ArrayDataset` order, batch for batch, is ROADMAP queue A item
-        6."""
-        n = len(x)
-        if steps_per_epoch * batch_size > n:
-            raise ValueError(
-                f"{steps_per_epoch} steps of {batch_size} need "
-                f"{steps_per_epoch * batch_size} examples, have {n}"
-            )
-        for epoch in range(epochs):
-            rng = np.random.RandomState(
-                derive_seed(self.seed, epoch) % (2**32))
-            perm = rng.permutation(n)
-            for i in range(steps_per_epoch):
-                idx = perm[i * batch_size:(i + 1) * batch_size]
-                yield x[idx], y[idx]
-
     def fit(self, dataset=None, *, x=None, y=None, batch_size: int = 128,
-            epochs: int = 1, steps_per_epoch: int | None = None,
-            callbacks=(), validation_data=None,
-            verbose: int = 0) -> list[dict]:
-        """Train for ``epochs`` × ``steps_per_epoch`` steps on ``dataset``
-        (an iterable of ``(x, y)`` numpy batches; ``steps_per_epoch``
-        required) or on arrays ``x``/``y`` in batches of ``batch_size``
-        (``steps_per_epoch`` defaults to the full batches per epoch).
+            epochs: int = 1, initial_epoch: int = 0, initial_step: int = 0,
+            steps_per_epoch: int | None = None, callbacks=(),
+            validation_data=None, shuffle_buffer: int | None = None,
+            verbose: int | None = None) -> list[dict]:
+        """Train epochs ``initial_epoch .. epochs-1`` of ``steps_per_epoch``
+        optimizer steps on ``dataset`` (an `ArrayDataset` — its anchored
+        ``batches`` stream — or any iterable of ``(x, y)`` numpy batches;
+        ``steps_per_epoch`` required) or on arrays ``x``/``y``, this rank's
+        shard in batches of ``batch_size`` (``steps_per_epoch`` defaults to
+        the full batches of the shard).
+
+        ``initial_step`` resumes mid-epoch at optimizer step S of
+        ``initial_epoch``: the stream is fast-forwarded past S × K batches
+        without assembling them (an iterable without that hook draws and
+        discards). Callbacks run in list order: ``on_train_begin`` after
+        build, then per epoch ``on_epoch_begin``, ``on_batch_end(step,
+        metrics)`` once per optimizer step, ``on_epoch_end(epoch, logs)``
+        (logs mutable), and ``on_train_end``.
 
         Returns the history: per epoch the mean ``loss`` and ``accuracy``
         of its steps, ``epoch_time_s`` (host clock, ending with the
         metrics' fetch from the device) and, with ``validation_data``,
-        ``val_loss``/``val_accuracy``."""
-        if callbacks:
-            raise NotImplementedError(
-                "Trainer.fit(callbacks=...) is not ported yet — ROADMAP "
-                "queue A item 5 (callbacks; checkpointing, item 6)"
-            )
+        ``val_loss``/``val_accuracy``. ``verbose`` defaults to 1 on the
+        primary rank, 0 elsewhere."""
+        if verbose is None:
+            verbose = 1 if runtime.is_primary() else 0
+        for cb in callbacks:
+            if not callable(getattr(cb, "set_trainer", None)):
+                raise TypeError(f"{cb!r} is not a training.callbacks.Callback")
+        K = self._accum_steps
         if dataset is None:
             if x is None or y is None:
                 raise ValueError("pass either dataset= or x=/y=")
+            if isinstance(x, list):
+                x = np.asarray(x)
+            ds = ArrayDataset((x, y)).shard(runtime.rank(), runtime.size())
             if steps_per_epoch is None:
-                steps_per_epoch = max(1, len(x) // batch_size)
-            it = self._array_batches(x, y, batch_size, steps_per_epoch,
-                                     epochs)
+                steps_per_epoch = max(1, ds.num_examples // (batch_size * K))
+            initial_epoch, initial_step = _normalize_resume(
+                initial_epoch, initial_step, steps_per_epoch)
+            it, close_input = training_pipeline(
+                ds.arrays, batch_size, seed=self.seed,
+                shuffle_buffer=shuffle_buffer,
+                skip_batches=initial_step * K, start_epoch=initial_epoch,
+                batches_per_epoch=steps_per_epoch * K,
+            )
         elif steps_per_epoch is None:
             raise ValueError("steps_per_epoch is required with a dataset")
         else:
-            it = iter(dataset)
+            initial_epoch, initial_step = _normalize_resume(
+                initial_epoch, initial_step, steps_per_epoch)
+            skip = initial_step * K
+            close_input = lambda: None  # noqa: E731
+            if isinstance(dataset, ArrayDataset):
+                it = dataset.batches(skip=skip, start_epoch=initial_epoch,
+                                     batches_per_epoch=steps_per_epoch * K)
+            else:
+                it = iter(dataset)
+                for _ in range(skip):
+                    next(it)
+        self._resume_epoch, self._resume_step = initial_epoch, initial_step
+        first = next(it)
+        self.build(first[0], first[1])
+        buffered = [first]
+
+        def next_step():
+            batches = [buffered.pop() if buffered else next(it)
+                       for _ in range(K)]
+            if K == 1:
+                return batches[0]
+            return [b[0] for b in batches], [b[1] for b in batches]
+
+        callbacks = list(callbacks)
+        for cb in callbacks:
+            cb.set_trainer(self)
         self.stop_training = False
-        for epoch in range(epochs):
-            if self.stop_training:
-                break
-            self.update_scale = 1.0
-            t0 = time.perf_counter()
-            loss_sum = acc_sum = 0.0
-            for _ in range(steps_per_epoch):
-                m = self.train_step(*next(it))
-                loss_sum = loss_sum + m["loss"]
-                acc_sum = acc_sum + m["accuracy"]
-            logs = {"loss": float(loss_sum) / steps_per_epoch,
-                    "accuracy": float(acc_sum) / steps_per_epoch}
-            logs["epoch_time_s"] = time.perf_counter() - t0
-            if validation_data is not None:
-                val = self.evaluate(*validation_data, batch_size=batch_size)
-                logs.update({f"val_{k}": v for k, v in val.items()})
-            self.history.append(logs)
-            if verbose:
-                shown = {k: round(v, 4) for k, v in logs.items()}
-                print(f"Epoch {epoch + 1}/{epochs} - {shown}")
+        try:
+            for cb in callbacks:
+                cb.on_train_begin()
+            for epoch in range(initial_epoch, epochs):
+                if self.stop_training:
+                    break
+                self.update_scale = 1.0
+                for cb in callbacks:
+                    cb.on_epoch_begin(epoch)
+                t0 = time.perf_counter()
+                start = initial_step if epoch == initial_epoch else 0
+                loss_sum = acc_sum = 0.0
+                for step in range(start, steps_per_epoch):
+                    m = self.train_step(*next_step())
+                    loss_sum = loss_sum + m["loss"]
+                    acc_sum = acc_sum + m["accuracy"]
+                    for cb in callbacks:
+                        cb.on_batch_end(step, m)
+                steps = steps_per_epoch - start
+                logs = {"loss": float(loss_sum) / steps,
+                        "accuracy": float(acc_sum) / steps}
+                logs["epoch_time_s"] = time.perf_counter() - t0
+                if validation_data is not None:
+                    val = self.evaluate(*validation_data,
+                                        batch_size=batch_size)
+                    logs.update({f"val_{k}": v for k, v in val.items()})
+                for cb in callbacks:
+                    cb.on_epoch_end(epoch, logs)
+                self.history.append(logs)
+                if verbose:
+                    shown = {k: round(v, 4) for k, v in logs.items()}
+                    print(f"Epoch {epoch + 1}/{epochs} - {shown}", flush=True)
+        except BaseException:
+            close_input()
+            _teardown_callbacks(callbacks)
+            raise
+        close_input()
+        _run_train_end(callbacks)
         return self.history
 
     def evaluate(self, x, y, batch_size: int = 128,
                  verbose: int = 0) -> dict:
         """Mean loss and accuracy over the whole of ``x``/``y`` (per token
-        for sequence models), in eval mode."""
+        for sequence models), in eval mode. The rows are sharded over the
+        ranks (rank r takes rows r, r + size, ...) and the sums reduced, so
+        every rank gets the global mean at 1/size of the work."""
         if self.state is None:
             raise RuntimeError("call fit() or build() first")
-        loss_sum = correct_sum = 0.0
-        count = 0
+        r, n = runtime.rank(), runtime.size()
+        xs, ys = x[r::n], y[r::n]
+        sums = torch.zeros(3, dtype=torch.float64, device=self.device)
         with torch.inference_mode():
-            for start in range(0, len(x), batch_size):
-                xb = self._tensor(x[start:start + batch_size])
-                yb = self._tensor(y[start:start + batch_size])
+            for start in range(0, len(xs), batch_size):
+                xb = self._tensor(xs[start:start + batch_size])
+                yb = self._tensor(ys[start:start + batch_size])
                 loss_vec, correct = self._loss_and_correct(xb, yb,
                                                            train=False)
-                loss_sum = loss_sum + loss_vec.float().sum()
-                correct_sum = correct_sum + correct.float().sum()
-                count += loss_vec.numel()
-        result = {"loss": float(loss_sum) / count,
-                  "accuracy": float(correct_sum) / count}
-        if verbose:
+                sums[0] += loss_vec.double().sum()
+                sums[1] += correct.double().sum()
+                sums[2] += loss_vec.numel()
+        if n > 1:
+            sums = collectives.allreduce(sums.clone(), average=False)
+        loss_sum, correct_sum, count = sums.tolist()
+        result = {"loss": loss_sum / count, "accuracy": correct_sum / count}
+        if verbose and runtime.is_primary():
             print(f"eval - {({k: round(v, 4) for k, v in result.items()})}")
         return result
 

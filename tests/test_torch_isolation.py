@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -97,7 +98,8 @@ def no_cuda():
 
 
 def test_entry_points_default_to_cuda_and_refuse_cpu_fallback(no_cuda,
-                                                               tmp_path):
+                                                               tmp_path,
+                                                               monkeypatch):
     from horovod_tpu_torch.launch.serve import make_server
     from horovod_tpu_torch.models.transformer import TransformerLM
     from horovod_tpu_torch.serving import export_generate, load_generate
@@ -118,6 +120,29 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback(no_cuda,
         horovod_tpu_torch.Trainer(m, horovod_tpu_torch.adamw(1e-3))
     assert horovod_tpu_torch.resolve_device("cpu").type == "cpu"
 
+    # The MNIST data-parallel slice's entry points.
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.models.cnn import MnistCNN
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MnistCNN()
+    cnn = MnistCNN(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horovod_tpu_torch.Trainer(cnn, horovod_tpu_torch.adam(1e-3))
+    for name in ("HVT_COORDINATOR_ADDRESS", "HVT_NUM_PROCESSES",
+                 "HVT_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horovod_tpu_torch.init()
+    assert not horovod_tpu_torch.is_initialized()
+    bundle = checkpoint.export_serving(str(tmp_path / "export"), cnn,
+                                       input_shape=(1, 28, 28, 1),
+                                       timestamp="t")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.load_serving(bundle)
+    assert checkpoint.load_serving(bundle, device="cpu")(
+        np.zeros((3, 28, 28, 1), np.float32)).shape == (3, 10)
+
 
 def test_training_modules_are_scanned():
     """The scans above reach the training slice's subpackages."""
@@ -129,6 +154,22 @@ def test_training_modules_are_scanned():
               "horovod_tpu_torch.ops.fused_ce"):
         assert m in mods
     assert os.path.join(PKG, "training", "trainer.py") in _port_files()
+
+
+@pytest.mark.parametrize("sub", ["parallel", "examples", "launch"])
+def test_data_parallel_subpackages_are_scanned(sub):
+    """The MNIST data-parallel slice's subpackages are in both scans: every
+    module of them is imported by the fresh interpreter, and every file is
+    parsed for forbidden imports."""
+    mods = _modules()
+    names = [n[:-3] for n in os.listdir(os.path.join(PKG, sub))
+             if n.endswith(".py")]
+    assert names
+    for name in names:
+        mod = f"horovod_tpu_torch.{sub}" + ("" if name == "__init__"
+                                            else f".{name}")
+        assert mod in mods
+        assert os.path.join(PKG, sub, f"{name}.py") in _port_files()
 
 
 def _run_smoke(cwd):

@@ -248,7 +248,7 @@ def test_adamw_matches_optax_over_steps():
         1e-4, 1e-8, (0.9, 0.999))
 
 
-def test_distributed_optimizer_contract(monkeypatch):
+def test_distributed_optimizer_contract():
     assert ht.scale_lr(3e-4) == 3e-4  # a world of 1
     assert ht.scale_lr(3e-4, 8) == pytest.approx(2.4e-3)
     p = torch.nn.Parameter(torch.zeros(3))
@@ -258,19 +258,23 @@ def test_distributed_optimizer_contract(monkeypatch):
     opt.step()
     # the gradient went through the bf16 wire: 1 + 2^-12 rounds to 1
     torch.testing.assert_close(p.detach(), torch.tensor([-1.0, -3.0, 1.0]))
-    for kw, match in (({"compression": "int8"}, "item 11"),
-                      ({"compression": "fp8"}, "item 11"),
-                      ({"backward_passes_per_step": 2}, "item 4")):
-        with pytest.raises(NotImplementedError, match=match):
+    for kw in ({"compression": "int8"}, {"compression": "fp8"},
+               {"compression_ici": "bf16"}, {"compression_ici": "int8"}):
+        with pytest.raises(NotImplementedError, match="item 11"):
             ht.DistributedOptimizer(ht.adamw(1e-3), **kw)
-    with pytest.raises(ValueError):
-        ht.DistributedOptimizer(ht.adamw(1e-3), compression="zip")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="items 1-2"):
-        ht.DistributedOptimizer(ht.adamw(1e-3))
-    with pytest.raises(NotImplementedError, match="items 1-2"):
-        opt.step()
+    for kw in ({"compression": "zip"}, {"backward_passes_per_step": 0}):
+        with pytest.raises(ValueError):
+            ht.DistributedOptimizer(ht.adamw(1e-3), **kw)
+    # Accumulated passes: summed by default, averaged on request (a world
+    # of 1, no process group: the reduction is local).
+    for avg, want in ((False, -4.0), (True, -2.0)):
+        q = torch.nn.Parameter(torch.zeros(1))
+        acc = ht.DistributedOptimizer(
+            torch.optim.SGD([q], lr=1.0), backward_passes_per_step=2,
+            average_aggregated_gradients=avg)
+        q.grad = torch.tensor([4.0])  # the sum of two passes' gradients
+        acc.step()
+        assert float(q.detach()) == want
 
 
 # -- the trainer --------------------------------------------------------------
@@ -382,12 +386,16 @@ def test_trainer_paths_on_cpu():
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
     ev = trainer.evaluate(x, y, batch_size=16)
     assert 0.0 <= ev["accuracy"] <= 1.0 and np.isfinite(ev["loss"])
-    with pytest.raises(ValueError):
-        trainer.fit(x=x, y=y, batch_size=8, steps_per_epoch=5)
+    with pytest.raises(ValueError, match="x=/y="):
+        trainer.fit(x=x, batch_size=8)
+    # More steps than the epoch's full batches: the anchored stream draws
+    # a second pass within the epoch.
+    trainer.fit(x=x, y=y, batch_size=8, steps_per_epoch=5)
+    assert trainer.state.step == 13
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "items 1-2"),
+    ({"mesh": object()}, "item 12"),
     ({"shard_update": True}, "item 11"),
     ({"steps_per_execution": 4}, "item 5"),
 ], ids=["mesh", "shard_update", "steps_per_execution"])
@@ -401,8 +409,10 @@ def test_trainer_callbacks_raise_naming_roadmap():
     tm = ttr.TransformerLM(**_cfg(), device="cpu")
     trainer = ht.Trainer(tm, ht.adamw(1e-3), loss="module", device="cpu")
     x, y = _batch(9)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="Callback"):
         trainer.fit(x=x, y=y, batch_size=2, callbacks=[object()])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ht.callbacks.ModelCheckpoint("checkpoint-{epoch}.pt", async_save=True)
     with pytest.raises(RuntimeError, match="build"):
         trainer.evaluate(x, y)
 
