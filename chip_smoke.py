@@ -13,14 +13,17 @@ Phases (any failed check exits non-zero before the result line):
    per source, all started together), with each kernel's registers, shared
    memory and spills (``ptxas -v``);
 3. kernels against their plain PyTorch versions on the card: B1 (forward)
-   and B2/B3 (backward) in every mask case, GQA, head dims 40-256, f32 and
-   bf16, with an lse cotangent, the model's strided V view, a ragged T and
-   the serving shape. Each case names the route B1, B2 and B3 took: ``tc``
-   (the tensor-core kernels, bf16 with D a multiple of 8 up to 128) or
-   ``simt`` (the CUDA-core kernels, f32 or D > 128). B1's times at the
-   serving shapes, and B1/B2/B3's at the training shape on both routes,
-   beside their plain versions', SDPA's (a yardstick the port never calls)
-   and the card's bound;
+   and B2/B3 (backward) in every mask case, GQA, head dims 40-256, f32,
+   bf16 and fp16, with an lse cotangent, the model's strided V view, a
+   head dim of stride 2 (made contiguous), a ragged T and the serving
+   shape; D = 320 takes the dense plain path. Each case names the route
+   B1, B2 and B3 took: ``tc`` (the tensor-core kernels, bf16 with D a
+   multiple of 8 up to 128) or ``simt`` (the CUDA-core kernels, f32, fp16
+   or D > 128). B1's times at the serving shapes, and B1/B2/B3's at the
+   training shape on both routes, beside their plain versions', SDPA's (a
+   yardstick the port never calls) and the card's bound. The dropout
+   kernel at the MNIST CNN's two sites in f32, bf16 and fp16, forward and
+   backward, bit for bit against its plain version, and its time;
 4. serving main path — a `TransformerLM` at the bench LM's full width
    (vocab 8192, d_model 512, 8 heads, 8 layers, bf16 compute, seeded
    weights) is exported as a streaming bundle (batch 8, prompt_len 128, 64
@@ -33,16 +36,19 @@ Phases (any failed check exits non-zero before the result line):
    (kernel) and on the CPU (plain version), logits compared;
 6. training main path — ``Trainer.fit`` of the same LM with the fused-CE
    head (8 chunks) and ``DistributedOptimizer(adamw(scale_lr(3e-4)))`` for
-   30 steps of 8 × 1024 ``copy_task`` rows: every loss finite, the last
-   below the first, B1/B2/B3 each launched n_layers × steps times, every
-   time on the tensor-core route; a
-   ``train`` line (tokens/s, step ms, peak memory) and a ``breakdown_train``
-   line (one step under `torch.profiler`);
+   30 steps of 8 × 1024 ``copy_task`` rows (``fit(dataset=)``: one eager
+   step, one capture, 29 graph replays): every loss finite, the last
+   below the first, B1/B2/B3 each launched n_layers × (eager steps +
+   captures) times by their wrappers, every time on the tensor-core
+   route; a ``train`` line (tokens/s, step ms, peak memory) and a
+   ``breakdown_train`` line (replayed steps and one eager step under
+   `torch.profiler`);
 7. training against the plain path — one f32 AdamW step at 2 × 256 on the
    card (kernels) and on the CPU (plain versions): loss, gradients and
    updated parameters compared, all on the CUDA-core route; the card's
    step again with remat (B1 launched twice per layer, the same loss and
-   gradients, bit for bit);
+   gradients, bit for bit); AdamW's capturable form against its float-lr
+   form on the card's gradients, within one f32 ulp;
 8. ``mnist_tf2`` — the twin of the TF2 MNIST script
    (``horovod_tpu_torch.examples.tf2_style_mnist``: Adam(0.001 × size),
    warmup, rank-0 checkpoints and scalar log) under ``python -m
@@ -69,14 +75,37 @@ Phases (any failed check exits non-zero before the result line):
    optimizer state are bit-identical after ``fit`` (an allgathered
    digest), only rank 0 wrote checkpoints, ``events.jsonl`` and
    ``metrics.jsonl``, and the loss falls; then a ``breakdown_mnist`` line:
-   where a phase-8 step's time goes (loader, step, device busy share, top
-   kernels), measured in this process at one NCCL rank;
-11. the ``kernels`` JSON line, then the last line
+   where a phase-8 step's time goes (loader; the fit's replayed steps and
+   eager steps: host ms, device busy share, launches, top kernels),
+   measured in this process at one NCCL rank;
+11. ``mnist_ci_cached`` — the reference CI job's configuration
+   (``launch/jobs/mnist-ci.yaml``): the tf1 twin under the launcher at one
+   NCCL rank with ``HVT_DEVICE_CACHE=1`` (``fit(cache="device")``: the
+   data staged on the card, each step a replay of one captured CUDA
+   graph), uncut at 12 epochs × 468 steps. It fails unless the CI mean
+   loss lies in [0, 0.3], 98 % val_accuracy is reached (the epoch is
+   printed), the last epoch's cached validation equals the script's
+   uncached evaluate, and, in this process from the run's newest
+   checkpoint, ``evaluate(cache="device")`` equals ``evaluate()``; then
+   the same 20 cached steps run once as graph replays and once as eager
+   steps from the same state — fresh weights, and resumed from that
+   checkpoint — and must end bit-identical (parameters and optimizer
+   state); a ``breakdown_mnist_cached`` line (host ms a step, device busy
+   ms and share, launches and graph replays a step, the dropout kernel's
+   ms a step, peak memory); and ``steps_per_execution``: tf2's configuration for one cut
+   epoch at K = 4 and K = 1, on its ``dataset=`` feed and on ``x=``/``y=``,
+   whose losses at every chunk end must be equal bit for bit;
+12. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8 and 9, at
-N NCCL ranks, one card each, with the reference budgets for N ranks: the
-multi-rank NCCL path that one card cannot host.
+Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
+the native batch engine, as the JAX tf1 script does where g++ builds it.
+
+``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8, 9 and
+11's launch, at N NCCL ranks, one card each, with the reference budgets
+for N ranks: the multi-rank NCCL path that one card cannot host (and, in
+phase 11, a captured cross-rank all-reduce). The ranks must end
+bit-identical.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -111,6 +140,9 @@ TOL = {
     "bfloat16": {"o_atol": 2e-2, "o_rtol": 1e-2, "lse": 1e-3},
     "float32": {"o_atol": 1e-4, "o_rtol": 0.0, "lse": 1e-4},
 }
+# fp16 (the CUDA-core kernels) carries 3 more mantissa bits than bf16: the
+# same two-ulp reasoning at 1/8 of bf16's limits.
+TOL["float16"] = {"o_atol": 2.5e-3, "o_rtol": 1.25e-3, "lse": 1e-3}
 # B2/B3 gradients against their plain versions: both sum the same f32
 # products in different orders, and bf16 outputs are rounded once at the
 # end, so a bf16 gradient may differ by one bf16 ulp (2^-8 of its value).
@@ -118,6 +150,7 @@ TOL = {
 GRAD_TOL = {
     "bfloat16": {"rtol": 1e-2, "atol_of_max": 1e-3},
     "float32": {"rtol": 0.0, "atol_of_max": 1e-5},
+    "float16": {"rtol": 1.25e-3, "atol_of_max": 1.25e-4},  # bf16's / 8
 }
 # The training shape of the bench LM's attention: [B, T, H, D].
 TRAIN_ATTN_SHAPE = (8, 1024, 8, 64)
@@ -125,7 +158,8 @@ TRAIN_ATTN_SHAPE = (8, 1024, 8, 64)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 30
 # Phase 7: one f32 step, card vs CPU. cuBLAS and the CPU sum the same f32
 # products in other orders: loss to 1e-5 abs (of ~9.5), each gradient to
-# 2e-5 of its tensor's largest, each updated parameter to 1e-7 abs beyond
+# 2e-5 of its tensor's largest, each updated parameter to 1e-7 abs and one
+# f32 ulp of its value (the card's AdamW is the capturable form) beyond
 # what that gradient difference can move Adam's step (see train_vs_plain).
 TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL = 1e-5, 2e-5, 1e-7
 ADAM_EPS = 1e-8  # adamw()'s eps: the update's sensitivity near g = 0
@@ -155,6 +189,15 @@ SERVE_ATOL = RESUME_ATOL = 1e-6
 # compared absolutely).
 SERVE_RTOL, SERVE_REL_FLOOR = 1e-5, 1e-30
 MNIST_TIMEOUT_S = 400
+# Phase 11: cached against uncached evaluation of one state on the card.
+# Both sum the same per-example f32 losses in f64; only the last batch
+# differs (128 rows, 112 of them masked padding, against 16), which may
+# round a row's logits differently in cuDNN/cuBLAS: held to 1e-6 abs on
+# the mean loss, accuracy equal.
+CACHED_EVAL_ATOL = 1e-6
+# Phase 11's graph-against-eager run and steps_per_execution runs: cut.
+GRAPH_VS_EAGER_STEPS, SPE_STEPS, SPE_K = 20, 100, 4
+MNIST_STEPS_PER_EPOCH = 60000 // MNIST_BATCH
 
 
 class SmokeFailure(RuntimeError):
@@ -210,7 +253,7 @@ def build_kernels():
     from horovod_tpu_torch.ops import _build
 
     names = ["flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
-             "flash_fwd", "flash_bwd"]
+             "flash_fwd", "flash_bwd", "dropout"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for name, fut in [(n, pool.submit(_build.library, n)) for n in names]:
@@ -272,7 +315,7 @@ def attention_bound_ms(b, tq, tk, h, hkv, d, dtype_name, *, causal,
     input read once + each output written once) over HBM bandwidth and the
     products the masks keep over the peak rate of the dtype."""
     n_q, n_kv, n_stat, n_prod = WORK_OF[kernel]
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = 4 if dtype_name == "float32" else 2
     nbytes = (n_q * b * tq * h * d + n_kv * b * tk * hkv * d) * item \
         + n_stat * b * tq * h * 4
     if causal:
@@ -301,7 +344,12 @@ def _segment_ids(torch, gen, b, tq):
 def _qkv_inputs(torch, rand, b, tq, tk, h, hkv, d, dtype, layout):
     """q, k, v [B,T,H,D]: separate tensors, or (layout "qkv") the strided
     views of one fused projection [B, T, 3·H·D], as `TransformerLM` makes
-    them (row stride 3·H·D)."""
+    them (row stride 3·H·D), or (layout "strided") views whose head dim
+    has stride 2, which the wrapper makes contiguous."""
+    if layout == "strided":
+        return (rand(b, tq, h, 2 * d, dtype=dtype)[..., ::2],
+                rand(b, tk, hkv, 2 * d, dtype=dtype)[..., ::2],
+                rand(b, tk, hkv, 2 * d, dtype=dtype)[..., ::2])
     if layout == "qkv":
         fused = rand(b, tq, 3 * h * d, dtype=dtype)
         return [x.view(b, tq, h, d) for x in fused.split(h * d, -1)]
@@ -319,7 +367,7 @@ def kernel_cases(torch):
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     # (name, B, Tq, Tk, H, Hkv, D, dtype, kwargs, segments)
     cases = [
         ("serving_prefill", 8, 128, 128, 8, 8, 64, bf16, {}, False),
@@ -341,6 +389,10 @@ def kernel_cases(torch):
         ("strided_v_qkv_views", 2, 256, 256, 8, 8, 64, bf16, {}, "qkv"),
         ("ragged_t1000", 2, 1000, 1000, 8, 8, 64, bf16, {}, False),
         ("head_dim_40_bf16", 2, 77, 77, 4, 4, 40, bf16, {}, False),
+        ("fp16_gqa", 2, 256, 256, 8, 2, 64, f16, {}, False),
+        ("fp16_window_d128", 2, 300, 300, 4, 4, 128, f16, {"window": 64},
+         False),
+        ("strided_head_dim", 2, 256, 256, 8, 8, 64, bf16, {}, "strided"),
     ]
     results = {}
     with torch.inference_mode():
@@ -352,10 +404,11 @@ def kernel_cases(torch):
                 kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
                     torch, gen, b, tq)
             route = fa._route(dt, d)
-            tc0 = fa.launches_tc
+            tc0, n0, dense0 = fa.launches_tc, fa.launches, fa.launches_dense
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
             torch.cuda.synchronize()
-            check(fa.launches_tc - tc0 == (route == "tc"),
+            check(fa.launches_tc - tc0 == (route == "tc")
+                  and fa.launches - n0 == 1 and fa.launches_dense == dense0,
                   f"{name}: B1 did not take the {route} route")
             ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
             tol = TOL[str(dt).removeprefix("torch.")]
@@ -381,6 +434,18 @@ def kernel_cases(torch):
             log(f"kernel flash_fwd {name} [{route}]: O err "
                 f"{float(o_err.max()):.3g}, lse err {lse_err:.3g}, fully "
                 f"masked rows {int(empty.sum())} — ok")
+
+        # D > 256: the reference's tiling fails for every block, and the
+        # port runs its dense plain path (no kernel launch).
+        q, k, v = (rand(1, 64, 2, 320, dtype=bf16) for _ in range(3))
+        n0, dense0 = fa.launches, fa.launches_dense
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+        check(fa.launches == n0 and fa.launches_dense == dense0 + 1
+              and torch.equal(out, ref_o) and torch.equal(lse, ref_lse),
+              "head dim 320 did not take the dense plain path")
+        log("kernel flash_fwd head_dim_320 [dense]: the plain path, no "
+            "launch — ok")
 
         timings = {}
         for name, b, t, h, d in (("serving_prefill", 8, 128, 8, 64),
@@ -415,7 +480,7 @@ def backward_cases(torch):
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     # (name, B, Tq, Tk, H, Hkv, D, dtype, kwargs, segments, lse cotangent)
     cases = [
         ("training_shape", 8, 1024, 1024, 8, 8, 64, bf16, {}, False, False),
@@ -444,6 +509,10 @@ def backward_cases(torch):
         ("ragged_t1000", 2, 1000, 1000, 8, 8, 64, bf16, {}, False, False),
         ("head_dim_40_bf16_lse_cotangent", 2, 77, 77, 4, 4, 40, bf16, {},
          False, True),
+        ("fp16_gqa_lse_cotangent", 2, 256, 256, 8, 2, 64, f16, {}, False,
+         True),
+        ("fp16_window_d128", 2, 300, 300, 4, 4, 128, f16, {"window": 64},
+         False, False),
     ]
     results = {}
     with torch.inference_mode():
@@ -580,6 +649,70 @@ def training_shape_timings(torch):
             f"library_ms {r['library_ms']:.5f} bound_ms {r['bound_ms']:.5f} "
             f"({r['bound_by']})")
     return out_t
+
+
+# The MNIST CNN's two dropout sites at batch 128: the pooled activations
+# [128, 64, 12, 12] at rate 0.25 (site 0) and the dense ones [128, 128] at
+# 0.5 (site 1); tf1 computes in f32, tf2 in bf16.
+DROPOUT_SITES = (((128, 64, 12, 12), 0.25, 0), ((128, 128), 0.5, 1))
+
+
+def dropout_cases(torch):
+    """The dropout kernel against its plain version on the card, at the
+    MNIST CNN's sites in f32 and bf16 (and fp16), with a seed tensor and
+    the same seed as an int, forward and backward: bit for bit (the same
+    integer hash, one f32 product, one rounding). Then its time at the
+    larger site in f32 (the cached tf1 step's) beside the plain version's
+    and the bound: bytes (x read once, out written once) over HBM's rate;
+    the hash's integer operations have no rate in the data sheet's table.
+    No PyTorch call computes this mask (``F.dropout`` draws from the
+    generator): ``library_ms`` null. Launches made here are reset before
+    the main path."""
+    from horovod_tpu_torch.ops import dropout as do
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seed = torch.tensor(2**62 + 77, device="cuda")
+    worst = 0.0
+    for shape, rate, site in DROPOUT_SITES:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            x.requires_grad_()
+            g = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            n0 = do.launches
+            y = do.dropout(x, rate, seed, site)
+            y.backward(g)
+            torch.cuda.synchronize()
+            check(do.launches - n0 == 2,
+                  f"dropout {shape} {dt}: {do.launches - n0} launches, want 2")
+            want = do.dropout_reference(x.detach(), rate, seed, site)
+            want_g = do.dropout_reference(g, rate, seed, site)
+            by_int = do.dropout(x.detach(), rate, 2**62 + 77, site)
+            y = y.detach()
+            err = max(float((y.float() - want.float()).abs().max()),
+                      float((x.grad.float() - want_g.float()).abs().max()),
+                      float((by_int.float() - want.float()).abs().max()))
+            keep = float((want != 0).float().mean())
+            check(err == 0.0 and abs(keep - (1 - rate)) < 0.01,
+                  f"dropout {shape} {dt}: kernel differs from the plain "
+                  f"version by {err} (kept share {keep})")
+            worst = max(worst, err)
+            log(f"kernel dropout {list(shape)} rate {rate} "
+                f"{str(dt).removeprefix('torch.')}: forward, backward and "
+                f"int seed equal the plain version bit for bit, kept "
+                f"{keep:.4f} — ok")
+    shape, rate, site = DROPOUT_SITES[0]
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    with torch.inference_mode():
+        ms = device_ms(torch, lambda: do._launch(x, rate, seed, site))
+        plain = device_ms(
+            torch, lambda: do.dropout_reference(x, rate, seed, site), 10)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    out = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": "bytes", "library_ms": None, "max_abs_err": worst,
+           "shape": f"{list(shape)} f32 rate {rate}"}
+    log("time dropout", json.dumps(out))
+    return out
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -870,10 +1003,19 @@ def train_path(torch):
           f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0],
           f"loss did not fall: first {losses[0]:.4f}, last {losses[-1]:.4f}")
-    want = MODEL["n_layers"] * TRAIN_STEPS
+    # The fit steps once eagerly, captures the step once and replays it:
+    # the wrappers launch at the eager step and record at the capture;
+    # each replay relaunches what was recorded.
+    runner = trainer._runner
+    replays = runner.replays
+    check(runner.captures == 1 and replays == TRAIN_STEPS - 1,
+          f"the fit captured {runner.captures} times and replayed {replays} "
+          f"steps, want 1 and {TRAIN_STEPS - 1}")
+    want = MODEL["n_layers"] * (TRAIN_STEPS - replays + runner.captures)
     for name, n in launches.items():
         check(n == want, f"{name} launched {n} times in training, want "
-              f"n_layers × steps = {want} (all on the tensor-core route)")
+              f"n_layers × (eager steps + captures) = {want} (all on the "
+              f"tensor-core route)")
     # Steps after the first two (cuBLAS/allocator warm-up); each step's
     # host time ends with the fetch of its loss.
     steady = sorted(e["epoch_time_s"] * 1e3 for e in hist[2:])
@@ -886,19 +1028,77 @@ def train_path(torch):
         "step_ms_max": steady[-1],
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
         "peak_memory_gib": peak / 2**30, "launches": launches,
+        "graph_replays": replays,
     }
     log("train", json.dumps(train))
     log("breakdown_train", json.dumps(train_breakdown(torch, trainer, feed)))
-    return launches
+    return dict(launches, graph_replays=replays)
+
+
+def profiled_fit(torch, fit, start, window):
+    """Run ``fit(callbacks)``, whose ``on_batch_end`` fires once a step,
+    with `torch.profiler` on over steps ``start`` .. ``start + window``:
+    returns the profiler and the window's host ms a step (the card
+    synchronised at the window's two ends only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch import callbacks
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    class Window(callbacks.Callback):
+        calls = 0
+
+        def on_batch_end(self, batch, logs=None):
+            self.calls += 1
+            if self.calls == start:
+                torch.cuda.synchronize()
+                prof.start()
+                clock["t0"] = time.perf_counter()
+            elif self.calls == start + window:
+                torch.cuda.synchronize()
+                clock["t1"] = time.perf_counter()
+                prof.stop()
+
+    fit([Window()])
+    return prof, (clock["t1"] - clock["t0"]) * 1e3 / window
+
+
+def _per_step(torch, prof, window, host_ms):
+    """Device busy time, launches and top kernels a step of a profiled
+    window of ``window`` steps."""
+    kernels, by_name = device_kernels(torch, prof)
+    calls = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CPU]
+    busy = sum(by_name.values()) / window
+    return {
+        "device_busy_ms_per_step": busy if kernels else "not measured",
+        "device_busy_share": busy / host_ms if kernels else "not measured",
+        "device_kernels_per_step": len(kernels) / window,
+        "graph_launches_per_step": calls.count("cudaGraphLaunch") / window,
+        "kernel_launches_per_step": calls.count("cudaLaunchKernel") / window,
+        "top_kernels_ms_per_step": [
+            [k[:80], ms / window] for k, ms in
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+    }, by_name
 
 
 def train_breakdown(torch, trainer, feed):
-    """Where one training step's time goes: host wall ms, the device's
-    busy time and share, its kernel launches and top kernels by device
-    time, from `torch.profiler`. Measured after the main path's counts
-    were read; not a check."""
+    """Where a training step's time goes, after the main path's counts
+    were read; not a check. The fit as the main path runs it (graph
+    replays: 10 steps, the last 5 profiled) and one eager `train_step`
+    (host wall ms, then profiled)."""
     from torch.profiler import ProfilerActivity, profile
 
+    window = 5
+    prof, host_ms = profiled_fit(torch, lambda cbs: trainer.fit(
+        dataset=feed, epochs=2 * window, steps_per_epoch=1, callbacks=cbs,
+        verbose=0), window, window)
+    replay, by_name = _per_step(torch, prof, window, host_ms)
+    flash_ms = {k: sum(ms for n, ms in by_name.items() if k in n) / window
+                for k in ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                          "flash_bwd_dkv_sm90_kernel")}
     x, y = next(feed)
 
     def step():
@@ -909,27 +1109,15 @@ def train_breakdown(torch, trainer, feed):
     step()
     wall_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as eager_prof:
         step()
         torch.cuda.synchronize()
-    kernels, by_name = device_kernels(torch, prof)
-    busy_ms = sum(by_name.values())
-    flash_ms = {k: sum(ms for n, ms in by_name.items() if k in n)
-                for k in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
-                          "flash_bwd_dq_sm90_kernel", "flash_bwd_dq_kernel",
-                          "flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_kernel")}
-    return {
-        "wall_ms": wall_ms,
-        "kernel_launches": len(kernels),
-        "device_busy_ms": busy_ms if kernels else "not measured",
-        "device_busy_share": busy_ms / wall_ms if kernels
-        else "not measured",
-        "flash_kernels_ms": flash_ms,
-        "top_kernels_ms": [
-            [n[:80], ms] for n, ms in
-            sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        ],
-    }
+    eager, _ = _per_step(torch, eager_prof, 1, wall_ms)
+    return {"replayed_host_ms_per_step": host_ms, "replayed": replay,
+            "flash_kernels_ms_per_step": flash_ms,
+            "eager_wall_ms": wall_ms,
+            "eager": {k: v for k, v in eager.items()
+                      if k != "top_kernels_ms_per_step"}}
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1002,11 +1190,16 @@ def train_vs_plain(torch):
         # start from the same p, so the step differs by at most lr times
         # the change of g/(|g| + eps) over |Δg| ≤ g_err: eps·g_err /
         # (|g| − g_err + eps)², at most 2 — large only where |g| is near
-        # 0 — plus f32 rounding.
+        # 0 — plus f32 rounding. The card's AdamW is the capturable form (a
+        # device learning rate, as the CUDA-graph step needs it): it forms
+        # the decay factor and the step in f32 tensors, in another order
+        # than the CPU's float-lr form, so an updated parameter may also
+        # round one f32 ulp of its value apart.
         near = (g_cpu.abs() - g_err).clamp_min(0.0) + ADAM_EPS
         bound = lr * torch.clamp(ADAM_EPS * g_err / near**2, max=2.0)
+        ulp = torch.finfo(torch.float32).eps * p_cpu.abs()
         err = (p_gpu - p_cpu).abs()
-        check(bool((err <= bound + TRAIN_PARAM_ATOL).all()),
+        check(bool((err <= bound + TRAIN_PARAM_ATOL + ulp).all()),
               f"{name}: updated parameter differs, card vs cpu (max "
               f"{float(err.max()):.3g})")
         param_err = max(param_err, float(err.max()))
@@ -1015,7 +1208,13 @@ def train_vs_plain(torch):
         n_total += err.numel()
     check(loss_err <= TRAIN_LOSS_ATOL,
           f"loss differs, card vs cpu: {lg} vs {lc}")
+    forms_gap = adamw_forms_gap(torch, {k: g for k, (_, g) in pg.items()},
+                                lr)
+    check(forms_gap["within_phase7_allowance"],
+          f"AdamW's capturable and float-lr forms differ beyond what phase "
+          f"7 allows for it: {forms_gap}")
     result = {"loss_card": lg, "loss_cpu": lc, "loss_abs_err": loss_err,
+              "adamw_capturable_vs_float_lr": forms_gap,
               "remat_loss_abs_err": abs(lr_ - lg),
               "remat_grad_max_err_of_max": remat_err,
               "grad_max_err_of_max": grad_err,
@@ -1024,6 +1223,46 @@ def train_vs_plain(torch):
               "params": n_total, "launches": f32_launches}
     log("train f32 step card (kernels) vs cpu (plain):", json.dumps(result))
     return result
+
+
+def adamw_forms_gap(torch, grads, lr):
+    """Why phase 7 allows one f32 ulp of each updated parameter: one AdamW
+    step (`adamw`'s settings) of the LM's seeded f32 weights on the card,
+    from the card's gradients, in the capturable form (a device learning
+    rate, as the port runs it on CUDA) and in the float-lr form (as the
+    CPU runs it); torch's capturable form refuses CPU tensors, so the two
+    forms meet only here. Returns the largest difference in f32 ulps of
+    the step's operands (eps × the largest of |p|, |p'| and lr), the
+    largest absolute difference, and whether every element lies within
+    what phase 7 allows beyond the gradients' effect (1e-7 abs plus one
+    ulp of the value)."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(**MODEL, compute_dtype=torch.float32,
+                          fused_head_chunks=8, device=DEVICE, seed=0)
+    p0 = dict(model.named_parameters())
+    after = {}
+    for cap in (True, False):
+        ps = [torch.nn.Parameter(p0[n].detach().clone()) for n in grads]
+        for p, n in zip(ps, grads):
+            p.grad = grads[n].to(DEVICE)
+        opt = torch.optim.AdamW(
+            ps, lr=torch.tensor(lr, device=DEVICE) if cap else lr,
+            betas=(0.9, 0.999), eps=ADAM_EPS, weight_decay=1e-4,
+            capturable=cap)
+        opt.step()
+        after[cap] = [p.detach() for p in ps]
+    eps = torch.finfo(torch.float32).eps
+    ulps, abs_err, within = 0.0, 0.0, True
+    for n, a, b in zip(grads, after[True], after[False]):
+        d = (a - b).abs()
+        scale = torch.maximum(p0[n].detach().abs(),
+                              torch.maximum(a.abs(), b.abs())).clamp_min(lr)
+        ulps = max(ulps, float((d / (eps * scale)).max()))
+        abs_err = max(abs_err, float(d.max()))
+        within &= bool((d <= TRAIN_PARAM_ATOL + eps * b.abs()).all())
+    return {"max_ulps_of_operands": ulps, "max_abs": abs_err,
+            "within_phase7_allowance": within}
 
 
 # -- phases 8-10 ----------------------------------------------------------------
@@ -1210,6 +1449,9 @@ def mnist_tf1(torch, nprocs=1):
     lines, wall, started, model_path = _launch("mnist_tf1", nprocs,
                                                "tf1_style_mnist", {})
     world = _world(lines, nprocs, "nccl")
+    feed = json.loads(_rank0(lines, "Feed:"))
+    check(feed["path"] == "streamed" and feed["engine"] == "native",
+          f"tf1 did not train on the native batch engine: {feed}")
     model_dir = os.path.join(model_path, "horovod-mnist")
     epochs = [r for r in _jsonl(os.path.join(model_dir, "eval",
                                              "events.jsonl"))
@@ -1248,7 +1490,7 @@ def mnist_tf1(torch, nprocs=1):
                             _serving_probe(x_test), DEVICE)
     per_epoch = 60000 // nprocs // MNIST_BATCH * MNIST_BATCH * nprocs
     result = {
-        "world": world, "backend": "nccl",
+        "world": world, "backend": "nccl", "engine": feed["engine"],
         "epochs": len(epochs), "val_accuracy": val_acc,
         "first_epoch_98": None if first98 is None else first98 + 1,
         "train_s_to_98": None if first98 is None else sum(
@@ -1307,9 +1549,9 @@ def mnist_breakdown(torch):
     """Where a tf2 step's time goes (phase 8's configuration: bf16
     `MnistCNN`, Adam, batch 128, a world of one NCCL rank), measured in
     this process after the phases' checks; not a check. The host time of
-    the loader alone, of 200 steps on preloaded batches, and one profiled
-    window of 20 steps (kernel launches, device busy time and top kernels
-    per step)."""
+    the python loader alone; ``fit(dataset=)`` as phase 8 runs it (graph
+    replays), its steps 200-220 profiled; and 100 eager `train_step` calls
+    on preloaded batches, then 20 profiled (the step without a graph)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1323,47 +1565,336 @@ def mnist_breakdown(torch):
     (x, y), _ = datasets.mnist(path="mnist-0.npz",
                                cache_dir=os.path.join(WORK, "data"))
     x = (x.astype(np.float32) / 255.0)[..., None]
-    it = iter(ArrayDataset((x, y.astype(np.int64))).repeat()
-              .shuffle(10000, seed=0).batch(MNIST_BATCH))
+
+    def stream():
+        return (ArrayDataset((x, y.astype(np.int64))).repeat()
+                .shuffle(10000, seed=0).batch(MNIST_BATCH))
+
+    def trainer():
+        return Trainer(MnistCNN(compute_dtype=torch.bfloat16, device=DEVICE),
+                       DistributedOptimizer(adam(1e-3)), device=DEVICE)
+
     runtime.init(f"127.0.0.1:{pick_free_port()}", 1, 0, device=DEVICE)
     try:
-        trainer = Trainer(MnistCNN(compute_dtype=torch.bfloat16,
-                                   device=DEVICE),
-                          DistributedOptimizer(adam(1e-3)), device=DEVICE)
-        for _ in range(20):
-            trainer.train_step(*next(it))
-        torch.cuda.synchronize()
+        it = iter(stream())
         n, window = 200, 20
         t = time.perf_counter()
         batches = [next(it) for _ in range(n)]
         load_ms = (time.perf_counter() - t) * 1e3 / n
-        t = time.perf_counter()
-        for b in batches:
-            trainer.train_step(*b)
+        prof, fit_ms = profiled_fit(torch, lambda cbs: trainer().fit(
+            stream(), steps_per_epoch=n + window, callbacks=cbs, verbose=0),
+            n, window)
+        replayed, _ = _per_step(torch, prof, window, fit_ms)
+        eager_trainer = trainer()
+        for b in batches[:20]:
+            eager_trainer.train_step(*b)
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t) * 1e3 / n
+        t = time.perf_counter()
+        for b in batches[:100]:
+            eager_trainer.train_step(*b)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t) * 1e3 / 100
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for b in batches[:window]:
-                trainer.train_step(*b)
+                                 ProfilerActivity.CUDA]) as eager_prof:
+            for b in batches[100:100 + window]:
+                eager_trainer.train_step(*b)
             torch.cuda.synchronize()
-        kernels, by_name = device_kernels(torch, prof)
+        eager, _ = _per_step(torch, eager_prof, window, eager_ms)
         backend = runtime.backend()
     finally:
         runtime.shutdown()
-    busy = sum(by_name.values()) / window
     return {
         "backend": backend, "batch": MNIST_BATCH,
         "loader_ms_per_batch": load_ms,
-        "step_ms_preloaded": step_ms,
-        "images_per_s_preloaded": MNIST_BATCH / (step_ms / 1e3),
-        "kernel_launches_per_step": len(kernels) / window,
-        "device_busy_ms_per_step": busy if kernels else "not measured",
-        "device_busy_share": busy / step_ms if kernels else "not measured",
-        "top_kernels_ms_per_step": [
-            [k[:80], ms / window] for k, ms in
-            sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+        "fit_host_ms_per_step": fit_ms,
+        "fit_images_per_s": MNIST_BATCH / (fit_ms / 1e3),
+        "fit": replayed,
+        "eager_step_ms_preloaded": eager_ms,
+        "eager": {k: v for k, v in eager.items()
+                  if k != "top_kernels_ms_per_step"},
     }
+
+
+# -- phase 11 -------------------------------------------------------------------
+
+def _mnist_arrays():
+    """The tf1 script's arrays: f32 NHWC images / 255 and one-hot labels
+    (train and test), from the dataset cache of the earlier phases."""
+    import numpy as np
+
+    from horovod_tpu_torch.data import datasets
+
+    (x, y), (xt, yt) = datasets.mnist(cache_dir=os.path.join(WORK, "data"))
+    eye = np.eye(10, dtype=np.float32)
+    return ((x.astype(np.float32) / 255.0)[..., None], eye[y], y,
+            (xt.astype(np.float32) / 255.0)[..., None], eye[yt])
+
+
+def mnist_ci_cached(torch, nprocs=1):
+    """Phase 11: the CI job's configuration — the tf1 twin with
+    ``HVT_DEVICE_CACHE=1`` at ``nprocs`` NCCL ranks, the reference budget
+    (ceil(12 / nprocs) epochs). Returns the figures and the model path."""
+    lines, wall, started, model_path = _launch(
+        "mnist_ci_cached", nprocs, "tf1_style_mnist", {"HVT_DEVICE_CACHE": "1"})
+    world = _world(lines, nprocs, "nccl")
+    feed = json.loads(_rank0(lines, "Feed:"))
+    check(feed["path"] == "device",
+          f"HVT_DEVICE_CACHE=1 did not take the cached fit: {feed}")
+    model_dir = os.path.join(model_path, "horovod-mnist")
+    epochs = [r for r in _jsonl(os.path.join(model_dir, "eval",
+                                             "events.jsonl"))
+              if "epoch/val_accuracy" in r]
+    check(len(epochs) == -(-12 // nprocs), f"{len(epochs)} epoch records")
+    val_acc = [r["epoch/val_accuracy"] for r in epochs]
+    first98 = next((i for i, a in enumerate(val_acc) if a >= 0.98), None)
+    check(first98 is not None, f"98 % val_accuracy never reached: {val_acc}")
+    gate = [r["value"] for r in _jsonl(os.path.join(model_path,
+                                                    "metrics.jsonl"))
+            if r["name"] == "loss"]
+    gate_mean = sum(gate) / len(gate)
+    check(CI_LOSS_GATE[0] <= gate_mean <= CI_LOSS_GATE[1],
+          f"CI gate: mean loss {gate_mean} outside {CI_LOSS_GATE}")
+    digests = _rank0(lines, "State digests:").split()
+    check(len(digests) == nprocs and len(set(digests)) == 1,
+          f"ranks' training states differ after the cached fit: {digests}")
+    test_loss = float(_rank0(lines, "Test loss:"))
+    test_acc = float(_rank0(lines, "Test accuracy:"))
+    # The last epoch's validation (cached) and the script's final evaluate
+    # (uncached) see the same state.
+    val_err = abs(epochs[-1]["epoch/val_loss"] - test_loss)
+    check(val_err <= CACHED_EVAL_ATOL
+          and epochs[-1]["epoch/val_accuracy"] == test_acc,
+          f"cached validation {epochs[-1]['epoch/val_loss']} / "
+          f"{epochs[-1]['epoch/val_accuracy']} vs uncached evaluate "
+          f"{test_loss} / {test_acc}")
+    steps = 60000 // nprocs // MNIST_BATCH
+    ips = sorted(steps * MNIST_BATCH * nprocs / r["epoch/epoch_time_s"]
+                 for r in epochs)
+    result = {
+        "world": world, "backend": "nccl", "feed": feed["path"],
+        "epochs": len(epochs), "steps_per_epoch": steps,
+        "val_accuracy": val_acc, "first_epoch_98": first98 + 1,
+        "train_s_to_98": sum(r["epoch/epoch_time_s"]
+                             for r in epochs[:first98 + 1]),
+        "wall_s_to_98": epochs[first98]["wall_time"] - started,
+        "images_per_s_median": ips[len(ips) // 2],
+        "images_per_s_min": ips[0], "images_per_s_max": ips[-1],
+        "epoch_time_s": [r["epoch/epoch_time_s"] for r in epochs],
+        "test_loss": test_loss, "test_accuracy": test_acc,
+        "cached_val_vs_uncached_eval_abs_err": val_err,
+        "ci_gate_mean_loss": gate_mean, "ci_gate_records": len(gate),
+        "ranks_bit_identical": True, "wall_s": wall,
+        "peak_memory_bytes": int(_rank0(lines,
+                                        "Peak device memory (bytes):")),
+    }
+    log("mnist_ci_cached", json.dumps(result))
+    return result, model_path
+
+
+def _tf1_trainer(torch, **kw):
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adadelta
+    from horovod_tpu_torch.models.cnn import MnistCNN
+
+    return Trainer(MnistCNN(device=DEVICE), DistributedOptimizer(adadelta(1.0)),
+                   loss="categorical_crossentropy", device=DEVICE, **kw)
+
+
+def cached_in_process(torch, model_path):
+    """Phase 11's checks in this process, at one NCCL rank: cached against
+    uncached evaluate of the CI run's newest checkpoint; graph replays
+    against eager steps, from fresh weights and resumed from that
+    checkpoint; the cached step's breakdown (the dropout kernel's launches
+    on this path and its device time a step); steps_per_execution.
+    Returns the figures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch import callbacks, checkpoint, runtime
+    from horovod_tpu_torch.launch.launcher import pick_free_port
+    from horovod_tpu_torch.ops import dropout as do
+
+    x, y_oh, y, xt, yt_oh = _mnist_arrays()
+    runtime.init(f"127.0.0.1:{pick_free_port()}", 1, 0, device=DEVICE)
+    try:
+        out = {}
+        # Cached against uncached evaluate, one state.
+        trainer = _tf1_trainer(torch)
+        trainer.build()
+        _, epoch = checkpoint.restore_latest_and_broadcast(
+            os.path.join(model_path, "horovod-mnist"), trainer.state)
+        check(epoch == 12, f"the CI run's newest checkpoint is epoch {epoch}")
+        cached = trainer.evaluate(xt, yt_oh, batch_size=MNIST_BATCH,
+                                  cache="device")
+        plain = trainer.evaluate(xt, yt_oh, batch_size=MNIST_BATCH)
+        err = abs(cached["loss"] - plain["loss"])
+        check(err <= CACHED_EVAL_ATOL
+              and cached["accuracy"] == plain["accuracy"],
+              f"evaluate cached {cached} vs uncached {plain}")
+        out["evaluate"] = {"cached": cached, "uncached": plain,
+                           "loss_abs_err": err, "tolerance": CACHED_EVAL_ATOL}
+
+        # Graph replays against eager steps, from the same state (the
+        # seeded initial weights, no optimizer state).
+        runs = {}
+        for eager in (False, True):
+            t = _tf1_trainer(torch)
+            t.fit(x=x, y=y_oh, batch_size=MNIST_BATCH,
+                  steps_per_epoch=GRAPH_VS_EAGER_STEPS, cache="device",
+                  verbose=0, _eager=eager)
+            torch.cuda.synchronize()
+            runs[eager] = t
+        g, e = runs[False], runs[True]
+        check((g._runner.captures, g._runner.replays)
+              == (1, GRAPH_VS_EAGER_STEPS - 1)
+              and e._runner.replays == 0,
+              "the graph run did not replay one capture for every step "
+              "after the first")
+        with torch.no_grad():
+            param_err = max(float((p - q).abs().max()) for p, q in zip(
+                g.module.parameters(), e.module.parameters()))
+        same = checkpoint.state_digest(g.state) == checkpoint.state_digest(
+            e.state)
+        out["graph_vs_eager"] = {
+            "steps": GRAPH_VS_EAGER_STEPS, "captures": 1,
+            "replays": GRAPH_VS_EAGER_STEPS - 1,
+            "bit_identical": same, "param_max_abs_err": param_err}
+        log("graph_vs_eager", json.dumps(out["graph_vs_eager"]))
+        check(same, "graph replays and eager steps differ after "
+              f"{GRAPH_VS_EAGER_STEPS} steps (max param err {param_err})")
+
+        # The same, resumed from the CI run's newest checkpoint (optimizer
+        # state restored): the runner steps once eagerly before it
+        # captures, then replays.
+        digests, counts = [], None
+        for eager in (False, True):
+            t = _tf1_trainer(torch)
+            t.build()
+            checkpoint.restore_latest_and_broadcast(
+                os.path.join(model_path, "horovod-mnist"), t.state)
+            t.fit(x=x, y=y_oh, batch_size=MNIST_BATCH, epochs=13,
+                  initial_epoch=12, steps_per_epoch=GRAPH_VS_EAGER_STEPS,
+                  cache="device", verbose=0, _eager=eager)
+            torch.cuda.synchronize()
+            digests.append(checkpoint.state_digest(t.state))
+            if not eager:
+                counts = (t._runner.captures, t._runner.replays)
+        out["resumed_graph_vs_eager"] = {
+            "from_epoch": 12, "steps": GRAPH_VS_EAGER_STEPS,
+            "captures": counts[0], "replays": counts[1],
+            "bit_identical": digests[0] == digests[1]}
+        log("resumed_graph_vs_eager", json.dumps(
+            out["resumed_graph_vs_eager"]))
+        check(counts == (1, GRAPH_VS_EAGER_STEPS - 1),
+              f"the resumed fit captured/replayed {counts}")
+        check(digests[0] == digests[1], "a resumed fit's graph replays and "
+              "eager steps differ")
+
+        # The cached step's breakdown: a warm epoch on the host clock, then
+        # a profiled window of replays (steps 20-39 of a fit chunked every
+        # 20 steps, after the chunk that captured the graph).
+        t = _tf1_trainer(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        do.launches = 0
+        hist = t.fit(x=x, y=y_oh, batch_size=MNIST_BATCH, epochs=2,
+                     cache="device", verbose=0)
+        out["dropout_launches"] = do.launches
+        out["dropout_graph_replays"] = t._runner.replays
+        check(do.launches > 0, "the cached fit never launched the dropout "
+              "kernel")
+        peak = torch.cuda.max_memory_allocated()
+        host_ms = hist[-1]["epoch_time_s"] * 1e3 / MNIST_STEPS_PER_EPOCH
+        window = min(20, MNIST_STEPS_PER_EPOCH // 2)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        clock = {}
+
+        class Window(callbacks.Callback):
+            def on_batch_end(self, batch, logs=None):
+                torch.cuda.synchronize()
+                if batch == window - 1:
+                    prof.start()
+                    clock["t0"] = time.perf_counter()
+                elif batch == 2 * window - 1:
+                    clock["t1"] = time.perf_counter()
+                    prof.stop()
+
+        os.environ["HVT_EPOCH_CHUNK_STEPS"] = str(window)
+        try:
+            t.fit(x=x, y=y_oh, batch_size=MNIST_BATCH, epochs=1,
+                  steps_per_epoch=2 * window, cache="device", verbose=0,
+                  callbacks=[Window()])
+        finally:
+            del os.environ["HVT_EPOCH_CHUNK_STEPS"]
+        window_ms = (clock["t1"] - clock["t0"]) * 1e3 / window
+        # The busy share against the warm epoch's host ms a step.
+        per_step, by_name = _per_step(torch, prof, window, host_ms)
+        out["breakdown_mnist_cached"] = {
+            "config": "tf1 (f32 MnistCNN, Adadelta(1.0), batch 128), "
+                      "fit(cache='device'), 1 NCCL rank",
+            "host_ms_per_step": host_ms,
+            "images_per_s": MNIST_BATCH / (host_ms / 1e3),
+            "window_host_ms_per_step": window_ms,
+            **per_step,
+            "dropout_kernel_ms_per_step": sum(
+                ms for k, ms in by_name.items() if "dropout_kernel" in k)
+            / window if by_name else "not measured",
+            "peak_memory_bytes_in_process": peak,
+        }
+
+        # steps_per_execution: tf2's configuration, one cut epoch.
+        out["steps_per_execution"] = spe_runs(torch, x, y)
+    finally:
+        runtime.shutdown()
+    return out
+
+
+def spe_runs(torch, x, y):
+    """tf2's configuration (bf16 `MnistCNN`, Adam(0.001), sparse CE,
+    batch 128) for one epoch of SPE_STEPS steps at K = SPE_K and K = 1, on
+    tf2's ``dataset=`` feed and on ``x=``/``y=`` (graph replays, both): at every chunk end, K's loss must equal K = 1's at that
+    step, bit for bit (the same steps in both; K moves the callbacks)."""
+    from horovod_tpu_torch import (DistributedOptimizer, Trainer, adam,
+                                   callbacks)
+    from horovod_tpu_torch.data.loader import ArrayDataset
+    from horovod_tpu_torch.models.cnn import MnistCNN
+
+    class Record(callbacks.Callback):
+        def __init__(self):
+            self.seen = {}
+
+        def on_batch_end(self, batch, logs=None):
+            self.seen[batch] = float(logs["loss"])
+
+    out = {}
+    for feed in ("dataset", "xy"):
+        seen = {}
+        for k in (SPE_K, 1):
+            trainer = Trainer(
+                MnistCNN(compute_dtype=torch.bfloat16, device=DEVICE),
+                DistributedOptimizer(adam(1e-3)), device=DEVICE,
+                steps_per_execution=k)
+            rec = Record()
+            kw = dict(steps_per_epoch=SPE_STEPS, callbacks=[rec], verbose=0)
+            if feed == "dataset":
+                ds = (ArrayDataset((x, y)).shard(0, 1).repeat()
+                      .shuffle(10000, seed=0).batch(MNIST_BATCH))
+                trainer.fit(ds, **kw)
+            else:
+                trainer.fit(x=x, y=y, batch_size=MNIST_BATCH, **kw)
+            seen[k] = rec.seen
+        ends = sorted(seen[SPE_K])
+        check(ends == list(range(SPE_K - 1, SPE_STEPS, SPE_K)),
+              f"{feed}: K={SPE_K} callbacks at steps {ends}")
+        diff = max(abs(seen[SPE_K][s] - seen[1][s]) for s in ends)
+        check(diff == 0.0, f"{feed}: K={SPE_K} losses differ from K=1's at "
+              f"the chunk ends (max {diff})")
+        out[feed] = {"K": SPE_K, "steps": SPE_STEPS,
+                     "chunk_end_steps": len(ends),
+                     "loss_first_chunk": seen[SPE_K][ends[0]],
+                     "loss_last_chunk": seen[SPE_K][ends[-1]],
+                     "max_abs_diff_vs_K1": diff}
+    log("steps_per_execution", json.dumps(out))
+    return out
 
 
 # name: (source, TPU kernel it replaces, route, the main path whose
@@ -1387,6 +1918,10 @@ KERNELS = {
     "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                       "horovod_tpu/ops/flash_attention.py:300", "simt",
                       "f32 training step (phase 7)"),
+    # No Pallas kernel: flax's nn.Dropout, whose mask XLA draws.
+    "dropout": ("horovod_tpu_torch/ops/csrc/dropout.cu",
+                "horovod_tpu/models/cnn.py:41", "simt",
+                "tf1 fit(cache='device'), 2 epochs (phase 11)"),
 }
 
 
@@ -1408,6 +1943,7 @@ def multi_card(torch, ranks: int) -> int:
         toolchain(torch)
         mnist_tf2(torch, ranks, cut={})
         mnist_tf1(torch, ranks)
+        mnist_ci_cached(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1425,7 +1961,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument(
         "--ranks", type=int, default=1,
-        help="N > 1: run only the MNIST twins at N NCCL ranks (N cards)")
+        help="N > 1: run only the MNIST twins (phases 8, 9 and 11's "
+             "launch) at N NCCL ranks (N cards)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -1448,6 +1985,7 @@ def main(argv=None) -> int:
         errs, timings = kernel_cases(torch)
         bwd_errs = backward_cases(torch)
         train_timings = training_shape_timings(torch)
+        drop = dropout_cases(torch)
         serve_launches = main_path(torch)
         main_vs_plain(torch)
         train_launches = train_path(torch)
@@ -1456,6 +1994,11 @@ def main(argv=None) -> int:
         mnist_tf1(torch)
         mnist_2rank(torch)
         log("breakdown_mnist", json.dumps(mnist_breakdown(torch)))
+        ci, ci_path = mnist_ci_cached(torch)
+        cached = cached_in_process(torch, ci_path)
+        log("breakdown_mnist_cached", json.dumps(dict(
+            cached["breakdown_mnist_cached"], card=card,
+            peak_memory_bytes_ci_run=ci["peak_memory_bytes"])))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1485,6 +2028,13 @@ def main(argv=None) -> int:
             max(bwd_errs["f32_window_lse_cotangent"][k] for k in dkv_keys),
             _max_err(bwd_errs, dkv_keys, "simt")),
     }
+    train_timings["dropout"] = drop
+    launches["dropout"] = cached["dropout_launches"]
+    max_err["dropout"] = (drop["max_abs_err"], drop["max_abs_err"])
+    replays = {"dropout": cached["dropout_graph_replays"],
+               "flash_fwd_sm90": train_launches["graph_replays"],
+               "flash_bwd_dq_sm90": train_launches["graph_replays"],
+               "flash_bwd_dkv_sm90": train_launches["graph_replays"]}
     lines = []
     for name, (source, replaces, route, path) in KERNELS.items():
         tt = train_timings[name]
@@ -1496,7 +2046,8 @@ def main(argv=None) -> int:
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
-            "shape": f"B{b} T{t} H{h} D{d} causal bf16",
+            "graph_replays": replays.get(name, 0),
+            "shape": tt.get("shape", f"B{b} T{t} H{h} D{d} causal bf16"),
             "max_abs_err_all_cases": max_err[name][1],
             "card": card,
         }

@@ -10,7 +10,9 @@ It trains the reference MNIST CNN data-parallel (`init` over
 `torch.distributed`, `Trainer` → `DistributedOptimizer`'s bucketed
 gradient all-reduce, `callbacks`, `checkpoint`, the launcher
 ``python -m horovod_tpu_torch.launch run --nprocs N -- ...`` and the
-``examples`` twins of both MNIST scripts), serves the `TransformerLM` on
+``examples`` twins of both MNIST scripts; ``fit(cache="device")`` stages
+the data on the card, and on CUDA the trainer's own feeds run each step as
+a replay of one captured CUDA graph), serves the `TransformerLM` on
 one GPU (bundle → continuous batching engine → HTTP ``/v1/generate`` →
 prefill + decode loop) and trains it (forward with the fused chunked-CE
 head → backward). Attention runs hand-written CUDA flash-attention kernels

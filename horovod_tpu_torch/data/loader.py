@@ -1,13 +1,18 @@
 """Per-process sharded input pipeline with tf.data-style chaining — port of
-`horovod_tpu.data.loader` (the pure-Python engine).
+`horovod_tpu.data.loader`.
 
 ``ArrayDataset((x, y)).shard(rank, size).repeat().shuffle(10000, seed)
 .batch(128)`` yields byte-identically the batches of the JAX package's
-python engine (``HVT_NO_NATIVE=1``): the same reservoir shuffle of the same
-``(seed, epoch, pass)``-seeded `numpy.random.RandomState`, the same epoch
-anchoring. Pure numpy on the host; the trainer moves batches to the
-device. The JAX package's native C++ batch-assembly engine is a host
-loader, not a device kernel, and is not ported yet (ROADMAP).
+python engine: the same reservoir shuffle of the same ``(seed, epoch,
+pass)``-seeded `numpy.random.RandomState`, the same epoch anchoring. Pure
+numpy on the host; the trainer moves batches to the device.
+
+`training_pipeline` (the trainer's ``fit(x=, y=)`` feed) takes the JAX
+package's engine rule: the native C++ engine (`data.native_loader`, built
+with ``g++`` at first use) whenever it is available and the shuffle covers
+the whole data, the python engine otherwise (``HVT_NO_NATIVE=1``, no
+compiler, a bounded shuffle buffer). The two engines' streams are
+different byte streams; each equals its JAX counterpart's.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Iterator
 import numpy as np
 
 from horovod_tpu_torch.data import stream as stream_lib
+from horovod_tpu_torch.runtime import env_flag
 
 
 class ArrayDataset:
@@ -212,14 +218,36 @@ class ArrayDataset:
 def training_pipeline(arrays, batch_size: int, seed: int = 0,
                       shuffle_buffer: int | None = None,
                       skip_batches: int = 0, start_epoch: int = 0,
-                      batches_per_epoch: int | None = None):
+                      batches_per_epoch: int | None = None,
+                      engine_out: dict | None = None):
     """The training-path input iterator: infinite shuffled batches of the
-    given arrays (``repeat().shuffle().batch()``), a full permutation per
-    pass unless ``shuffle_buffer`` is smaller than the data. Returns
-    ``(iterator, close)``, the JAX package's signature; the python engine
-    holds nothing to close."""
+    given arrays (``repeat().shuffle().batch()``), anchored at
+    ``start_epoch`` and fast-forwarded past ``skip_batches``. Returns
+    ``(iterator, close)``; ``close()`` stops the native producer thread.
+
+    Engine (the JAX package's rule): the native engine when it is
+    available and the shuffle covers the data (``shuffle_buffer`` None or
+    at least the row count), else the python engine. ``engine_out`` (a
+    dict) receives ``{"engine": "native" | "python"}``."""
+    n = len(arrays[0])
+    full_shuffle = shuffle_buffer is None or shuffle_buffer >= n
+    if full_shuffle and batch_size <= n and not env_flag("HVT_NO_NATIVE"):
+        from horovod_tpu_torch.data import native_loader
+
+        if native_loader.available():
+            loader = native_loader.NativeBatchLoader(
+                arrays, batch_size, seed=seed, shuffle=True,
+                start_epoch=start_epoch,
+                batches_per_epoch=batches_per_epoch or 0)
+            if skip_batches:
+                loader.skip(skip_batches)
+            if engine_out is not None:
+                engine_out["engine"] = "native"
+            return loader, loader.close
+    if engine_out is not None:
+        engine_out["engine"] = "python"
     ds = (ArrayDataset(tuple(arrays)).repeat()
-          .shuffle(shuffle_buffer or len(arrays[0]), seed=seed)
+          .shuffle(shuffle_buffer or n, seed=seed)
           .batch(batch_size))
     return ds.batches(skip=int(skip_batches), start_epoch=start_epoch,
                       batches_per_epoch=batches_per_epoch), lambda: None

@@ -16,12 +16,15 @@ a timestamped directory, print test loss/accuracy (the CI gate's input).
         python -m horovod_tpu_torch.examples.tf1_style_mnist
 
 Knobs: ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``),
-``HVT_EXPORT_FORMAT``; smoke-test cuts ``DRIVE_EPOCHS``, ``DRIVE_TRAIN_N``,
-``DRIVE_EVAL_N``. The port's twin also prints the world, the serving
-bundle's path, every rank's state digest and the peak device memory, which
-``chip_smoke.py`` reads.
+``HVT_DEVICE_CACHE=1`` (the reference CI job's setting: the dataset staged
+on the card once, ``fit(cache="device")``), ``HVT_EXPORT_FORMAT``;
+smoke-test cuts ``DRIVE_EPOCHS``, ``DRIVE_TRAIN_N``, ``DRIVE_EVAL_N``. The
+port's twin also prints the world, the fit's feed (path and input engine),
+the serving bundle's path, every rank's state digest and the peak device
+memory, which ``chip_smoke.py`` reads.
 """
 
+import json
 import os
 
 import numpy as np
@@ -87,6 +90,12 @@ def main() -> None:
     if done_epochs and hvt.rank() == 0:
         print(f"Resuming from checkpoint epoch {done_epochs}")
 
+    # HVT_DEVICE_CACHE=1: stage the dataset on the card once and train and
+    # validate from there (Trainer.fit cache='device'). Off by default, as
+    # the reference streams.
+    fit_kwargs = (
+        {"cache": "device"} if hvt.runtime.env_flag("HVT_DEVICE_CACHE") else {}
+    )
     trainer.fit(
         x=x_train,
         y=y_train_oh,
@@ -96,7 +105,10 @@ def main() -> None:
         callbacks=callbacks,
         validation_data=(x_test, y_test_oh),
         verbose=1 if hvt.rank() == 0 else 0,
+        **fit_kwargs,
     )
+    if hvt.rank() == 0:
+        print("Feed:", json.dumps(trainer._stream_geometry))
 
     score = trainer.evaluate(x_test, y_test_oh, batch_size=batch_size)
 

@@ -10,9 +10,10 @@ NHWC input like the flax model, returning f32 logits.
 * Flatten order: the pooled activations are permuted back to NHWC before
   the flatten, so ``Dense(128)``'s input order is flax's and its weight is
   the flax kernel transposed (`models.convert.cnn_params_from_flax`).
-* Dropout masks come from ``dropout_seed`` (the trainer's per-step seed),
-  one derived seed per site, never from torch's global RNG; the bits
-  cannot equal JAX's threefry bits.
+* Dropout masks come from ``dropout_seed`` (the trainer's per-step seed,
+  an int or a 0-d int64 tensor), sites 0 and 1, never from torch's global
+  RNG (`ops.dropout`: a CUDA kernel on the card); the bits cannot equal
+  JAX's threefry bits.
 * Convolutions and dense layers are library calls (cuDNN and cuBLAS on
   the card): the JAX model runs no Pallas kernel either.
 """
@@ -25,8 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch.models.transformer import _dtype, dropout
-from horovod_tpu_torch.runtime import derive_seed, resolve_device
+from horovod_tpu_torch.models.transformer import _dtype
+from horovod_tpu_torch.ops.dropout import dropout
+from horovod_tpu_torch.runtime import resolve_device
 
 
 class MnistCNN(nn.Module):
@@ -75,11 +77,11 @@ class MnistCNN(nn.Module):
             x = F.relu(F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd)))
         x = F.max_pool2d(x, 2)
         if train:
-            x = dropout(x, 0.25, derive_seed(dropout_seed, 0))
+            x = dropout(x, 0.25, dropout_seed, 0)
         x = x.permute(0, 2, 3, 1).flatten(1)  # flax's NHWC flatten
         x = F.relu(F.linear(x, self.dense1.weight.to(cd),
                             self.dense1.bias.to(cd)))
         if train:
-            x = dropout(x, 0.5, derive_seed(dropout_seed, 1))
+            x = dropout(x, 0.5, dropout_seed, 1)
         x = F.linear(x, self.dense2.weight.to(cd), self.dense2.bias.to(cd))
         return x.float()

@@ -14,7 +14,9 @@ side:
   ``Embed_0/embedding [vocab, d]``, ``LayerNorm_*/scale [d]``.
 
 The torch side keeps `nn.Linear`'s ``[out, in]`` weights. `params_to_flax`
-is the exact inverse (pure reshapes and transposes).
+is the exact inverse (pure reshapes and transposes). `ema_from_flax`
+carries a JAX EMA shadow across: the params conversion applied to the
+shadow tree.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def params_to_flax(state_dict, *, n_heads: int) -> dict:
     return tree
 
 
-# -- MnistCNN ------------------------------------------------------------------
+# -- MnistCNN -----------------------------------------------------------------
 #
 # flax side: ``Conv_0``/``Conv_1`` kernels HWIO ``[3, 3, in, out]``,
 # ``Dense_0`` ``[9216, 128]`` over the NHWC flatten, ``Dense_1`` ``[128, 10]``;
@@ -156,3 +158,17 @@ def cnn_params_to_flax(state_dict) -> dict:
         tree[flax_name] = {"kernel": np.ascontiguousarray(w.transpose(perm)),
                            "bias": sd[f"{name}.bias"]}
     return tree
+
+
+# -- EMA shadows --------------------------------------------------------------
+
+
+def ema_from_flax(payload, params_from=cnn_params_from_flax) -> dict:
+    """A JAX ``ExponentialMovingAverage`` payload (``{"shadow": flax params
+    tree, "count": n}``, the content of its ``ema.msgpack`` as numpy
+    arrays) → the port's (``{"shadow": state_dict, "count": n}``, what
+    `training.ema.save_payload` writes): ``params_from`` — the model's
+    params conversion (`cnn_params_from_flax`, `params_from_flax`) —
+    applied to the shadow tree."""
+    return {"shadow": params_from(payload["shadow"]),
+            "count": int(payload["count"])}

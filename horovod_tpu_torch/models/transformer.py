@@ -24,9 +24,11 @@ Training mirrors ``apply(..., train=True, labels=...)``: ``labels`` returns
 ``segment_ids`` packs documents (RoPE positions restart per document,
 attention stays within it); ``remat`` recomputes each block in the backward
 (`torch.utils.checkpoint`). Dropout draws its masks from a seed the caller
-passes (``dropout_seed``, the trainer's per-step seed), never from torch's
-global RNG: each (seed, layer, site) seeds its own generator, so a remat
-recompute redraws the same mask.
+passes (``dropout_seed``, the trainer's per-step seed, an int or a 0-d int64
+tensor), never from torch's global RNG: block i's two sites are 2i and
+2i + 1, and the mask is a hash of (seed, site, element index)
+(`ops.dropout`, a CUDA kernel on the card), so a remat recompute redraws
+the same mask.
 
 Not in this slice — each raises `NotImplementedError` naming its ROADMAP
 item: MoE blocks, int8 compute, the int8 / sliding KV caches and
@@ -43,9 +45,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.attention import _BIG_NEG
+from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
-from horovod_tpu_torch.runtime import derive_seed, resolve_device
+from horovod_tpu_torch.runtime import resolve_device
 
 
 def _dtype(x) -> torch.dtype:
@@ -54,19 +57,6 @@ def _dtype(x) -> torch.dtype:
 
 def _dtype_name(x: torch.dtype) -> str:
     return str(x).removeprefix("torch.")
-
-
-def dropout(x, rate: float, seed: int):
-    """flax ``nn.Dropout``: keep each element with probability 1 − rate
-    and scale it by 1 / (1 − rate). The mask comes from a generator seeded
-    with ``seed`` on x's device, so the same seed redraws the same mask."""
-    if rate <= 0.0:
-        return x
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def packed_positions(segment_ids):
@@ -169,12 +159,13 @@ class Block(nn.Module):
         return q, k.view(b, t, self.h_kv, hd), v.view(b, t, self.h_kv, hd)
 
     def forward(self, x, positions, *, train: bool = False, segment_ids=None,
-                dropout_seed: int | None = None, cache=None,
-                decode_index=None, fresh: bool = False):
+                dropout_seed: int | None = None, dropout_site: int = 0,
+                cache=None, decode_index=None, fresh: bool = False):
         """``cache`` (decode mode): this block's ``{"k", "v"}`` entry,
         written in place at ``decode_index``; ``fresh`` marks the prefill
         that created it. ``dropout_seed`` (train mode with dropout > 0)
-        seeds this block's two dropout masks."""
+        seeds this block's two dropout masks, sites ``dropout_site`` and
+        ``dropout_site + 1``."""
         b, t, _ = x.shape
         drop = train and self.dropout > 0.0
         if drop and dropout_seed is None:
@@ -193,12 +184,12 @@ class Block(nn.Module):
             )
         out = self._dense(self.attn_out, out.reshape(b, t, -1))
         if drop:
-            out = dropout(out, self.dropout, derive_seed(dropout_seed, 0))
+            out = dropout(out, self.dropout, dropout_seed, dropout_site)
         x = x + out
         h = self._dense(self.mlp_up, self.ln_mlp(x))
         h = self._dense(self.mlp_down, F.gelu(h, approximate="tanh"))
         if drop:
-            h = dropout(h, self.dropout, derive_seed(dropout_seed, 1))
+            h = dropout(h, self.dropout, dropout_seed, dropout_site + 1)
         return x + h
 
     def _decode_attention(self, q, k, v, cache, idx, fresh):
@@ -398,9 +389,8 @@ class TransformerLM(nn.Module):
             positions = packed_positions(segment_ids)
         x = self._embed(tokens)
         for i, blk in enumerate(self.blocks):
-            kw = dict(train=train, segment_ids=segment_ids, dropout_seed=(
-                None if dropout_seed is None
-                else derive_seed(dropout_seed, i)))
+            kw = dict(train=train, segment_ids=segment_ids,
+                      dropout_seed=dropout_seed, dropout_site=2 * i)
             if self.remat and torch.is_grad_enabled():
                 # Recompute the block in the backward. Dropout masks come
                 # from (seed, layer, site), so the recompute redraws them;

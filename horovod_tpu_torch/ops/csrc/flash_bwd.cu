@@ -48,9 +48,10 @@
 // Layout: q/dO [B,Tq,H,D] and k/v [B,Tk,Hkv,D] read in place through their
 // strides (last dim contiguous; H % Hkv == 0, kv head = h / (H / Hkv));
 // lse/delta f32 [B,Tq,H] contiguous; dQ written contiguous [B,Tq,H,D] and
-// dK/dV contiguous [B,Tk,Hkv,D], in the input dtype (f32 or bf16).
+// dK/dV contiguous [B,Tk,Hkv,D], in the input dtype (f32, bf16 or fp16).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -80,6 +81,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -88,6 +90,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // The forward's position masks for global (row, col); segment ids apart.
@@ -448,6 +454,8 @@ int run(const Params& p, int dtype, bool dkv, void* stream) {
     err = dispatch<float>(p, dkv, st);
   else if (dtype == 1)
     err = dispatch<__nv_bfloat16>(p, dkv, st);
+  else if (dtype == 2)
+    err = dispatch<__half>(p, dkv, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -455,9 +463,10 @@ int run(const Params& p, int dtype, bool dkv, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
-// its launch (0 = launched). The caller validates shapes, D <= 256 and
-// H % Hkv == 0, computes delta, and allocates the outputs contiguous.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each returns
+// cudaGetLastError() after its launch (0 = launched). The caller validates
+// shapes, D <= 256 and H % Hkv == 0, computes delta, and allocates the
+// outputs contiguous.
 extern "C" int hvt_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* qseg, const void* kseg,

@@ -25,11 +25,12 @@
 //
 // Layout: q [B,Tq,H,D], k/v [B,Tk,Hkv,D] read in place through their strides
 // (last dim contiguous; H % Hkv == 0, kv head = h / (H / Hkv)); O written
-// contiguous [B,Tq,H,D] in the input dtype, lse f32 [B,Tq,H]. Inputs f32 or
-// bf16; all products accumulate in f32. P is rounded to the input dtype
+// contiguous [B,Tq,H,D] in the input dtype, lse f32 [B,Tq,H]. Inputs f32, bf16
+// or fp16; all products accumulate in f32. P is rounded to the input dtype
 // before the P.V product, as the TPU kernel does (`p.astype(v.dtype)`).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -58,6 +59,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -66,6 +68,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Round to the input dtype and back (identity for f32).
@@ -272,8 +278,8 @@ cudaError_t dispatch_d(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched). The caller validates shapes, D <= 256 and
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError()
+// after the launch (0 = launched). The caller validates shapes, D <= 256 and
 // H % Hkv == 0, and allocates o/lse contiguous.
 extern "C" int hvt_flash_fwd(
     const void* q, const void* k, const void* v, const void* qseg,
@@ -296,6 +302,8 @@ extern "C" int hvt_flash_fwd(
     err = dispatch_d<float>(p, st);
   else if (dtype == 1)
     err = dispatch_d<__nv_bfloat16>(p, st);
+  else if (dtype == 2)
+    err = dispatch_d<__half>(p, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

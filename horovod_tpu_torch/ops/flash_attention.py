@@ -15,22 +15,28 @@ their plain PyTorch versions.
 
 Routes (`_route`, by dtype and head dim only, never by failure): bf16 with
 D a multiple of 8 up to 128 takes the tensor-core kernels (wgmma, TMA);
-f32, or any other D up to 256, the CUDA-core kernels (bf16 tensor cores
-would round f32 operands; the dK/dV accumulators of D > 128 do not fit one
-warpgroup's registers).
+f32, fp16, or any other D up to 256, the CUDA-core kernels (bf16 tensor
+cores would round f32 operands; the dK/dV accumulators of D > 128 do not
+fit one warpgroup's registers).
 
 Device policy: a CPU tensor takes the plain versions
-(`flash_attention_reference`, `flash_attention_bwd_reference`); a CUDA
-tensor launches the kernel of its route or raises. There is no fallback on
-CUDA — the kernels take every shape the model gives them (any Tq/Tk, D ≤
-256, GQA heads read in place; the tensor-core route reads strided views
-through TMA and raises on a base or stride that is not a multiple of 16
-bytes).
+(`flash_attention_reference`, `flash_attention_bwd_reference`). A CUDA
+call with a head dim past 256 (`_takes_dense`, the one case the
+reference's ``supported`` rejects) goes to the dense plain path, whose
+gradients autograd gives — the reference's fallback to dense attention.
+Every other CUDA call launches the kernel of its route or raises: a kernel
+that fails to build or launch is never replaced, and a dtype other than
+f32, bf16 and fp16 raises. q, k or v whose head dim has a stride other
+than 1 is made contiguous first (the reference's arrays have no strides).
+The kernels take every other shape the model gives them (any Tq/Tk, GQA
+heads read in place; the tensor-core route reads strided views through
+TMA and raises on a base or stride that is not a multiple of 16 bytes).
 
 ``launches``, ``launches_bwd_dq`` and ``launches_bwd_dkv`` count kernel
 launches on either route, ``launches_tc``, ``launches_bwd_dq_tc`` and
-``launches_bwd_dkv_tc`` the tensor-core route's (plain module integers), so
-a run can show that its main path went through the kernels, and which.
+``launches_bwd_dkv_tc`` the tensor-core route's, ``launches_dense`` the
+CUDA calls that took the dense path (plain module integers), so a run can
+show that its main path went through the kernels, and which.
 """
 
 from __future__ import annotations
@@ -55,8 +61,9 @@ launches_bwd_dkv = 0
 launches_tc = 0
 launches_bwd_dq_tc = 0
 launches_bwd_dkv_tc = 0
+launches_dense = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns: dict = {}
 # Rows of one tensor-core tile (the TMA box's T extent, wgmma's M) and the
 # columns of one 128-byte-swizzled chunk (its D extent).
@@ -65,10 +72,19 @@ _TC_ROWS, _TC_COLS = 64, 64
 
 def _route(dtype, head_dim: int) -> str:
     """``"tc"`` (tensor-core kernels) for bf16 with D a multiple of 8 up to
-    128, else ``"simt"`` (CUDA-core kernels)."""
+    128, else ``"simt"`` (CUDA-core kernels: f32, fp16, other D)."""
     if dtype == torch.bfloat16 and head_dim % 8 == 0 and head_dim <= 128:
         return "tc"
     return "simt"
+
+
+def _takes_dense(q, k, v) -> bool:
+    """Whether a call on the card takes the dense plain path instead of the
+    tiled kernels: a head dim past 256, where the reference's
+    ``supported`` fails for every block choice. The shape decides, never
+    a failed build or launch."""
+    del k, v
+    return q.shape[-1] > 256
 
 
 def _tma_desc(t, name: str = "tensor") -> tuple:
@@ -500,6 +516,19 @@ def _attention(q, k, v, *, causal, q_segment_ids, kv_segment_ids, window,
         sinks = 0  # full causal attention already sees every sink
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
+    if q.device.type == "cuda" and _takes_dense(q, k, v):
+        global launches_dense
+        if not (q.dtype == k.dtype == v.dtype):
+            raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
+        launches_dense += 1
+        return flash_attention_reference(
+            q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, window=window, sinks=sinks,
+            q_offset=q_offset)
+    if q.device.type == "cuda":
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
                                      causal, window, sinks, q_offset)

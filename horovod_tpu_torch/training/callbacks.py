@@ -9,6 +9,7 @@
   the update by s(e) through ``trainer.update_scale``.
 * `ModelCheckpoint` / `ScalarLogger` — rank-0-only checkpoints and scalar
   logs (``events.jsonl`` and TensorBoard event files).
+* `ExponentialMovingAverage` — the parameters' EMA (`training.ema`).
 
 Not ported yet (ROADMAP queue A item 13, the control plane): preemption
 checkpoints, heartbeats, the metrics-push callback, env-requested
@@ -302,3 +303,9 @@ class ScalarLogger(Callback):
 
 # Keras-name alias: the reference registers this under TensorBoard.
 TensorBoard = ScalarLogger
+
+
+# Split into training/ema.py as in the JAX package; importable from here.
+from horovod_tpu_torch.training.ema import (  # noqa: E402,F401
+    ExponentialMovingAverage,
+)

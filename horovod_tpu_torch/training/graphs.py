@@ -1,0 +1,282 @@
+"""One optimizer step, captured once in a CUDA graph and replayed — the
+port's counterpart of the JAX trainer's jitted ``_train_step`` /
+``_train_chunk`` / ``_train_epoch`` (`horovod_tpu.training.trainer`).
+
+`StepRunner` owns everything a captured step touches, at addresses that
+never change while the graph lives:
+
+* the batch source — the epoch's shuffled copy of a device-staged dataset
+  (``fit(cache="device")``) or the buffers the streamed fit (``x=``/``y=``
+  and ``dataset=``) copies each prefetched chunk into (`feed`) — and a
+  device step counter ``t``: step ``t`` reads rows ``[t·K·B, (t+1)·K·B)``
+  (K microbatches of B rows) with ``index_select`` on device indices, so
+  no host integer is baked into the graph;
+* a device table of dropout seeds, ``derive_seed(rng, step[, rank][,
+  micro])`` computed on the host for the chunk's steps and uploaded once
+  per chunk; the model folds and hashes them on the device
+  (`ops.dropout`, a CUDA kernel on the card);
+* the metric sums (JAX's ``metric_acc``: loss and accuracy, f32), read
+  once per epoch, and the last step's metrics, which `last_metrics`
+  clones (the next replay overwrites them).
+
+The optimizer runs in its capturable form with a device learning rate
+(`DistributedOptimizer.set_scale` fills it outside the graph, once per
+epoch). The gradient all-reduce is captured with the step when the
+collective can be captured: without a process group, or under NCCL once
+its communicator exists. Under gloo a collective goes through host memory,
+which a graph cannot hold, so the step is two graphs — forward, backward
+and bucket packing; then unpacking and the optimizer — around the eager
+all-reduce. The backend decides, never a failure.
+
+Before a runner captures for the first time, and again after `feed`
+brought rows of another shape, one step runs eagerly on the capture
+stream, as a real step: it creates the optimizer state (a fresh fit), the
+NCCL communicator, cuDNN's plans and cuBLAS's workspaces for the shape.
+Then the capture is taken, and it is taken again when the optimizer's
+state tensors were rebound (`DistributedOptimizer.generation`) or, for an
+optimizer with a float learning rate, when the scale changed. A capture
+or a replay that fails raises. On the CPU, or with ``eager``, `run` calls
+the same step function step by step (reading fed rows in place): the
+plain version, and `Trainer.train_step`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from horovod_tpu_torch import runtime
+
+
+def _host(a: np.ndarray, pinned: bool) -> torch.Tensor:
+    """``a`` as a host tensor, in page-locked memory when it goes to the
+    card: a copy from there does not make the host wait for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if pinned else t
+
+
+class StepRunner:
+    """Optimizer steps of ``trainer`` on batches of ``batch_size`` rows
+    read from ``src_x`` / ``src_y`` (device tensors of rows, K·B rows a
+    step; or, left None, what `feed` brings), for at most ``max_steps``
+    steps between two `reset_counter` calls."""
+
+    def __init__(self, trainer, src_x=None, src_y=None, *,
+                 batch_size: int, max_steps: int, eager: bool = False):
+        self.trainer = trainer
+        self.src_x, self.src_y = src_x, src_y
+        self.accum = trainer._accum_steps
+        self.max_steps = max(1, int(max_steps))
+        dev = self.device = trainer.device
+        self.graphs = dev.type == "cuda" and not eager
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        self._t_host = 0
+        self.seeds = torch.zeros((self.max_steps, self.accum),
+                                 dtype=torch.int64, device=dev)
+        self._set_batch_size(batch_size)
+        self.metric_sums = torch.zeros(2, dtype=torch.float32, device=dev)
+        self.last = None
+        self.capture_guard = contextlib.nullcontext
+        self.captures = 0
+        self.replays = 0
+        self._graphs: list = []
+        self._packed = None
+        self._key = None
+        self._layout = None
+        self._warm = False  # a step ran eagerly since the layout was set
+        self._stream = torch.cuda.Stream(dev) if self.graphs else None
+
+    def _set_batch_size(self, batch_size: int) -> None:
+        self.batch_size = int(batch_size)
+        self.rows = torch.arange(self.batch_size, device=self.device)
+
+    # -- host side -----------------------------------------------------------
+
+    def reset_counter(self) -> None:
+        """Step 0 of the source reads its first rows again."""
+        self.t.zero_()
+        self._t_host = 0
+
+    def feed(self, x, y, batch_size: int) -> None:
+        """The streamed paths' rows: ``x``/``y`` on the device hold n·K
+        batches of ``batch_size`` rows (step, microbatch, row order), at
+        most ``max_steps`` steps; step 0 reads their first rows. Replayed
+        steps read them from the runner's own buffers, which they are
+        copied into; rows of another batch shape or dtype replace the
+        buffers and drop the graphs, so the next `run` steps once eagerly
+        and captures again. Eager steps read ``x``/``y`` in place."""
+        layout = (int(batch_size), tuple(x.shape[1:]), x.dtype,
+                  tuple(y.shape[1:]), y.dtype)
+        if layout != self._layout:
+            self._drop_graphs()
+            self._layout = layout
+            self._set_batch_size(batch_size)
+            self.src_x = self.src_y = None
+        if not self.graphs:
+            self.src_x, self.src_y = x, y
+        else:
+            if self.src_x is None:
+                rows = self.max_steps * self.accum * self.batch_size
+                self.src_x = x.new_empty((rows,) + tuple(x.shape[1:]))
+                self.src_y = y.new_empty((rows,) + tuple(y.shape[1:]))
+            self.src_x[:len(x)].copy_(x)
+            self.src_y[:len(y)].copy_(y)
+        self.reset_counter()
+
+    def zero_metrics(self) -> None:
+        self.metric_sums.zero_()
+
+    def _drop_graphs(self) -> None:
+        if self._graphs:
+            torch.cuda.synchronize()  # no replay still reads them
+        self._graphs, self._packed, self._key = [], None, None
+        self._warm = False
+
+    def close(self) -> None:
+        """Release the graphs and the buffers they read (the counts stay).
+        A fit closes its runner when it ends: graphs that hold captured
+        NCCL work must not outlive the process group."""
+        self._drop_graphs()
+        self.src_x = self.src_y = self.seeds = None
+
+    def metric_means(self, steps: int) -> dict:
+        """The epoch's mean loss and accuracy over ``steps`` steps: the one
+        fetch from the device."""
+        loss, acc = self.metric_sums.tolist()
+        return {"loss": loss / steps, "accuracy": acc / steps}
+
+    def last_metrics(self) -> dict:
+        """Copies of the last step's metrics (0-d device tensors)."""
+        return {k: v.clone() for k, v in self.last.items()}
+
+    def _upload_seeds(self, n: int) -> None:
+        tr = self.trainer
+        first = tr.state.step
+        seeds = [[tr._dropout_seed(k, step=first + i)
+                  for k in range(self.accum)] for i in range(n)]
+        lo = self._t_host
+        if lo + n > len(self.seeds):
+            raise ValueError(f"{lo + n} steps since the last reset, the "
+                             f"runner holds seeds for {len(self.seeds)}")
+        self.seeds[lo:lo + n].copy_(
+            _host(np.asarray(seeds, dtype=np.int64), self.graphs),
+            non_blocking=True)
+
+    def run(self, n: int) -> None:
+        """``n`` optimizer steps, each reading the next rows of the source;
+        ``trainer.state.step`` advances by ``n``."""
+        if n <= 0:
+            return
+        self._upload_seeds(n)
+        self._t_host += n
+        tr = self.trainer
+        if self.graphs and self._stale():
+            if not self._warm:
+                self._warm_up()
+                self._warm = True
+                tr.state.step += 1
+                n -= 1
+            if n:
+                self._capture()
+        for _ in range(n):
+            if self.graphs:
+                self._replay()
+            else:
+                self._step()
+            tr.state.step += 1
+
+    # -- the step -------------------------------------------------------------
+
+    def _forward_backward(self) -> None:
+        tr = self.trainer
+        tr.tx.zero_grad()
+        B, K = self.batch_size, self.accum
+        seeds = self.seeds.index_select(0, self.t.view(1)).view(-1)
+        losses, accs = [], []
+        for k in range(K):
+            idx = (self.t * K + k) * B + self.rows
+            x = self.src_x.index_select(0, idx)
+            y = self.src_y.index_select(0, idx)
+            loss_vec, correct = tr._loss_and_correct(x, y, train=True,
+                                                     seed=seeds[k])
+            loss = loss_vec.mean()
+            loss.backward()
+            losses.append(loss.detach())
+            accs.append(correct.mean().detach())
+        if K == 1:
+            loss, acc = losses[0], accs[0]
+        else:
+            loss, acc = torch.stack(losses).mean(), torch.stack(accs).mean()
+        self.metric_sums.add_(torch.stack([loss, acc]))
+        self.last = {"loss": loss, "accuracy": acc}
+        self.t.add_(1)
+
+    def _optimizer_step(self, packed) -> None:
+        tx = self.trainer.tx
+        tx.unpack_gradients(packed)
+        tx.optimizer.step()
+
+    def _step(self) -> None:
+        """One whole step, eagerly (the plain version, and the warm-up)."""
+        self._forward_backward()
+        packed = self.trainer.tx.pack_gradients()
+        self.trainer.tx.communicate(packed)
+        self._optimizer_step(packed)
+
+    # -- graphs ---------------------------------------------------------------
+
+    def _capture_key(self):
+        tx = self.trainer.tx
+        lrs = () if tx.lr_is_tensor else tuple(
+            g["lr"] for g in tx.optimizer.param_groups)
+        return tx.generation, lrs
+
+    def _stale(self) -> bool:
+        return not self._graphs or self._key != self._capture_key()
+
+    def _warm_up(self) -> None:
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self._step()
+        torch.cuda.current_stream().wait_stream(stream)
+
+    def _capture(self) -> None:
+        """Capture the step: one graph when the all-reduce can be captured
+        (no process group, or NCCL), else two graphs around it."""
+        in_graph = runtime.backend() != "gloo"
+        stream = self._stream
+        self._graphs = []
+        torch.cuda.synchronize()
+        stream.wait_stream(torch.cuda.current_stream())
+        with self.capture_guard(), torch.cuda.stream(stream):
+            tx = self.trainer.tx
+            tx.zero_grad()
+            first = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(first, stream=stream):
+                self._forward_backward()
+                packed = tx.pack_gradients()
+                if in_graph:
+                    tx.communicate(packed)
+                    self._optimizer_step(packed)
+            self._graphs.append(first)
+            if not in_graph:
+                second = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(second, stream=stream,
+                                      pool=first.pool()):
+                    self._optimizer_step(packed)
+                self._graphs.append(second)
+        torch.cuda.current_stream().wait_stream(stream)
+        self._packed = packed
+        self._key = self._capture_key()
+        self.captures += 1
+
+    def _replay(self) -> None:
+        first, *rest = self._graphs
+        first.replay()
+        if rest:
+            self.trainer.tx.communicate(self._packed)
+            rest[0].replay()
+        self.replays += 1

@@ -25,8 +25,9 @@ class TrainState:
     optimizer: object
     rng: int
 
-    def step_seed(self) -> int:
-        return derive_seed(self.rng, self.step)
+    def step_seed(self, step: int | None = None) -> int:
+        """The seed of optimizer step ``step`` (default: the next one)."""
+        return derive_seed(self.rng, self.step if step is None else step)
 
 
 def _resolve_loss(loss) -> Callable | None:

@@ -1,7 +1,8 @@
 """The MNIST data path against the JAX package: the synthetic MNIST arrays
 byte for byte, `ArrayDataset` batch for batch (the JAX class is the python
 engine), and the batches `Trainer.fit(x=, y=)` trains on against JAX's
-``training_pipeline`` under ``HVT_NO_NATIVE=1`` (the python engine). All
+``training_pipeline`` on each engine: under ``HVT_NO_NATIVE=1`` (the python
+engine) and by default (the native C++ engine, which g++ builds here). All
 comparisons are exact.
 """
 
@@ -169,6 +170,37 @@ def test_fit_xy_batches_match_jax_training_pipeline(monkeypatch, rank, size,
         structure=shard.structure, skip_batches=skip * K, start_epoch=start,
         batches_per_epoch=spe * K, engine_out=engine)
     assert engine["engine"] == "python"
+    n = ((kw["epochs"] - start) * spe - skip) * K
+    want = [next(it)[0] for _ in range(n)]
+    close()
+    assert len(seen) == n
+    for a, b in zip(seen, want):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("rank,size,kw,K", [
+    (0, 1, dict(batch_size=4, epochs=3), 1),
+    (1, 2, dict(batch_size=4, epochs=2, steps_per_epoch=5), 1),
+    (0, 1, dict(batch_size=5, epochs=3, initial_epoch=1, initial_step=3), 1),
+    (2, 3, dict(batch_size=3, epochs=2), 2),
+], ids=["one-rank", "rank1-of-2", "resume", "accumulate"])
+def test_fit_xy_batches_match_jax_native_engine(monkeypatch, rank, size, kw,
+                                                K):
+    """By default ``fit(x=, y=)`` takes the native engine where it builds,
+    as the JAX trainer does, and trains on the JAX native engine's batches
+    for this rank's shard, in order."""
+    monkeypatch.delenv("HVT_NO_NATIVE", raising=False)
+    seen, x, y = _fit_batches(monkeypatch, rank, size, K=K, **kw)
+    shard = jloader.ArrayDataset((x, y)).shard(rank, size)
+    bs = kw["batch_size"]
+    spe = kw.get("steps_per_epoch") or shard.num_examples // (bs * K)
+    start, skip = kw.get("initial_epoch", 0), kw.get("initial_step", 0)
+    engine = {}
+    it, close = jloader.training_pipeline(
+        shard.arrays, bs, seed=11, structure=shard.structure,
+        skip_batches=skip * K, start_epoch=start, batches_per_epoch=spe * K,
+        engine_out=engine)
+    assert engine["engine"] == "native"
     n = ((kw["epochs"] - start) * spe - skip) * K
     want = [next(it)[0] for _ in range(n)]
     close()

@@ -397,8 +397,8 @@ def test_trainer_paths_on_cpu():
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": object()}, "item 12"),
     ({"shard_update": True}, "item 11"),
-    ({"steps_per_execution": 4}, "item 5"),
-], ids=["mesh", "shard_update", "steps_per_execution"])
+    ({"bucket_order": "forward"}, "item 11"),
+], ids=["mesh", "shard_update", "bucket_order"])
 def test_trainer_unported_options_raise_naming_roadmap(kw, match):
     tm = ttr.TransformerLM(**_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
