@@ -95,17 +95,44 @@ Phases (any failed check exits non-zero before the result line):
    ms a step, peak memory); and ``steps_per_execution``: tf2's configuration for one cut
    epoch at K = 4 and K = 1, on its ``dataset=`` feed and on ``x=``/``y=``,
    whose losses at every chunk end must be equal bit for bit;
-12. the ``kernels`` JSON line, then the last line
+12. the CIFAR-10 path (BASELINE.json config 4), no Pallas kernel on it:
+   a. ``cifar_resnet`` — the twin of ``examples/cifar10_resnet.py``
+      (``horovod_tpu_torch.examples.cifar10_resnet``: bf16 ResNet-20 with
+      global-batch BatchNorm, Adam(0.001 × size), warmup, rank-0
+      checkpoints) at one NCCL rank, 390 steps × 24 epochs at 128 unless
+      cut (``CIFAR_CUT``). The loss must fall, the checkpoints be intact and
+      test accuracy reach 0.45 (the synthetic set's ceiling is ~0.5:
+      classes c and c + 5 are one distribution); images/s (median, min,
+      max), step ms, peak memory, the epoch losses and test accuracy; then
+      a ``breakdown_cifar`` line from one profiled window of replays in a
+      launched process (host ms a step, device busy share, kernels and
+      graph launches a step, the NCCL kernels' share);
+   b. ``cifar_graph_vs_eager`` — in a launched process, 10 steps of
+      ``fit`` (one eager step, one capture, replays) against 10
+      ``Trainer.train_step`` calls from the same state: parameters,
+      optimizer state and BN running statistics bit-identical (with
+      ``--ranks N`` also at N NCCL ranks, where the captured step holds
+      the BN all-reduces);
+   c. ``sync_bn`` — two gloo ranks sharing the card at 4 rows each
+      against one rank at 8, an f32 depth-8 ResNet for 4 SGD steps (the
+      configuration of ``tests/test_torch_sync_bn.py``): parameters and
+      running statistics within its 2e-6; the ranks' runners step eagerly
+      (counted), since a gloo BN all-reduce cannot sit inside a graph;
+   d. ``cifar_vit`` — ``ARCH=vit`` (patch 4, d 256, 8 heads, 6 layers,
+      bf16), 3 × 100 steps: images/s and the loss falling;
+13. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
 the native batch engine, as the JAX tf1 script does where g++ builds it.
 
-``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8, 9 and
-11's launch, at N NCCL ranks, one card each, with the reference budgets
-for N ranks: the multi-rank NCCL path that one card cannot host (and, in
-phase 11, a captured cross-rank all-reduce). The ranks must end
-bit-identical.
+``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8, 9,
+11's launch, 12a with its breakdown and 12b, at N NCCL ranks, one card
+each, with the reference budgets for N ranks: the multi-rank NCCL path
+that one card cannot host (in phase 11 a captured cross-rank all-reduce;
+in 12a and 12b the BN all-reduces too, captured in each rank's step). The
+ranks must end bit-identical, running statistics included, and 12b's
+replays equal to eager steps on every rank.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -198,6 +225,29 @@ CACHED_EVAL_ATOL = 1e-6
 # Phase 11's graph-against-eager run and steps_per_execution runs: cut.
 GRAPH_VS_EAGER_STEPS, SPE_STEPS, SPE_K = 20, 100, 4
 MNIST_STEPS_PER_EPOCH = 60000 // MNIST_BATCH
+# Phase 12: BASELINE.json config 4, the CIFAR-10 twin — the reference
+# budget (shard_steps(390) steps × 24 epochs at 128 a rank) unless cut here.
+CIFAR_BATCH = 128
+CIFAR_CUT: dict = {}
+CIFAR_TIMEOUT_S = 900
+# The synthetic CIFAR stand-in makes class c and c + 5 one distribution
+# (the reference's data, copied as it is): test accuracy tops out near 0.5,
+# chance is 0.1. The gate sits just under the ceiling.
+CIFAR_ACC_GATE = 0.45
+# 12a's profiled window: steps 60-80 of one fit, in a launched process.
+CIFAR_WINDOW_START, CIFAR_WINDOW = 60, 20
+# 12b: replayed steps of fit against train_step, from one state.
+CIFAR_GRAPH_VS_EAGER_STEPS = 10
+# 12c: sync-BN on the card in tests/test_torch_sync_bn.py's configuration
+# and tolerance — two gloo ranks at SYNC_BN_BATCH each against one rank at
+# twice that, an f32 depth-8 ResNet on SYNC_BN_SIDE² images drawn from seed
+# 0, SGD(0.1), SYNC_BN_STEPS steps, 2e-6 abs (TF32 off). (At 64 rows a rank
+# of the CIFAR data, f32 summation order alone moves the parameters 6e-5
+# apart in 4 steps of lr 0.1 on the CPU: a comparison of training chaos,
+# not of the identity.)
+SYNC_BN_BATCH, SYNC_BN_STEPS, SYNC_BN_SIDE, SYNC_BN_ATOL = 4, 4, 16, 2e-6
+# 12d: the ViT branch (ARCH=vit) at the example's width, cut.
+VIT_CUT = {"ARCH": "vit", "DRIVE_STEPS": "100", "DRIVE_EPOCHS": "3"}
 
 
 class SmokeFailure(RuntimeError):
@@ -1267,12 +1317,13 @@ def adamw_forms_gap(torch, grads, lr):
 
 # -- phases 8-10 ----------------------------------------------------------------
 
-def _launch(name, nprocs, script, knobs):
-    """Run ``horovod_tpu_torch.examples.<script>`` under the port's
-    launcher with ``nprocs`` ranks and the env ``knobs``, its artifacts
-    under WORK/<name> and the dataset cache under WORK/data. Returns
-    (output lines, wall seconds, launch wall-clock time, model path); the
-    whole output is kept in WORK/<name>.log."""
+def _launch(name, nprocs, script, knobs, timeout=MNIST_TIMEOUT_S,
+            code=None):
+    """Run ``horovod_tpu_torch.examples.<script>`` (or, with ``code``, that
+    python source) under the port's launcher with ``nprocs`` ranks and the
+    env ``knobs``, its artifacts under WORK/<name> and the dataset cache
+    under WORK/data. Returns (output lines, wall seconds, launch wall-clock
+    time, model path); the whole output is kept in WORK/<name>.log."""
     import signal
 
     model_path = os.path.join(WORK, name)
@@ -1281,16 +1332,17 @@ def _launch(name, nprocs, script, knobs):
                PYTHONPATH=os.pathsep.join(
                    p for p in (ROOT, os.environ.get("PYTHONPATH")) if p),
                **knobs)
+    child = (["-c", code] if code is not None
+             else ["-m", f"horovod_tpu_torch.examples.{script}"])
     cmd = [sys.executable, "-m", "horovod_tpu_torch.launch", "run",
-           "--nprocs", str(nprocs), "--", sys.executable, "-m",
-           f"horovod_tpu_torch.examples.{script}"]
+           "--nprocs", str(nprocs), "--", sys.executable, *child]
     started = time.time()
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=MNIST_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
@@ -1304,13 +1356,13 @@ def _launch(name, nprocs, script, knobs):
     return lines, wall, started, model_path
 
 
-def _rank0(lines, prefix):
-    """The rest of rank 0's first output line starting with ``prefix``."""
-    tag = f"[rank 0] {prefix}"
+def _rank_line(lines, prefix, rank=0):
+    """The rest of ``rank``'s first output line starting with ``prefix``."""
+    tag = f"[rank {rank}] {prefix}"
     for line in lines:
         if line.startswith(tag):
             return line[len(tag):].strip()
-    raise SmokeFailure(f"no rank-0 line {prefix!r} in the output")
+    raise SmokeFailure(f"no rank-{rank} line {prefix!r} in the output")
 
 
 def _jsonl(path):
@@ -1332,7 +1384,7 @@ def _checkpoints(model_dir):
 
 
 def _world(lines, nprocs, backend):
-    world = _rank0(lines, "World:")
+    world = _rank_line(lines, "World:")
     check(f"process_count={nprocs}," in world
           and f"backend='{backend}'" in world,
           f"want {nprocs} rank(s) on {backend}, got {world}")
@@ -1351,7 +1403,7 @@ def _tf2_summary(lines, model_path, steps_per_epoch, nprocs):
           f"MNIST loss did not fall: {losses[0]:.4f} → {losses[-1]:.4f}")
     ips = sorted(steps_per_epoch * MNIST_BATCH * nprocs
                  / r["epoch/epoch_time_s"] for r in epochs)
-    digests = _rank0(lines, "State digests:").split()
+    digests = _rank_line(lines, "State digests:").split()
     check(len(digests) == nprocs and len(set(digests)) == 1,
           f"ranks' training states differ after fit: {digests}")
     return {
@@ -1381,7 +1433,7 @@ def mnist_tf2(torch, nprocs=1, cut=MNIST_TF2_CUT):
     result.update({
         "world": world, "backend": "nccl", "cut": cut or None,
         "warmup_scales": warmup, "wall_s": wall,
-        "peak_memory_bytes": int(_rank0(lines,
+        "peak_memory_bytes": int(_rank_line(lines,
                                         "Peak device memory (bytes):")),
     })
     log("mnist_tf2", json.dumps(result))
@@ -1449,7 +1501,7 @@ def mnist_tf1(torch, nprocs=1):
     lines, wall, started, model_path = _launch("mnist_tf1", nprocs,
                                                "tf1_style_mnist", {})
     world = _world(lines, nprocs, "nccl")
-    feed = json.loads(_rank0(lines, "Feed:"))
+    feed = json.loads(_rank_line(lines, "Feed:"))
     check(feed["path"] == "streamed" and feed["engine"] == "native",
           f"tf1 did not train on the native batch engine: {feed}")
     model_dir = os.path.join(model_path, "horovod-mnist")
@@ -1458,9 +1510,9 @@ def mnist_tf1(torch, nprocs=1):
               if "epoch/val_accuracy" in r]
     val_acc = [r["epoch/val_accuracy"] for r in epochs]
     first98 = next((i for i, a in enumerate(val_acc) if a >= 0.98), None)
-    test_loss = float(_rank0(lines, "Test loss:"))
-    test_acc = float(_rank0(lines, "Test accuracy:"))
-    final_digest = _rank0(lines, "State digests:").split()[0]
+    test_loss = float(_rank_line(lines, "Test loss:"))
+    test_acc = float(_rank_line(lines, "Test accuracy:"))
+    final_digest = _rank_line(lines, "State digests:").split()[0]
     gate = [r["value"] for r in _jsonl(os.path.join(model_path,
                                                     "metrics.jsonl"))
             if r["name"] == "loss"]
@@ -1486,7 +1538,8 @@ def mnist_tf1(torch, nprocs=1):
         "loss"]
     check(abs(resumed_loss - test_loss) <= RESUME_ATOL,
           f"resume: loss {resumed_loss} vs the script's {test_loss}")
-    serving = check_serving(trainer, _rank0(lines, "Exported serving bundle:"),
+    serving = check_serving(trainer,
+                            _rank_line(lines, "Exported serving bundle:"),
                             _serving_probe(x_test), DEVICE)
     per_epoch = 60000 // nprocs // MNIST_BATCH * MNIST_BATCH * nprocs
     result = {
@@ -1506,7 +1559,7 @@ def mnist_tf1(torch, nprocs=1):
         "resume_loss_abs_err": abs(resumed_loss - test_loss),
         "bundle_params_bit_identical": True, **serving,
         "wall_s": wall,
-        "peak_memory_bytes": int(_rank0(lines,
+        "peak_memory_bytes": int(_rank_line(lines,
                                         "Peak device memory (bytes):")),
     }
     log("mnist_tf1", json.dumps(result))
@@ -1637,7 +1690,7 @@ def mnist_ci_cached(torch, nprocs=1):
     lines, wall, started, model_path = _launch(
         "mnist_ci_cached", nprocs, "tf1_style_mnist", {"HVT_DEVICE_CACHE": "1"})
     world = _world(lines, nprocs, "nccl")
-    feed = json.loads(_rank0(lines, "Feed:"))
+    feed = json.loads(_rank_line(lines, "Feed:"))
     check(feed["path"] == "device",
           f"HVT_DEVICE_CACHE=1 did not take the cached fit: {feed}")
     model_dir = os.path.join(model_path, "horovod-mnist")
@@ -1654,11 +1707,11 @@ def mnist_ci_cached(torch, nprocs=1):
     gate_mean = sum(gate) / len(gate)
     check(CI_LOSS_GATE[0] <= gate_mean <= CI_LOSS_GATE[1],
           f"CI gate: mean loss {gate_mean} outside {CI_LOSS_GATE}")
-    digests = _rank0(lines, "State digests:").split()
+    digests = _rank_line(lines, "State digests:").split()
     check(len(digests) == nprocs and len(set(digests)) == 1,
           f"ranks' training states differ after the cached fit: {digests}")
-    test_loss = float(_rank0(lines, "Test loss:"))
-    test_acc = float(_rank0(lines, "Test accuracy:"))
+    test_loss = float(_rank_line(lines, "Test loss:"))
+    test_acc = float(_rank_line(lines, "Test accuracy:"))
     # The last epoch's validation (cached) and the script's final evaluate
     # (uncached) see the same state.
     val_err = abs(epochs[-1]["epoch/val_loss"] - test_loss)
@@ -1684,7 +1737,7 @@ def mnist_ci_cached(torch, nprocs=1):
         "cached_val_vs_uncached_eval_abs_err": val_err,
         "ci_gate_mean_loss": gate_mean, "ci_gate_records": len(gate),
         "ranks_bit_identical": True, "wall_s": wall,
-        "peak_memory_bytes": int(_rank0(lines,
+        "peak_memory_bytes": int(_rank_line(lines,
                                         "Peak device memory (bytes):")),
     }
     log("mnist_ci_cached", json.dumps(result))
@@ -1897,6 +1950,326 @@ def spe_runs(torch, x, y):
     return out
 
 
+# -- phase 12 -------------------------------------------------------------------
+
+def _cifar_arrays():
+    """The twin's training arrays (f32 NHWC / 255, int64 labels) from the
+    dataset cache of this run."""
+    import numpy as np
+
+    from horovod_tpu_torch.data import datasets
+
+    (x, y), _ = datasets.cifar10(path="cifar10-0.npz",
+                                 cache_dir=os.path.join(WORK, "data"))
+    return x.astype(np.float32) / 255.0, y.astype(np.int64)
+
+
+def _cifar_summary(name, lines, model_path, nprocs, steps):
+    """Per-epoch figures of a CIFAR twin run from its rank-0 event log,
+    with the checks every such run must pass: finite losses that fall, one
+    intact checkpoint an epoch, bit-identical ranks."""
+    model_dir = os.path.join(model_path, "horovod-cifar")
+    epochs = [r for r in _jsonl(os.path.join(model_dir, "events.jsonl"))
+              if "epoch/loss" in r]
+    losses = [r["epoch/loss"] for r in epochs]
+    check(losses and all(map(math.isfinite, losses)),
+          f"{name}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"{name}: loss did not fall: {losses[0]:.4f} → {losses[-1]:.4f}")
+    times = [r["epoch/epoch_time_s"] for r in epochs]
+    ips = sorted(steps * CIFAR_BATCH * nprocs / t for t in times)
+    step_ms = sorted(t * 1e3 / steps for t in times)
+    digests = _rank_line(lines, "State digests:").split()
+    check(len(digests) == nprocs and len(set(digests)) == 1,
+          f"{name}: ranks' states (parameters, running statistics, "
+          f"optimizer) differ after fit: {digests}")
+    ckpts = _checkpoints(model_dir)
+    check(len(ckpts) == len(epochs), f"{name}: checkpoints {ckpts}")
+    return {
+        "epochs": len(epochs), "steps_per_epoch": steps,
+        "images_per_s_median": ips[len(ips) // 2],
+        "images_per_s_min": ips[0], "images_per_s_max": ips[-1],
+        "step_ms_median": step_ms[len(step_ms) // 2],
+        "epoch_losses": losses, "epoch_accuracy": [r["epoch/accuracy"]
+                                                   for r in epochs],
+        "test_loss": float(_rank_line(lines, "Test loss:")),
+        "test_accuracy": float(_rank_line(lines, "Test accuracy:")),
+        "ranks_bit_identical": True, "state_digest": digests[0][:16],
+        "peak_memory_bytes": int(_rank_line(lines,
+                                        "Peak device memory (bytes):")),
+    }
+
+
+def cifar_resnet(torch, nprocs=1, cut=None):
+    """12a: the ResNet-20 twin at ``nprocs`` NCCL ranks (one card each), the
+    reference budget (390 // nprocs steps × 24 epochs at 128 a rank) unless
+    cut; the loss must fall and test accuracy reach CIFAR_ACC_GATE."""
+    cut = CIFAR_CUT if cut is None else cut
+    lines, wall, _, model_path = _launch("cifar_resnet", nprocs,
+                                         "cifar10_resnet", cut,
+                                         timeout=CIFAR_TIMEOUT_S)
+    world = _world(lines, nprocs, "nccl")
+    steps = int(cut.get("DRIVE_STEPS", 390 // nprocs))
+    result = _cifar_summary("cifar_resnet", lines, model_path, nprocs, steps)
+    check(result["epochs"] == int(cut.get("DRIVE_EPOCHS", 24)),
+          f"{result['epochs']} epoch records")
+    check(result["test_accuracy"] >= CIFAR_ACC_GATE,
+          f"test accuracy {result['test_accuracy']} under "
+          f"{CIFAR_ACC_GATE} (ceiling ~0.5: classes c and c + 5 are one "
+          "distribution in the synthetic set)")
+    result.update({"world": world, "backend": "nccl", "cut": cut or None,
+                   "accuracy_gate": CIFAR_ACC_GATE, "wall_s": wall})
+    log("cifar_resnet", json.dumps(result))
+    return result
+
+
+# Launched by cifar_breakdown at N ranks: the twin's configuration (bf16
+# ResNet-20, Adam(0.001 × size), its shard → shuffle → batch feed), one fit
+# with torch.profiler on over a window of replayed steps; rank 0 prints the
+# figures as JSON.
+BREAKDOWN_CHILD = r"""
+import json, os, sys
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch.data.loader import ArrayDataset
+from horovod_tpu_torch.models.resnet import ResNetCIFAR
+
+hvt.init()
+x, y = cs._cifar_arrays()
+ds = (ArrayDataset((x, y)).shard(hvt.rank(), hvt.size()).repeat()
+      .shuffle(10000, seed=hvt.rank()).batch(cs.CIFAR_BATCH))
+trainer = hvt.Trainer(ResNetCIFAR(depth=20, compute_dtype=torch.bfloat16),
+                      hvt.DistributedOptimizer(hvt.adam(hvt.scale_lr(1e-3))))
+start, window = cs.CIFAR_WINDOW_START, cs.CIFAR_WINDOW
+prof, host_ms = cs.profiled_fit(torch, lambda cbs: trainer.fit(
+    ds, steps_per_epoch=start + window, callbacks=cbs, verbose=0),
+    start, window)
+per_step, by_name = cs._per_step(torch, prof, window, host_ms)
+nccl_ms = sum(ms for k, ms in by_name.items() if "nccl" in k.lower()) / window
+if hvt.rank() == 0:
+    print("BREAKDOWN " + json.dumps(dict(
+        per_step, host_ms_per_step=host_ms, ranks=hvt.size(),
+        images_per_s=cs.CIFAR_BATCH * hvt.size() / (host_ms / 1e3),
+        nccl_ms_per_step=nccl_ms if by_name else "not measured",
+        nccl_share_of_busy=(nccl_ms / per_step["device_busy_ms_per_step"]
+                            if by_name else "not measured"),
+        eager_steps=trainer._runner.eager_steps,
+        captures=trainer._runner.captures,
+        replays=trainer._runner.replays)), flush=True)
+hvt.shutdown()
+"""
+
+
+def cifar_breakdown(torch, nprocs=1):
+    """Where a ResNet-20 step's time goes at ``nprocs`` NCCL ranks (12a's
+    configuration): host ms a step, device busy share, device kernels and
+    graph launches a step, the NCCL kernels' share (the gradient all-reduce
+    and, past one rank, the BN all-reduces) — one profiled window, measured
+    in a launched process; not a check."""
+    lines, _, _, _ = _launch(f"cifar_breakdown_{nprocs}", nprocs, None, {},
+                             timeout=CIFAR_TIMEOUT_S, code=BREAKDOWN_CHILD)
+    out = json.loads(_rank_line(lines, "BREAKDOWN"))
+    check(out["eager_steps"] == 1 and out["captures"] == 1,
+          f"the profiled fit did not run one eager step and one capture: "
+          f"{out}")
+    return out
+
+
+# Launched by cifar_graph_vs_eager at N NCCL ranks: on each rank, k steps
+# of fit (one eager step, one capture, replays) and k train_step calls from
+# the same seeded state on the rank's own batches; each rank prints its
+# figures as JSON.
+GRAPH_VS_EAGER_CHILD = r"""
+import json
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import checkpoint
+from horovod_tpu_torch.models.resnet import ResNetCIFAR
+
+topology = hvt.init(device=cs.DEVICE)
+if hvt.rank() == 0:
+    print("World:", topology, flush=True)
+r, n = hvt.rank(), hvt.size()
+k, b = cs.CIFAR_GRAPH_VS_EAGER_STEPS, cs.CIFAR_BATCH
+x, y = cs._cifar_arrays()
+batches = [(x[(i * n + r) * b:(i * n + r + 1) * b],
+            y[(i * n + r) * b:(i * n + r + 1) * b]) for i in range(k)]
+
+
+def trainer():
+    return hvt.Trainer(ResNetCIFAR(depth=20, compute_dtype=torch.bfloat16,
+                                   device=cs.DEVICE),
+                       hvt.DistributedOptimizer(hvt.adam(1e-3)),
+                       device=cs.DEVICE)
+
+
+g = trainer()
+g.fit(dataset=batches, steps_per_epoch=k, verbose=0)
+e = trainer()
+for xb, yb in batches:
+    e.train_step(xb, yb)
+with torch.no_grad():
+    stat_err = max(float((a - c).abs().max()) for (name, a), c in zip(
+        g.module.named_buffers(), e.module.buffers()) if "running" in name)
+    param_err = max(float((a - c).abs().max()) for a, c in zip(
+        g.module.parameters(), e.module.parameters()))
+digest = checkpoint.state_digest(g.state)
+print("GRAPH_VS_EAGER " + json.dumps(dict(
+    eager_steps=g._runner.eager_steps, captures=g._runner.captures,
+    replays=g._runner.replays,
+    bit_identical=digest == checkpoint.state_digest(e.state),
+    digest=digest, param_max_abs_err=param_err,
+    running_stat_max_abs_err=stat_err)), flush=True)
+hvt.shutdown()
+"""
+
+
+def cifar_graph_vs_eager(torch, nprocs=1):
+    """12b: on each of ``nprocs`` NCCL ranks, CIFAR_GRAPH_VS_EAGER_STEPS
+    steps of ``fit`` (one eager step, one capture, replays) against as
+    many ``Trainer.train_step`` calls from the same seeded state on the
+    same batches: the parameters, the optimizer state and the BN running
+    statistics must end bit-identical. Past one rank the captured step
+    holds the BN all-reduces, forward and backward, and the eager steps
+    make the same calls; the ranks must also agree with each other."""
+    k = CIFAR_GRAPH_VS_EAGER_STEPS
+    lines, _, _, _ = _launch(f"cifar_graph_vs_eager_{nprocs}", nprocs,
+                             None, {}, timeout=CIFAR_TIMEOUT_S,
+                             code=GRAPH_VS_EAGER_CHILD)
+    world = _world(lines, nprocs, "nccl")
+    ranks = [json.loads(_rank_line(lines, "GRAPH_VS_EAGER", r))
+             for r in range(nprocs)]
+    out = {"ranks": nprocs, "steps": k,
+           "eager_steps": [o["eager_steps"] for o in ranks],
+           "captures": [o["captures"] for o in ranks],
+           "replays": [o["replays"] for o in ranks],
+           "bit_identical": [o["bit_identical"] for o in ranks],
+           "ranks_bit_identical": len({o["digest"] for o in ranks}) == 1,
+           "param_max_abs_err": max(o["param_max_abs_err"] for o in ranks),
+           "running_stat_max_abs_err": max(o["running_stat_max_abs_err"]
+                                           for o in ranks),
+           "world": world}
+    log("cifar_graph_vs_eager", json.dumps(out))
+    check(all((o["eager_steps"], o["captures"], o["replays"]) == (1, 1, k - 1)
+              for o in ranks),
+          f"fit ran {out} (eager steps, captures, replays), want one eager "
+          "step and one capture on every rank")
+    check(all(out["bit_identical"]),
+          f"graph replays and train_step differ after {k} steps: {out}")
+    check(out["ranks_bit_identical"], f"the ranks' states differ: {out}")
+    return out
+
+
+SYNC_BN_CHILD = r"""
+import functools, os
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch.models.resnet import ResNetCIFAR
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+hvt.init()
+r, b = hvt.rank(), cs.SYNC_BN_BATCH
+batches = [(bx[r * b:(r + 1) * b], by[r * b:(r + 1) * b])
+           for bx, by in cs._sync_bn_batches()]
+model = ResNetCIFAR(depth=8, seed=2)
+trainer = hvt.Trainer(model, hvt.DistributedOptimizer(
+    functools.partial(torch.optim.SGD, lr=0.1)))
+trainer.fit(dataset=batches, epochs=len(batches), steps_per_epoch=1,
+            verbose=0)
+np.savez(os.path.join(cs.WORK, f"sync_bn_rank{r}.npz"),
+         eager_steps=trainer._runner.eager_steps,
+         captures=trainer._runner.captures,
+         **{k: t.cpu().numpy() for k, t in model.state_dict().items()})
+hvt.shutdown()
+"""
+
+
+def _sync_bn_batches():
+    """SYNC_BN_STEPS batches of 2 × SYNC_BN_BATCH images (the CPU test's
+    draws: uniform pixels and labels from seed 0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(SYNC_BN_STEPS, 2 * SYNC_BN_BATCH, SYNC_BN_SIDE,
+                 SYNC_BN_SIDE, 3).astype(np.float32)
+    y = rng.randint(0, 10, (SYNC_BN_STEPS, 2 * SYNC_BN_BATCH)).astype(
+        np.int64)
+    return list(zip(x, y))
+
+
+def sync_bn_on_card(torch):
+    """12c: two gloo ranks sharing the card at SYNC_BN_BATCH each against
+    one rank at twice that, in this process: parameters and running
+    statistics within SYNC_BN_ATOL after SYNC_BN_STEPS SGD steps of an f32
+    depth-8 ResNet (TF32 off on both sides). Under gloo the BN all-reduces
+    go through the host, so the ranks' runners step eagerly (counted)."""
+    import functools
+
+    import numpy as np
+
+    from horovod_tpu_torch import DistributedOptimizer, Trainer
+    from horovod_tpu_torch.models.resnet import ResNetCIFAR
+
+    _launch("sync_bn", 2, None, {"HVT_BACKEND": "gloo"},
+            code=SYNC_BN_CHILD)
+    ranks = [np.load(os.path.join(WORK, f"sync_bn_rank{r}.npz"))
+             for r in range(2)]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = ResNetCIFAR(depth=8, seed=2, device=DEVICE)
+        trainer = Trainer(model, DistributedOptimizer(functools.partial(
+            torch.optim.SGD, lr=0.1)), device=DEVICE)
+        trainer.fit(dataset=_sync_bn_batches(), epochs=SYNC_BN_STEPS,
+                    steps_per_epoch=1, verbose=0)
+        want = {k: t.cpu().numpy() for k, t in model.state_dict().items()}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in want)
+    err = {kind: max(float(np.abs(ranks[0][k] - want[k]).max())
+                     for k in want if ("running" in k) == (kind == "stats"))
+           for kind in ("params", "stats")}
+    out = {"ranks": 2, "backend": "gloo", "batch_per_rank": SYNC_BN_BATCH,
+           "steps": SYNC_BN_STEPS, "ranks_bit_identical": same,
+           "param_max_abs_err": err["params"],
+           "running_stat_max_abs_err": err["stats"],
+           "tolerance": SYNC_BN_ATOL,
+           "eager_steps": [int(r["eager_steps"]) for r in ranks],
+           "captures": [int(r["captures"]) for r in ranks]}
+    log("sync_bn", json.dumps(out))
+    check(same, "the two ranks' states differ")
+    check(max(err.values()) <= SYNC_BN_ATOL,
+          f"two ranks at {SYNC_BN_BATCH} differ from one at "
+          f"{2 * SYNC_BN_BATCH}: {err}")
+    check(out["eager_steps"] == [SYNC_BN_STEPS] * 2
+          and out["captures"] == [0, 0],
+          f"under gloo the runner must step eagerly: {out}")
+    return out
+
+
+def cifar_vit(torch):
+    """12d: the ViT branch of the twin (``ARCH=vit``: patch 4, d 256, 8
+    heads, 6 layers, bf16) at one NCCL rank, cut (VIT_CUT); the loss must
+    fall."""
+    lines, wall, _, model_path = _launch("cifar_vit", 1, "cifar10_resnet",
+                                         VIT_CUT, timeout=CIFAR_TIMEOUT_S)
+    world = _world(lines, 1, "nccl")
+    result = _cifar_summary("cifar_vit", lines, model_path, 1,
+                            int(VIT_CUT["DRIVE_STEPS"]))
+    result.update({"world": world, "cut": VIT_CUT, "wall_s": wall})
+    log("cifar_vit", json.dumps(result))
+    return result
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -1932,18 +2305,24 @@ def _max_err(cases, keys, route):
 
 
 def multi_card(torch, ranks: int) -> int:
-    """``--ranks N``: only the MNIST twins, at N NCCL ranks, one card each
-    (the multi-rank NCCL path one card cannot host), then the result
-    line."""
+    """``--ranks N``: only the MNIST twins and the CIFAR ResNet-20 twin
+    with its breakdown and graph-against-eager check, at N NCCL ranks, one
+    card each (the multi-rank NCCL path one card cannot host: the gradient
+    all-reduce and, in the ResNet, the BN all-reduces inside each rank's
+    captured step), then the result line."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
               f"--ranks {ranks} needs {ranks} cards, this host has "
               f"{torch.cuda.device_count()}")
-        toolchain(torch)
+        card = toolchain(torch)
         mnist_tf2(torch, ranks, cut={})
         mnist_tf1(torch, ranks)
         mnist_ci_cached(torch, ranks)
+        cifar_resnet(torch, ranks)
+        log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch, ranks),
+                                               card=card)))
+        cifar_graph_vs_eager(torch, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1962,7 +2341,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--ranks", type=int, default=1,
         help="N > 1: run only the MNIST twins (phases 8, 9 and 11's "
-             "launch) at N NCCL ranks (N cards)")
+             "launch) and the CIFAR ResNet-20 twin (12a) at N NCCL ranks "
+             "(N cards)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -1999,6 +2379,12 @@ def main(argv=None) -> int:
         log("breakdown_mnist_cached", json.dumps(dict(
             cached["breakdown_mnist_cached"], card=card,
             peak_memory_bytes_ci_run=ci["peak_memory_bytes"])))
+        cifar_resnet(torch)
+        log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch),
+                                               card=card)))
+        cifar_graph_vs_eager(torch)
+        sync_bn_on_card(torch)
+        cifar_vit(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

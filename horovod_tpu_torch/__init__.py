@@ -12,8 +12,9 @@ gradient all-reduce, `callbacks`, `checkpoint`, the launcher
 ``python -m horovod_tpu_torch.launch run --nprocs N -- ...`` and the
 ``examples`` twins of both MNIST scripts; ``fit(cache="device")`` stages
 the data on the card, and on CUDA the trainer's own feeds run each step as
-a replay of one captured CUDA graph), serves the `TransformerLM` on
-one GPU (bundle → continuous batching engine → HTTP ``/v1/generate`` →
+a replay of one captured CUDA graph), trains the CIFAR-10 ResNet-20 with
+global-batch BatchNorm and its ViT branch the same way, serves the
+`TransformerLM` on one GPU (bundle → continuous batching engine → HTTP ``/v1/generate`` →
 prefill + decode loop) and trains it (forward with the fused chunked-CE
 head → backward). Attention runs hand-written CUDA flash-attention kernels
 on one of two routes: the tensor-core kernels ``ops/csrc/flash_fwd_sm90.cu``,

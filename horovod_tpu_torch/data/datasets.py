@@ -1,14 +1,18 @@
 """Synthetic datasets — the port's own copy of what it needs from
 `horovod_tpu.data.datasets` (numpy only, byte-identical arrays).
 
-``mnist()`` keeps the reference's loading contract (``load_data(path=
+``mnist()`` and ``cifar10()`` keep the reference's loading contract (``load_data(path=
 'mnist-%d.npz' % rank)``): ``(x_train, y_train), (x_test, y_test)`` as
 uint8 images and int64 labels, cached in an ``.npz`` whose per-rank name
 keeps co-located processes from racing on one file. A real keras-layout
 ``mnist.npz`` at the path is read as it is; otherwise a deterministic,
 learnable stand-in of the same shapes is synthesized (digit glyphs from a
 5×7 font, upscaled 3×, at random offsets with intensity jitter and noise)
-and cached atomically.
+and cached atomically. ``cifar10()``'s stand-in is the reference's too:
+class-conditional coloured textures, with its property kept: class c and
+class c + 5 share a frequency and lie 180° apart, and the random phase makes
+their images one distribution, so no model can tell the two apart (test
+accuracy tops out near 0.5).
 """
 
 from __future__ import annotations
@@ -93,6 +97,39 @@ def mnist(path: str = "mnist.npz", cache_dir: str | None = None):
         path, cache_dir,
         lambda: (_synth_mnist_split(60_000, seed=0),
                  _synth_mnist_split(10_000, seed=1)),
+    )
+
+
+def _synth_cifar_split(n: int, seed: int):
+    """Class-conditional coloured textures: (n,32,32,3) uint8 + (n,) int64,
+    byte-identical to the reference's (same draws in the same order, float64
+    math, uint8 after the clip)."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=n).astype(np.int64)
+    yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    # Per-class signature: orientation + frequency + RGB phase offsets.
+    freqs = 1 + (np.arange(10) % 5)
+    angles = (np.arange(10) * 36) * np.pi / 180.0
+    phase = rng.uniform(0, 2 * np.pi, size=(n, 3)).astype(np.float32)
+    proj = (np.cos(angles)[labels][:, None, None] * xx[None]
+            + np.sin(angles)[labels][:, None, None] * yy[None])  # (n, 32, 32)
+    base = np.sin(
+        proj[..., None] * (freqs[labels][:, None, None, None] * 2 * np.pi / 32)
+        + phase[:, None, None, :]
+    )  # (n, 32, 32, 3)
+    images = 0.5 + 0.35 * base + rng.normal(0, 0.08, size=base.shape)
+    np.clip(images, 0.0, 1.0, out=images)
+    return (images * 255).astype(np.uint8), labels
+
+
+def cifar10(path: str = "cifar10.npz", cache_dir: str | None = None):
+    """CIFAR-10-shaped splits: 50k / 10k 32×32×3 uint8 images and int64
+    labels, with `mnist`'s loading contract (per-rank ``path``, atomic
+    cache)."""
+    return _load_or_create(
+        path, cache_dir,
+        lambda: (_synth_cifar_split(50_000, seed=0),
+                 _synth_cifar_split(10_000, seed=1)),
     )
 
 

@@ -31,6 +31,25 @@ from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.runtime import resolve_device
 
 
+@torch.no_grad()
+def init_flax_style(named_parameters, seed: int) -> None:
+    """flax's default initializers for ``named_parameters`` (in order, from
+    a CPU generator seeded with ``seed``): a ``bias`` is zero, any other
+    tensor a kernel, lecun-normal (truncated at 2σ, fan-in scaled; the
+    fan-in of a torch weight ``[out, in, ...]`` is the product of its
+    trailing dimensions)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in named_parameters:
+        if name.endswith("bias"):
+            p.zero_()
+            continue
+        fan_in = math.prod(p.shape[1:])
+        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+        w = torch.empty(p.shape)
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+        p.copy_(w)
+
+
 class MnistCNN(nn.Module):
     """``[B, 28, 28, 1]`` images (uint8 or float) → ``[B, num_classes]``
     f32 logits. Weights are flax's initializers (lecun-normal kernels, zero
@@ -49,20 +68,10 @@ class MnistCNN(nn.Module):
         self.reset_parameters(seed)
         self.to(dev)
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """lecun-normal (truncated at 2σ, fan-in scaled) kernels and zero
-        biases, flax's defaults, from a seeded CPU generator."""
-        g = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-                continue
-            fan_in = math.prod(p.shape[1:])
-            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-            w = torch.empty(p.shape)
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
-            p.copy_(w)
+        """lecun-normal kernels and zero biases, flax's defaults, from a
+        seeded CPU generator."""
+        init_flax_style(self.named_parameters(), seed)
 
     def forward(self, x, *, train: bool = False,
                 dropout_seed: int | None = None):

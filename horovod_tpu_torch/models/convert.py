@@ -1,4 +1,5 @@
-"""flax param tree ⇄ `TransformerLM` / `MnistCNN` state_dict.
+"""flax variables ⇄ `TransformerLM` / `MnistCNN` / `ResNetCIFAR` / `ViT`
+state_dicts.
 
 The input of `params_from_flax` is the JAX model's ``params`` tree as
 nested dicts of numpy arrays (``jax.device_get`` of it) — this module
@@ -172,3 +173,159 @@ def ema_from_flax(payload, params_from=cnn_params_from_flax) -> dict:
     applied to the shadow tree."""
     return {"shadow": params_from(payload["shadow"]),
             "count": int(payload["count"])}
+
+
+# -- ResNetCIFAR --------------------------------------------------------------
+#
+# flax side: ``params`` and ``batch_stats`` trees. Top level ``Conv_0``
+# (HWIO kernel), ``BatchNorm_0`` (``scale``/``bias``; stats ``mean``/``var``),
+# ``BasicBlock_i`` and ``Dense_0`` (``[64, classes]`` kernel, bias). Inside a
+# block, in flax's creation order: ``Conv_0``, ``BatchNorm_0``, ``Conv_1``,
+# ``BatchNorm_1`` and, where it projects, ``Conv_2``/``BatchNorm_2``. Torch
+# side: `ResNetCIFAR`'s ``conv``, ``bn``, ``blocks.i.{conv1, bn1, conv2, bn2,
+# proj_conv, proj_bn}``, ``fc``; OIHW conv weights, BN ``weight``/``bias``
+# and buffers ``running_mean``/``running_var``.
+
+_BLOCK_LAYERS = (("Conv_0", "conv1"), ("BatchNorm_0", "bn1"),
+                 ("Conv_1", "conv2"), ("BatchNorm_1", "bn2"),
+                 ("Conv_2", "proj_conv"), ("BatchNorm_2", "proj_bn"))
+
+
+def _resnet_layers(flax_names):
+    """``(flax path, torch prefix)`` of every conv and BN layer, given the
+    top-level names of the flax params tree (which blocks exist)."""
+    layers = [(("Conv_0",), "conv"), (("BatchNorm_0",), "bn")]
+    n_blocks = sum(1 for k in flax_names if k.startswith("BasicBlock_"))
+    for i in range(n_blocks):
+        layers += [((f"BasicBlock_{i}", f), f"blocks.{i}.{t}")
+                   for f, t in _BLOCK_LAYERS]
+    return layers
+
+
+def _get(tree, path):
+    for key in path:
+        if key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def _put(tree, path, leaf):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def resnet_from_flax(variables) -> dict:
+    """flax ``ResNetCIFAR`` variables ``{"params", "batch_stats"}`` (numpy
+    trees) → `ResNetCIFAR` state_dict (f32)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for path, pre in _resnet_layers(params):
+        p = _get(params, path)
+        if p is None:  # a block without a projection
+            continue
+        if "kernel" in p:
+            sd[f"{pre}.weight"] = _t(np.ascontiguousarray(
+                np.asarray(p["kernel"]).transpose(3, 2, 0, 1)))
+        else:
+            s = _get(stats, path)
+            sd.update({f"{pre}.weight": _t(p["scale"]),
+                       f"{pre}.bias": _t(p["bias"]),
+                       f"{pre}.running_mean": _t(s["mean"]),
+                       f"{pre}.running_var": _t(s["var"])})
+    sd["fc.weight"] = _t(np.asarray(params["Dense_0"]["kernel"]).T)
+    sd["fc.bias"] = _t(params["Dense_0"]["bias"])
+    return sd
+
+
+def resnet_to_flax(state_dict) -> dict:
+    """`ResNetCIFAR` state_dict → ``{"params", "batch_stats"}`` trees of
+    f32 numpy arrays; the exact inverse of `resnet_from_flax`."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    params: dict = {}
+    stats: dict = {}
+    for path, pre in _resnet_layers([f"BasicBlock_{i}"
+                                     for i in range(n_blocks)]):
+        if f"{pre}.weight" not in sd:
+            continue
+        if f"{pre}.running_mean" in sd:
+            _put(params, path, {"scale": sd[f"{pre}.weight"],
+                                "bias": sd[f"{pre}.bias"]})
+            _put(stats, path, {"mean": sd[f"{pre}.running_mean"],
+                               "var": sd[f"{pre}.running_var"]})
+        else:
+            _put(params, path, {"kernel": np.ascontiguousarray(
+                sd[f"{pre}.weight"].transpose(2, 3, 1, 0))})
+    params["Dense_0"] = {"kernel": np.ascontiguousarray(sd["fc.weight"].T),
+                         "bias": sd["fc.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+# -- ViT ----------------------------------------------------------------------
+#
+# flax side: ``embed`` (``[p·p·C, d]``), optional ``cls`` ``[1, 1, d]``,
+# ``pos_embed`` ``[1, T, d]``, ``Block_i/{LayerNorm_0, qkv, attn_out,
+# LayerNorm_1, mlp_up, mlp_down}`` — ``qkv`` a DenseGeneral with kernel
+# ``[d, H, 3·hd]`` and bias ``[H, 3·hd]``, ``attn_out`` kernel ``[H, hd,
+# d]`` — the final ``LayerNorm_0`` and ``head``. Torch side: `ViT`'s
+# ``embed``, ``cls``, ``pos_embed``, ``blocks.i.{ln1, qkv, attn_out, ln2,
+# mlp_up, mlp_down}``, ``ln_f``, ``head``; `nn.Linear` weights ``[out,
+# in]``, the qkv rows in flax's (head, 3·hd) order — a pure reshape.
+
+_VIT_BLOCK = (("LayerNorm_0", "ln1"), ("qkv", "qkv"),
+              ("attn_out", "attn_out"), ("LayerNorm_1", "ln2"),
+              ("mlp_up", "mlp_up"), ("mlp_down", "mlp_down"))
+
+
+def _vit_layers(n_layers):
+    """``(flax path, torch prefix)`` of every dense and LayerNorm layer."""
+    layers = [(("embed",), "embed"), (("LayerNorm_0",), "ln_f"),
+              (("head",), "head")]
+    for i in range(n_layers):
+        layers += [((f"Block_{i}", f), f"blocks.{i}.{t}") for f, t in _VIT_BLOCK]
+    return layers
+
+
+def vit_from_flax(tree) -> dict:
+    """flax ``ViT`` params tree (numpy) → `ViT` state_dict (f32)."""
+    sd = {"pos_embed": _t(tree["pos_embed"])}
+    if "cls" in tree:
+        sd["cls"] = _t(tree["cls"])
+    n_layers = sum(1 for k in tree if k.startswith("Block_"))
+    for path, pre in _vit_layers(n_layers):
+        p = _get(tree, path)
+        if "scale" in p:
+            sd[f"{pre}.scale"] = _t(p["scale"])
+        else:  # the kernel as [in, out]: attn_out contracts [H, hd]
+            k = np.asarray(p["kernel"])
+            k = (k.reshape(-1, k.shape[-1]) if pre.endswith("attn_out")
+                 else k.reshape(k.shape[0], -1))
+            sd[f"{pre}.weight"] = _t(np.ascontiguousarray(k.T))
+        sd[f"{pre}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+    return sd
+
+
+def vit_to_flax(state_dict, *, n_heads: int) -> dict:
+    """`ViT` state_dict → flax params tree of f32 numpy arrays; the exact
+    inverse of `vit_from_flax`. ``n_heads`` restores the per-head axes."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    tree: dict = {"pos_embed": sd["pos_embed"]}
+    if "cls" in sd:
+        tree["cls"] = sd["cls"]
+    n_layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    d = sd["embed.weight"].shape[0]
+    for path, pre in _vit_layers(n_layers):
+        bias = sd[f"{pre}.bias"]
+        if f"{pre}.scale" in sd:
+            leaf = {"scale": sd[f"{pre}.scale"], "bias": bias}
+        else:
+            w = np.ascontiguousarray(sd[f"{pre}.weight"].T)  # [in, out]
+            if pre.endswith(".qkv"):
+                w, bias = w.reshape(d, n_heads, -1), bias.reshape(n_heads, -1)
+            elif pre.endswith(".attn_out"):
+                w = w.reshape(n_heads, -1, d)
+            leaf = {"kernel": w, "bias": bias}
+        _put(tree, path, leaf)
+    return tree

@@ -86,13 +86,14 @@ def rope(x, positions, *, base: float = 10000.0):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(use_bias=False)``: eps 1e-6, mean and variance
-    (E[x²] − E[x]², clipped at 0) in f32, output in ``dtype``."""
+    """flax ``nn.LayerNorm(use_bias=use_bias)``: eps 1e-6, mean and
+    variance (E[x²] − E[x]², clipped at 0) in f32, output in ``dtype``."""
 
     def __init__(self, features: int, dtype: torch.dtype,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, use_bias: bool = False):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.dtype = dtype
         self.eps = eps
 
@@ -101,6 +102,8 @@ class LayerNorm(nn.Module):
         mu = xf.mean(dim=-1, keepdim=True)
         var = ((xf * xf).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.scale.float())
+        if self.bias is not None:
+            y = y + self.bias.float()
         return y.to(self.dtype)
 
 

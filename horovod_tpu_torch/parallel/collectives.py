@@ -112,6 +112,32 @@ def allreduce_(t: torch.Tensor, average: bool = True) -> torch.Tensor:
     return t
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks, forward and backward: the sum is its own
+    adjoint (every rank's output takes every rank's input with weight
+    one)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return allreduce_(x.clone(memory_format=torch.contiguous_format),
+                          average=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return allreduce_(grad.clone(memory_format=torch.contiguous_format),
+                          average=False)
+
+
+def allreduce_mean_differentiable(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the ranks, differentiable: forward an
+    all-reduce sum ÷ size, backward an all-reduce sum of the incoming
+    gradient (÷ size). Each rank's backward then holds the gradient of
+    the sum of every rank's loss; the optimizer's averaging makes it the
+    gradient of the global-batch loss (sync-BN's identity). Its caller,
+    `models.resnet.BatchNorm`, calls it only at size > 1."""
+    return _AllReduceSum.apply(x) / runtime.size()
+
+
 def allgather(x, tiled: bool = True):
     """Every rank's ``x`` (same shape on all), concatenated along the
     leading axis (``tiled``) or stacked on a new one (≈

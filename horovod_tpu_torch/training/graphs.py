@@ -26,7 +26,10 @@ collective can be captured: without a process group, or under NCCL once
 its communicator exists. Under gloo a collective goes through host memory,
 which a graph cannot hold, so the step is two graphs — forward, backward
 and bucket packing; then unpacking and the optimizer — around the eager
-all-reduce. The backend decides, never a failure.
+all-reduce; and a module whose forward itself reduces over the ranks (the
+global-batch BatchNorm) steps eagerly there (`eager_steps` counts it).
+The backend and the module decide, never a failure. Buffers a step updates
+(BN's running statistics) are written in place, so their addresses hold.
 
 Before a runner captures for the first time, and again after `feed`
 brought rows of another shape, one step runs eagerly on the capture
@@ -50,6 +53,18 @@ import torch
 from horovod_tpu_torch import runtime
 
 
+def forward_communicates_over_host(module) -> bool:
+    """Whether a train-mode forward of ``module`` makes collective calls
+    that go through host memory: a layer that reduces over the ranks (a
+    global-batch `models.resnet.BatchNorm`, ``reduces_over_ranks``) in a
+    world of more than one rank under gloo. Its all-reduces sit inside the
+    forward and the backward, where no graph split can leave them out, so
+    such a step runs eagerly; under NCCL they are captured with it."""
+    return (runtime.size() > 1 and runtime.backend() == "gloo"
+            and any(getattr(m, "reduces_over_ranks", False)
+                    for m in module.modules()))
+
+
 def _host(a: np.ndarray, pinned: bool) -> torch.Tensor:
     """``a`` as a host tensor, in page-locked memory when it goes to the
     card: a copy from there does not make the host wait for the stream."""
@@ -70,7 +85,8 @@ class StepRunner:
         self.accum = trainer._accum_steps
         self.max_steps = max(1, int(max_steps))
         dev = self.device = trainer.device
-        self.graphs = dev.type == "cuda" and not eager
+        self.graphs = (dev.type == "cuda" and not eager
+                       and not forward_communicates_over_host(trainer.module))
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
         self._t_host = 0
         self.seeds = torch.zeros((self.max_steps, self.accum),
@@ -81,6 +97,7 @@ class StepRunner:
         self.capture_guard = contextlib.nullcontext
         self.captures = 0
         self.replays = 0
+        self.eager_steps = 0  # steps run without a graph (warm-ups too)
         self._graphs: list = []
         self._packed = None
         self._key = None
@@ -220,6 +237,7 @@ class StepRunner:
 
     def _step(self) -> None:
         """One whole step, eagerly (the plain version, and the warm-up)."""
+        self.eager_steps += 1
         self._forward_backward()
         packed = self.trainer.tx.pack_gradients()
         self.trainer.tx.communicate(packed)

@@ -9,6 +9,18 @@ two sides sum the same f32 products in different orders.
 
 The CUDA kernel itself is held against the plain version on the card
 (`cuda`-marked tests here, and every mask case of ``chip_smoke.py``).
+
+The port's side runs on one torch thread (`_one_torch_thread`, restored
+after each test). In parallel runs of the test suite (processes each
+running a JAX-package test file and then this file, six at a time on
+eight cores), the causal case failed in 1 of 180 processes with torch's
+default thread count and in none of 180 with one thread: 633 elements of
+O up to 5.6e-5 apart (an earlier capture: rows 64-127 of one (batch,
+head), every other block within 4.2e-7 of a float64 reference). The failure did not
+persist: the same call, repeated at once in the failing process at eight
+threads and at one, came within 4.1e-7 of the float64 reference. Its cause
+is not known. The plain path at the default thread count stays under test
+in `test_torch_flash_backward.py` and `test_torch_flash_fallback.py`.
 """
 
 import jax.numpy as jnp
@@ -22,6 +34,16 @@ from horovod_tpu_torch.ops import flash_attention as tfa
 
 B, T, H, D = 2, 128, 2, 32
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _inputs(seed, b=B, tq=T, tk=T, h=H, hkv=H, d=D):

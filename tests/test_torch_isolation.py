@@ -190,3 +190,30 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_smoke(str(tmp_path))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["resnet", "vit", "trainer"])
+def test_cifar_slice_entry_points_refuse_cpu_fallback(no_cuda, entry):
+    """The CIFAR slice's models and their trainer default to the card and
+    raise without CUDA; the CPU runs only when named."""
+    from horovod_tpu_torch.models.resnet import ResNetCIFAR
+    from horovod_tpu_torch.models.vit import ViT
+
+    make = {"resnet": lambda **kw: ResNetCIFAR(depth=8, **kw),
+            "vit": lambda **kw: ViT(d_model=16, n_heads=2, n_layers=1, **kw),
+            "trainer": lambda **kw: horovod_tpu_torch.Trainer(
+                ResNetCIFAR(depth=8, device="cpu"),
+                horovod_tpu_torch.adam(1e-3), **kw)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu") is not None
+
+
+def test_cifar_slice_modules_are_scanned():
+    mods = _modules()
+    for m in ("horovod_tpu_torch.models.resnet",
+              "horovod_tpu_torch.models.vit",
+              "horovod_tpu_torch.examples.cifar10_resnet"):
+        assert m in mods
+        path = os.path.join(REPO, *m.split(".")) + ".py"
+        assert path in _port_files()
