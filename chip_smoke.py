@@ -120,7 +120,36 @@ Phases (any failed check exits non-zero before the result line):
       (counted), since a gloo BN all-reduce cannot sit inside a graph;
    d. ``cifar_vit`` — ``ARCH=vit`` (patch 4, d 256, 8 heads, 6 layers,
       bf16), 3 × 100 steps: images/s and the loss falling;
-13. the ``kernels`` JSON line, then the last line
+13. the decode family of ``examples/lm_generate.py`` at the bench LM's
+   width (bf16, seeded random weights, batch 8 × prompt 128):
+   a. greedy and sampled ``make_generate_fn``, 64 new tokens: the captured
+      steps (one CUDA graph replayed a token) equal the same steps run
+      eagerly bit for bit; tokens/s, host launches, device kernels and
+      graph replays a token, and the device's busy share, eager and
+      captured (``decode_generate`` lines);
+   b. speculative greedy (γ 8, prompt lookup): tokens equal plain greedy's
+      bit for bit, full and ragged; rounds and tokens a round;
+   c. beam search (width 4, length penalty 0.6): captured against eager,
+      tokens and scores bit for bit; the best beams' scores;
+   d. int8: ``int8_dot_general`` (``torch._int_mm``) on the prefill's
+      activations of every Dense and the LM head, the weights' lattice and
+      dequantization, and the int8 cache's write and attention, each
+      against its plain version on the CPU on the same int8 inputs
+      (``INT8_BF16_RTOL``, ``INT8_CACHE_ATOL``); top-1 agreement of the
+      quantized, int8-cache and int8-compute generators with bf16
+      (information: the weights are random); the stored bytes;
+   e. the ring cache (window 64 + 4 sinks, 256 new tokens): constant
+      bytes, and every step's logits against the full cache under the same
+      mask (f32, ``RING_LOGITS_ATOL``);
+   f. a bundle with a byte-BPE tokenizer trained to 8192 ids and the int8
+      cache served by ``make_server``: text in, text and tokens out, equal
+      to the bundle run alone; its speculative variant equals the plain
+      int8-cache bundle;
+   g. the twin ``horovod_tpu_torch.examples.lm_generate`` at its defaults
+      (``STREAM=1``), which asserts speculative == greedy itself;
+   and B1 at the ring's windowed prefill with sinks against its plain
+   version, SDPA with the same boolean mask and the bound;
+14. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
@@ -2270,6 +2299,527 @@ def cifar_vit(torch):
     return result
 
 
+# -- phase 13 ---------------------------------------------------------------
+
+# The decode family at the bench LM's width (phase 4's batch and prompt).
+DECODE_NEW = 64
+SAMPLING = dict(temperature=0.8, top_k=0, top_p=0.9)
+SPEC_GAMMA = 8
+BEAM_WIDTH, BEAM_PENALTY = 4, 0.6
+RING_WINDOW, RING_SINKS, RING_NEW = 64, 4, 256
+# int8 paths on the card against their plain versions on the CPU, on the
+# same int8 inputs: the int32 products are exact on both, so the outputs
+# differ only by the f32 rescale's rounding (one f32 ulp of the f32 value,
+# then the bf16 cast: at most one bf16 ulp, relative 2^-8).
+INT8_BF16_RTOL = 2.0 ** -8
+# The int8 cache's attention in f32 on both devices: the scaled q·k and
+# p·v sums run in other orders.
+INT8_CACHE_ATOL = 1e-5
+# The ring against the full cache under the same window + sinks mask, in
+# f32 (the same weights through `clone(compute_dtype=float32)`): the same
+# keys in another slot order, summed in other orders.
+RING_LOGITS_ATOL = 1e-3
+TOKENIZER_SEED = 5
+
+
+def _decode_profile(torch, fn):
+    """One call of ``fn`` under `torch.profiler`: host launches
+    (``cudaLaunchKernel``/``cuLaunchKernel`` calls and graph launches),
+    device kernels and their busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, by_name = device_kernels(torch, prof)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    launches = sum(1 for n in names if n in ("cudaLaunchKernel",
+                                             "cudaLaunchKernelExC",
+                                             "cuLaunchKernel",
+                                             "cuLaunchKernelEx"))
+    graphs = sum(1 for n in names if n in ("cudaGraphLaunch",
+                                           "cuGraphLaunch"))
+    return {"host_kernel_launches": launches, "graph_launches": graphs,
+            "device_kernels": len(kernels),
+            "device_busy_ms": sum(by_name.values()) if kernels
+            else "not measured"}
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _prompt_batch(torch, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(1, MODEL["vocab_size"], (BATCH, PROMPT_LEN),
+                         generator=gen, dtype=torch.int32)
+
+
+def decode_generate(torch, model, prompt):
+    """13a: greedy and sampled `make_generate_fn`, 64 new tokens: the
+    captured steps against the same steps run eagerly, bit for bit; tokens/s,
+    launches and graph replays a token and the device's busy share, eager
+    and captured."""
+    from horovod_tpu_torch.models.decoding import make_generate_fn, make_rng
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    out, tokens = {}, {}
+    for mode, knobs in (("greedy", {}), ("sampled", SAMPLING)):
+        fn = make_generate_fn(model, max_new_tokens=DECODE_NEW,
+                              include_prompt=False, **knobs)
+        steps = fn.steps
+
+        def call():
+            return fn(prompt, make_rng(7, DEVICE))
+
+        fa.launches = fa.launches_tc = 0
+        steps.graphs = False
+        eager, _ = _timed(torch, call)  # warm-up: cuBLAS plans
+        eager, eager_ms = _timed(torch, call)
+        eager_prof = _decode_profile(torch, call)
+        steps.graphs = True
+        first = steps.counts()
+        captured, capture_ms = _timed(torch, call)  # warm step + capture
+        captured2, replay_ms = _timed(torch, call)
+        replay_prof = _decode_profile(torch, call)
+        counts = {k: v - first[k] for k, v in steps.counts().items()}
+        check(torch.equal(captured, eager) and torch.equal(captured2, eager),
+              f"13a {mode}: graph replays differ from the eager steps")
+        check(counts["captures"] == 1
+              and counts["replays"] == 3 * (DECODE_NEW - 1) - 1,
+              f"13a {mode}: captures/replays {counts}")
+        n_tok = BATCH * DECODE_NEW
+        tokens[mode] = captured
+        out[mode] = {
+            "b1_launches": fa.launches, "b1_launches_tc": fa.launches_tc,
+            "eager": {"ms": eager_ms, "tokens_per_s": n_tok / eager_ms * 1e3,
+                      **eager_prof},
+            "captured": {"first_call_ms": capture_ms, "ms": replay_ms,
+                         "tokens_per_s": n_tok / replay_ms * 1e3,
+                         **replay_prof},
+            "graph_replays_per_token": replay_prof["graph_launches"]
+            / (DECODE_NEW - 1),
+            "steps": counts,
+        }
+        for key, prof in (("eager", eager_prof), ("captured", replay_prof)):
+            o = out[mode][key]
+            wall = o["ms"]
+            o["host_launches_per_token"] = (
+                prof["host_kernel_launches"] + prof["graph_launches"]) \
+                / DECODE_NEW
+            o["device_kernels_per_token"] = prof["device_kernels"] / DECODE_NEW
+            o["device_busy_share"] = (prof["device_busy_ms"] / wall
+                                      if isinstance(prof["device_busy_ms"],
+                                                    float) else "not measured")
+        check(fa.launches == 6 * MODEL["n_layers"]
+              and fa.launches_tc == fa.launches,
+              f"13a {mode}: B1 launched {fa.launches} times "
+              f"({fa.launches_tc} tc), want 6 prefills × n_layers on tc")
+        log(f"decode_generate {mode}", json.dumps(out[mode]))
+    return out, tokens
+
+
+def decode_speculative(torch, model, prompt, greedy):
+    """13b: speculative greedy, γ 8, prompt lookup: tokens equal to plain
+    greedy's bit for bit, full and ragged; rounds and tokens a round."""
+    from horovod_tpu_torch.models.decoding import make_generate_fn
+    from horovod_tpu_torch.models.speculative import make_speculative_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    spec = make_speculative_fn(model, max_new_tokens=DECODE_NEW,
+                               gamma=SPEC_GAMMA, include_prompt=False,
+                               return_stats=True)
+    fa.launches = 0
+    (out, stats), first_ms = _timed(torch, lambda: spec(prompt))
+    (out2, stats2), ms = _timed(torch, lambda: spec(prompt))
+    prof = _decode_profile(torch, lambda: spec(prompt))
+    check(torch.equal(out, out2), "13b: a second speculative call differs")
+    diff = (out != greedy).any(dim=1)
+    first_diff = None
+    if bool(diff.any()):
+        row = int(diff.nonzero()[0])
+        step = int((out[row] != greedy[row]).nonzero()[0])
+        first_diff = {"row": row, "step": step}
+    check(first_diff is None,
+          f"13b: speculative tokens differ from plain greedy at {first_diff}")
+    gen = torch.Generator().manual_seed(11)
+    lengths = torch.randint(1, PROMPT_LEN + 1, (BATCH,), generator=gen,
+                            dtype=torch.int32)
+    lengths[0] = PROMPT_LEN
+    ragged, rstats = spec(prompt, None, lengths)
+    plain = make_generate_fn(model, max_new_tokens=DECODE_NEW,
+                             include_prompt=False)(prompt, None, lengths)
+    check(torch.equal(ragged, plain),
+          "13b: ragged speculative tokens differ from ragged plain greedy")
+    rounds, n_tok = int(stats["rounds"]), int(stats["tokens"])
+    res = {
+        "gamma": SPEC_GAMMA, "rounds": rounds, "tokens": n_tok,
+        "tokens_per_round_per_row": n_tok / (rounds * BATCH),
+        "ragged_rounds": int(rstats["rounds"]),
+        "ragged_tokens_per_round_per_row": int(rstats["tokens"])
+        / (int(rstats["rounds"]) * BATCH),
+        "first_call_ms": first_ms, "ms": ms,
+        "tokens_per_s": BATCH * DECODE_NEW / ms * 1e3,
+        "steps": spec.steps.counts(), "b1_launches": fa.launches, **prof,
+    }
+    log("decode_speculative", json.dumps(res))
+    return res
+
+
+def decode_beam(torch, model, prompt):
+    """13c: beam search, width 4, length penalty 0.6: the captured steps
+    against the same search run eagerly (tokens and scores bit for bit)."""
+    from horovod_tpu_torch.models.beam import make_beam_search_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    beam = make_beam_search_fn(model, max_new_tokens=DECODE_NEW,
+                               beam_size=BEAM_WIDTH,
+                               length_penalty=BEAM_PENALTY,
+                               include_prompt=False, return_scores=True)
+    fa.launches = 0
+    beam.steps.graphs = False
+    (e_tok, e_score), eager_ms = _timed(torch, lambda: beam(prompt))
+    beam.steps.graphs = True
+    beam(prompt)  # warm step + capture
+    (c_tok, c_score), ms = _timed(torch, lambda: beam(prompt))
+    check(torch.equal(c_tok, e_tok) and torch.equal(c_score, e_score),
+          "13c: captured beam search differs from the eager one")
+    check(bool(torch.isfinite(c_score).all()), "13c: non-finite scores")
+    res = {"beam": BEAM_WIDTH, "length_penalty": BEAM_PENALTY,
+           "best_scores": c_score.tolist(), "eager_ms": eager_ms, "ms": ms,
+           "steps": beam.steps.counts(), "b1_launches": fa.launches}
+    log("decode_beam", json.dumps(res))
+    return res
+
+
+def decode_int8(torch, model, prompt, greedy):
+    """13d: int8 weights (`quantized`), the int8 cache and int8 compute on
+    the prefill: each kernel-level piece against its plain version on the
+    CPU on the same int8 inputs; top-1 agreement with the bf16 path as
+    information (random weights); the stored bytes."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import quant
+    from horovod_tpu_torch.models.decoding import make_generate_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    res = {}
+    # int8_dot_general on the prefill's activations, every Dense of block 0
+    # and the LM head: _int_mm on the card, int32 matmul on the CPU.
+    blk = model.blocks[0]
+    with torch.inference_mode():
+        x = model._embed(prompt.to(DEVICE))
+        h = blk.ln_attn(x)
+        errs = {}
+        for name, layer, inp in (
+                ("qkv", blk.qkv, h), ("attn_out", blk.attn_out, h),
+                ("mlp_up", blk.mlp_up, h),
+                ("mlp_down", blk.mlp_down,
+                 F.gelu(blk._dense(blk.mlp_up, h), approximate="tanh")),
+                ("lm_head", model.lm_head, h)):
+            card = quant.int8_linear(layer, inp, torch.bfloat16).float()
+            cpu = quant.int8_dot_general(
+                inp.cpu(), layer.weight.detach().cpu().to(torch.bfloat16),
+                out_dtype=torch.bfloat16).float()
+            rel = ((card.cpu() - cpu).abs()
+                   / cpu.abs().clamp_min(1e-30)).max().item()
+            errs[name] = rel
+            check(rel <= INT8_BF16_RTOL,
+                  f"13d int8_dot_general {name}: card vs CPU rel {rel}")
+    res["int8_dot_general_max_rel_err"] = errs
+    # The stored weights: dequantized on the card and on the CPU.
+    qparams = quant.quantize_params(model)
+    qcpu = quant.quantize_params(model.to("cpu"))
+    model.to(DEVICE)
+    for name, leaf in qparams.items():
+        if quant.is_qleaf(leaf):
+            check(torch.equal(leaf["int8_q"].cpu(), qcpu[name]["int8_q"])
+                  and torch.equal(leaf["scale"].cpu(), qcpu[name]["scale"]),
+                  f"13d: {name} quantizes differently on the card")
+    deq = quant.dequantize_params(qparams)
+    deq_cpu = quant.dequantize_params(qcpu)
+    check(all(torch.equal(deq[n].cpu(), deq_cpu[n]) for n in deq),
+          "13d: dequantized weights differ between card and CPU")
+    bf16_bytes = sum(p.numel() * 2 for p in model.parameters())
+    res["quantized_bytes"] = quant.quantized_bytes(qparams)
+    res["bf16_bytes"] = bf16_bytes
+    # The int8 cache: the write's quantization and one step's attention, in
+    # f32, card against CPU on the same int8 cache.
+    qmodel = model.clone(quantized_cache=True, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        _, cache = qmodel.decode(prompt.to(DEVICE),
+                                 max_decode_len=PROMPT_LEN + 8)
+        c0 = cache["Block_0"]
+        gen = torch.Generator().manual_seed(3)
+        hd = MODEL["d_model"] // MODEL["n_heads"]
+        q, k, v = (torch.randn(BATCH, 1, MODEL["n_heads"], hd, generator=gen)
+                   for _ in range(3))
+        card_cache = {n: t.clone() for n, t in c0.items()}
+        cpu_cache = {n: t.cpu().clone() for n, t in c0.items()}
+        idx = torch.tensor(PROMPT_LEN, dtype=torch.int32)
+        o_card = qmodel.blocks[0]._decode_attention(
+            q.to(DEVICE), k.to(DEVICE), v.to(DEVICE), card_cache,
+            idx.to(DEVICE), False)
+        blk_cpu = qmodel.blocks[0]
+        o_cpu = blk_cpu._decode_attention(q, k, v, cpu_cache, idx, False)
+        for n in card_cache:
+            check(torch.equal(card_cache[n].cpu(), cpu_cache[n]),
+                  f"13d int8 cache: {n} written differently on the card")
+        err = (o_card.cpu() - o_cpu).abs().max().item()
+        check(err <= INT8_CACHE_ATOL,
+              f"13d int8 cache attention: card vs CPU {err}")
+    res["int8_cache_attention_max_abs_err"] = err
+    # The generators with each knob (captured), top-1 agreement with bf16.
+    agree, b1 = {}, {}
+    for name, kw, params in (
+            ("quantized", {"quantized": True}, qparams),
+            ("quantized_cache", {"quantized_cache": True}, None),
+            ("int8_compute", {"int8_compute": True}, None)):
+        fa.launches = 0
+        fn = make_generate_fn(model, max_new_tokens=DECODE_NEW,
+                              include_prompt=False, **kw)
+        toks = fn(prompt, params=params)
+        again = fn(prompt, params=params)
+        check(torch.equal(toks, again), f"13d {name}: replays differ")
+        agree[name] = (toks == greedy).float().mean().item()
+        b1[name] = fa.launches
+    res["top1_agreement_with_bf16"] = agree
+    res["b1_launches"] = b1
+    log("decode_int8", json.dumps(res))
+    return res
+
+
+def decode_ring(torch, model, prompt):
+    """13e: the ring cache, window 64 + 4 sinks, over 256 new tokens: its
+    bytes stay constant, and every step's logits equal the full cache's
+    under the same window + sinks mask (f32: the same weights through
+    ``clone(compute_dtype=float32)``, teacher-forced on the ring's own
+    greedy tokens)."""
+    from horovod_tpu_torch.models.decoding import make_generate_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    knobs = dict(window=RING_WINDOW, attention_sinks=RING_SINKS,
+                 compute_dtype=torch.float32)
+    full = model.clone(**knobs)
+    ring = model.clone(sliding_cache=True, **knobs)
+    fa.launches = 0
+    fn = make_generate_fn(ring, max_new_tokens=RING_NEW,
+                          include_prompt=False)
+    toks, ms = _timed(torch, lambda: fn(prompt))
+    toks, ms = _timed(torch, lambda: fn(prompt))
+    prompt_d = prompt.to(DEVICE)
+
+    def nbytes(cache):
+        return sum(t.numel() * t.element_size() for k, v in cache.items()
+                   if k != "index" for t in v.values())
+
+    worst = 0.0
+    with torch.inference_mode():
+        fl, fc = full.decode(prompt_d, max_decode_len=PROMPT_LEN + RING_NEW)
+        rl, rc = ring.decode(prompt_d, max_decode_len=PROMPT_LEN + RING_NEW)
+        size0 = nbytes(rc)
+        worst = (fl[:, -1] - rl[:, -1]).abs().max().item()
+        for j in range(RING_NEW - 1):
+            fl, fc = full.decode(toks[:, j:j + 1], fc)
+            rl, rc = ring.decode(toks[:, j:j + 1], rc)
+            worst = max(worst, (fl[:, -1] - rl[:, -1]).abs().max().item())
+        check(nbytes(rc) == size0, "13e: the ring cache grew")
+    check(worst <= RING_LOGITS_ATOL,
+          f"13e: ring vs full-cache logits differ by {worst}")
+    slots = RING_SINKS + RING_WINDOW
+    res = {"window": RING_WINDOW, "sinks": RING_SINKS, "new": RING_NEW,
+           "slots": slots, "cache_bytes": size0,
+           "full_cache_bytes": nbytes(fc),
+           "max_abs_logit_diff": worst, "ms": ms,
+           "tokens_per_s": BATCH * RING_NEW / ms * 1e3,
+           "steps": fn.steps.counts(), "b1_launches": fa.launches}
+    log("decode_ring", json.dumps(res))
+    return res
+
+
+def _corpus(n_words=150000, lexicon=12000, seed=TOKENIZER_SEED):
+    """Text for the tokenizer: Zipf-distributed draws from a seeded lexicon
+    of random lower-case words."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, rng.randint(2, 11)))
+             for _ in range(lexicon)]
+    ranks = np.minimum(rng.zipf(1.2, n_words), lexicon) - 1
+    return [" ".join(words[r] for r in ranks[i:i + 200])
+            for i in range(0, n_words, 200)]
+
+
+def decode_bundle(torch, model):
+    """13f: a bundle with a tokenizer (byte BPE trained to the model's 8192
+    ids) and the int8 cache, streaming, served by ``make_server`` on the
+    card: text in, text and tokens out, each equal to the bundle run on the
+    prompt alone; and its speculative variant (γ 8) loaded and run on the
+    same texts."""
+    from horovod_tpu_torch.data.tokenizer import ByteBPETokenizer
+    from horovod_tpu_torch.launch.serve import make_server
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serving import export_generate, load_generate
+
+    t0 = time.perf_counter()
+    tok = ByteBPETokenizer.train(_corpus(), MODEL["vocab_size"],
+                                 specials=("<eos>",))
+    train_s = time.perf_counter() - t0
+    check(tok.vocab_size == MODEL["vocab_size"],
+          f"13f: tokenizer vocab {tok.vocab_size}")
+    root = os.path.join(WORK, "decode_bundles")
+    kw = dict(batch_size=BATCH, prompt_len=PROMPT_LEN,
+              max_new_tokens=DECODE_NEW, tokenizer=tok, quantized_cache=True)
+    served = export_generate(root, model, streaming_chunk=CHUNK,
+                             timestamp="served", **kw)
+    spec_dir = export_generate(root, model, speculative_gamma=SPEC_GAMMA,
+                               timestamp="speculative", **kw)
+    texts = [" ".join(_corpus(200, seed=s)[0].split()[:12]) for s in range(4)]
+    server = make_server(served, port=0, device=DEVICE)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/v1/generate"
+    fa.launches = 0
+    try:
+        lines, _, _ = _post(url, {"text": texts})
+        stream, _, _ = _post(url, {"text": texts[:1], "stream": True})
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.app.engine.stop()
+        thread.join(timeout=30)
+    b1_served = fa.launches
+    reply = lines[-1]
+    bundle = server.app.bundle
+    for i, text in enumerate(texts):
+        alone = bundle.generate_tokens([tok.encode(text)])[0]
+        check(reply["tokens"][i] == alone,
+              f"13f: served text {i} differs from the bundle run alone")
+        check(reply["text"][i] == tok.decode(alone),
+              f"13f: served text {i} is not the detokenized tokens")
+    check(stream[-1].get("done") and stream[-1]["text"] == reply["text"][:1],
+          "13f: the stream's final line lacks the text")
+    spec = load_generate(spec_dir, device=DEVICE)
+    spec_tokens = spec.generate_tokens([tok.encode(t) for t in texts])
+    plain = load_generate(export_generate(root, model, timestamp="plain",
+                                          **kw), device=DEVICE)
+    plain_tokens = plain.generate_tokens([tok.encode(t) for t in texts])
+    check(spec_tokens == plain_tokens,
+          "13f: the speculative bundle differs from the plain int8-cache one")
+    res = {"tokenizer_vocab": tok.vocab_size, "tokenizer_train_s": train_s,
+           "prompt_tokens": [len(tok.encode(t)) for t in texts],
+           "served_text_0": reply["text"][0][:80],
+           "speculative_equals_plain": True, "b1_launches_served": b1_served}
+    log("decode_bundle", json.dumps(res))
+    return res
+
+
+def decode_twin(torch):
+    """13g: the twin of ``examples/lm_generate.py`` at its defaults (copy
+    task, 4 × 48 steps, greedy, streamed, sampled, speculative); it asserts
+    speculative == greedy itself."""
+    env = dict(os.environ, PS_MODEL_PATH=os.path.join(WORK, "lm_generate"),
+               STREAM="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.examples.lm_generate"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(WORK, "lm_generate.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0,
+          f"13g: the twin failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    pick = {k: next((ln for ln in lines if ln.startswith(k)), None)
+            for k in ("final train loss", "greedy recall", "streamed",
+                      "speculative")}
+    check(all(pick.values()), f"13g: missing lines {pick}")
+    check("outputs identical: True" in pick["speculative"],
+          "13g: the twin's speculative output differs from greedy")
+    res = {"wall_s": wall, **pick}
+    log("decode_twin", json.dumps(res))
+    return res
+
+
+def decode_phase(torch):
+    """Phase 13: the decode family at the bench LM's width (bf16, random
+    weights from seed 0, batch 8 × prompt 128)."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.perf_counter()
+    model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
+                          device=DEVICE, seed=0)
+    prompt = _prompt_batch(torch, 0)
+    res = {}
+    res["generate"], toks = decode_generate(torch, model, prompt)
+    res["speculative"] = decode_speculative(torch, model, prompt,
+                                            toks["greedy"])
+    res["beam"] = decode_beam(torch, model, prompt)
+    res["int8"] = decode_int8(torch, model, prompt, toks["greedy"])
+    res["ring"] = decode_ring(torch, model, prompt)
+    res["bundle"] = decode_bundle(torch, model)
+    res["twin"] = decode_twin(torch)
+    res["window_sinks_prefill"] = window_sinks_timing(torch)
+    log(f"decode phase seconds: {time.perf_counter() - t0:.1f}")
+    return res
+
+
+def window_sinks_timing(torch):
+    """B1 at the ring's windowed prefill shape (B8·T128·H8·D64, window 64,
+    4 sinks, bf16, tc): kernel, plain version, SDPA with the same mask as
+    an explicit boolean mask, and the card's bound over the kept pairs."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = BATCH, PROMPT_LEN, MODEL["n_heads"], \
+        MODEL["d_model"] // MODEL["n_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    masks = dict(causal=True, window=RING_WINDOW, sinks=RING_SINKS)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    r = torch.arange(t, device="cuda")
+    keep = (r[None, :] <= r[:, None]) & (
+        (r[None, :] > r[:, None] - RING_WINDOW) | (r[None, :] < RING_SINKS))
+    with torch.inference_mode():
+        ms = device_ms(torch, lambda: fa.flash_attention_with_lse(
+            q, k, v, **masks))
+        plain = device_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, **masks), 10)
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=keep))
+        o = fa.flash_attention(q, k, v, **masks).float()
+        ref = F.scaled_dot_product_attention(
+            qh.float(), kh.float(), vh.float(), attn_mask=keep
+        ).transpose(1, 2)
+    err = (o - ref).abs().max().item()
+    check(err <= TOL["bfloat16"]["o_atol"],
+          f"B1 window+sinks against f32 SDPA: {err}")
+    visible = int(keep.sum())
+    nbytes = (2 * b * t * h * d + 2 * b * t * h * d) * 2 + b * t * h * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * 2 * b * h * d * visible / PEAK_FLOPS["bfloat16"] * 1e3
+    res = {"shape": [b, t, h, d], "window": RING_WINDOW, "sinks": RING_SINKS,
+           "route": fa._route(torch.bfloat16, d), "ms": ms,
+           "plain_ms": plain, "library_ms": lib,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err_vs_sdpa_f32": err}
+    log(f"time flash_fwd window_sinks B{b} T{t} H{h} D{d} window "
+        f"{RING_WINDOW} sinks {RING_SINKS} bf16 [{res['route']}]: kernel_ms "
+        f"{ms:.5f} plain_ms {plain:.5f} library_ms (sdpa, bool mask) "
+        f"{lib:.5f} bound_ms {res['bound_ms']:.5f} ({res['bound_by']})")
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -2385,6 +2935,7 @@ def main(argv=None) -> int:
         cifar_graph_vs_eager(torch)
         sync_bn_on_card(torch)
         cifar_vit(torch)
+        decode = decode_phase(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2441,6 +2992,22 @@ def main(argv=None) -> int:
             entry["launches_serve"] = serve_launches
             entry["serving_prefill"] = timings["serving_prefill"]
             entry["long_prompt"] = timings["long_prompt"]
+            # Phase 13's paths: every prefill of the decode family is a B1
+            # launch per layer, on the tensor-core route (bf16).
+            entry["launches_decode"] = {
+                "generate_greedy": decode["generate"]["greedy"]["b1_launches"],
+                "generate_sampled": decode["generate"]["sampled"][
+                    "b1_launches"],
+                "speculative": decode["speculative"]["b1_launches"],
+                "beam": decode["beam"]["b1_launches"],
+                **{f"int8_{k}": v
+                   for k, v in decode["int8"]["b1_launches"].items()},
+                "bundle_served": decode["bundle"]["b1_launches_served"],
+            }
+            entry["window_sinks_prefill"] = decode["window_sinks_prefill"]
+        if name == "flash_fwd":
+            # The ring's f32 comparison (13e) prefills on the CUDA-core route.
+            entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]
         lines.append(entry)
     log(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": lines}), flush=True)

@@ -5,21 +5,26 @@ Endpoints (JSON):
 
 * ``GET  /healthz`` → ``{"status": "ok", "bundle": ..., "kind":
   "generate", "signature": ..., "stats": ..., "scheduler": ...}``;
-* ``POST /v1/generate`` body ``{"prompt": [[ids...], ...]}`` →
-  ``{"tokens": [[ids...], ...]}``;
+* ``POST /v1/generate`` body ``{"prompt": [[ids...], ...]}`` or, when the
+  bundle carries a tokenizer, ``{"text": ["...", ...]}`` →
+  ``{"tokens": [[ids...], ...]}`` (plus ``"text"``: the detokenized
+  generations, with a tokenizer);
 * ``POST /v1/generate`` with ``"stream": true`` → ``application/x-ndjson``:
   one ``{"tokens": [[ids...]]}`` line per generated chunk (tagged with
-  ``"row"`` for multi-row requests), then ``{"done": true, "tokens": ...}``.
+  ``"row"`` for multi-row requests), then ``{"done": true, "tokens": ...}``
+  (with ``"text"`` when the bundle has a tokenizer).
 
 Every prompt row is its own scheduled sequence in the engine: admitted
 into free decode rows mid-flight, retired the chunk it finishes. A full
-wait queue answers 429; a prompt the bundle cannot serve answers 400.
+wait queue answers 429; a prompt the bundle cannot serve answers 400, as
+do ``text`` without a tokenizer and ``text`` beside ``prompt``.
 The engine is sized by ``HVT_SERVE_MAX_SEQS`` / ``HVT_SERVE_BLOCK_TOKENS``
 / ``HVT_SERVE_KV_BLOCKS`` / ``HVT_SERVE_QUEUE_DEPTH`` (the JAX server's
 knobs and defaults).
 
-Not in this slice: predict bundles, the coalescing mode, ``/admin/reload``,
-fleet membership and ``/metrics``.
+Not in this slice (ROADMAP queue A item 10, the server half): predict
+bundles, the coalescing mode, ``/admin/reload``, fleet membership and
+``/metrics``.
 
 Run: ``python -m horovod_tpu_torch.launch.serve <bundle_dir> [--port 8000]
 [--device cuda]`` (tests use `make_server` + a background thread).
@@ -84,21 +89,36 @@ class _GenerateApp:
         )
 
     def _prompts(self, payload: dict) -> list:
+        if "text" in payload and "prompt" in payload:
+            raise ValueError("pass 'text' OR 'prompt', not both")
         if "text" in payload:
-            raise ValueError(
-                "this bundle has no tokenizer — POST token ids under "
-                "'prompt' instead"
-            )
-        prompts = self.bundle.validate_prompts(payload["prompt"])
+            texts = payload["text"]
+            if not isinstance(texts, list):
+                raise ValueError("'text' must be a list of strings")
+            if self.bundle.tokenizer is None:
+                raise ValueError(
+                    "this bundle has no tokenizer — POST token ids under "
+                    "'prompt' instead"
+                )
+            raw = self.bundle.encode_texts(texts)
+        else:
+            raw = payload["prompt"]
+        prompts = self.bundle.validate_prompts(raw)
         if not prompts:
             raise ValueError("need at least one prompt")
         return prompts
+
+    def _with_text(self, out: dict) -> dict:
+        if self.bundle.tokenizer is not None:
+            out["text"] = [self.bundle.tokenizer.decode(g)
+                           for g in out["tokens"]]
+        return out
 
     def generate(self, payload: dict) -> dict:
         reqs = [self.engine.submit(p) for p in self._prompts(payload)]
         tokens = [r.result() for r in reqs]
         self.stats["rows"] += len(reqs)
-        return {"tokens": tokens}
+        return self._with_text({"tokens": tokens})
 
     def stream(self, payload: dict):
         """NDJSON lines: one per delivered chunk, then the final ``done``
@@ -115,7 +135,8 @@ class _GenerateApp:
                     line["row"] = i
                 yield line
         self.stats["rows"] += len(reqs)
-        yield {"done": True, "tokens": [r.tokens for r in reqs]}
+        yield self._with_text({"done": True,
+                               "tokens": [r.tokens for r in reqs]})
 
 
 def make_server(bundle_dir: str, port: int = 0, host: str = "127.0.0.1",

@@ -38,6 +38,12 @@ def _heads_to_linear(kernel) -> np.ndarray:
 
 def params_from_flax(tree) -> dict:
     """flax ``params`` tree → `TransformerLM` state_dict (f32 tensors)."""
+    return _lm_from_flax(tree, _t)
+
+
+def _lm_from_flax(tree, _t) -> dict:
+    """The `TransformerLM` layout of a flax ``params``-shaped tree, each
+    leaf through ``_t`` (numpy → tensor)."""
     sd = {
         "embed.weight": _t(tree["Embed_0"]["embedding"]),
         "ln_f.scale": _t(tree["LayerNorm_0"]["scale"]),
@@ -73,6 +79,39 @@ def params_from_flax(tree) -> dict:
             np.asarray(blk["mlp_down"]["kernel"]).T
         )
     return sd
+
+
+def qparams_from_flax(qtree) -> dict:
+    """The JAX package's `quantize_params` tree (``{"int8_q", "scale"}``
+    leaves and passthrough arrays, as numpy) → the port's
+    `quant.quantize_params` tree: the int8 values through the same
+    layout as `params_from_flax` (dtype kept), the scales with them
+    (attn_out's ``[1, D, d]`` becomes ``[d, 1, D]``, the grouping
+    `quant.dequantize_params` expects)."""
+
+    def split(tree, key):
+        if isinstance(tree, dict) and "int8_q" in tree:
+            return np.asarray(tree[key])
+        if isinstance(tree, dict):
+            return {k: split(v, key) for k, v in tree.items()}
+        a = np.asarray(tree)
+        return a if key == "int8_q" else np.zeros((1,) + a.shape[1:], a.dtype)
+
+    def keep(a):
+        return torch.from_numpy(np.array(a))
+
+    values = _lm_from_flax(split(qtree, "int8_q"), keep)
+    scales = _lm_from_flax(split(qtree, "scale"), keep)
+    out = {}
+    for name, v in values.items():
+        if v.dtype != torch.int8:
+            out[name] = v.float()
+            continue
+        sc = scales[name].float()
+        if name.endswith("attn_out.weight"):  # [d, D] -> [d, 1, D]
+            sc = sc.reshape(sc.shape[0], 1, -1)
+        out[name] = {"int8_q": v, "scale": sc.contiguous()}
+    return out
 
 
 def _linear_to_heads(weight, n_heads: int) -> np.ndarray:

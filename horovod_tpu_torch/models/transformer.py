@@ -30,13 +30,24 @@ tensor), never from torch's global RNG: block i's two sites are 2i and
 (`ops.dropout`, a CUDA kernel on the card), so a remat recompute redraws
 the same mask.
 
+Decode knobs, as in the JAX model: ``int8_compute`` runs every Dense
+contraction and the LM head through `quant.int8_dot_general` (inference
+only); ``quantized_cache`` stores K/V as int8 with per-(position, head) f32
+scales ``k_scale``/``v_scale`` ``[B, L, H_kv]`` (the decode contractions
+read the int8 values and apply the scales outside the head-dim sum);
+``sliding_cache`` makes the cache a ring of ``attention_sinks + min(window,
+max_decode_len)`` slots with per-slot absolute positions ``pos`` ``[B, L]``
+(−1 for a slot never written, sinks pinned; prefill and single-token steps
+at a lockstep index only). `TransformerLM.clone` returns a model of another
+configuration that shares the parameter tensors (flax's ``Module.clone``).
+
 Not in this slice — each raises `NotImplementedError` naming its ROADMAP
-item: MoE blocks, int8 compute, the int8 / sliding KV caches and
-sequence/tensor parallelism.
+item: MoE blocks and sequence/tensor parallelism.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -44,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from horovod_tpu_torch.models import quant
 from horovod_tpu_torch.ops.attention import _BIG_NEG
 from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.ops.flash_attention import flash_attention
@@ -135,6 +147,7 @@ class Block(nn.Module):
         self.dropout = dropout
         self.compute_dtype = compute_dtype
         self.window, self.sinks = window, attention_sinks
+        self.int8_compute = False  # set by TransformerLM._propagate
         hd = self.head_dim
         self.ln_attn = LayerNorm(d_model, compute_dtype)
         if h_kv == n_heads:
@@ -149,6 +162,8 @@ class Block(nn.Module):
 
     def _dense(self, layer: nn.Linear, x):
         cd = self.compute_dtype
+        if self.int8_compute:
+            return quant.int8_linear(layer, x, cd)
         return F.linear(x.to(cd), layer.weight.to(cd))
 
     def _qkv(self, h):
@@ -199,64 +214,164 @@ class Block(nn.Module):
         b, t, h, d = q.shape
         ck, cv = cache["k"], cache["v"]
         length = ck.shape[1]
-        if length < t:
+        ring = "pos" in cache
+        qc = "k_scale" in cache
+        if length < t and not ring:  # a ring prefill drops its early tokens
             raise ValueError(
                 f"max_decode_len ({length}) < input length ({t})"
             )
-        steps = torch.arange(t, dtype=torch.int32, device=q.device)
-        if idx.dim() == 0:
-            # dynamic_update_slice semantics: the start clamps to L − t.
-            pos = (idx.clamp(0, length - t) + steps).long()
-            ck.index_copy_(1, pos, k.to(ck.dtype))
-            cv.index_copy_(1, pos, v.to(cv.dtype))
+        if ring:
+            _ring_write(cache, k, v, idx, t, self.sinks, fresh)
         else:
-            # Per-row positions; writes past the cache end are DROPPED
-            # (JAX mode="drop"). An out-of-range scatter index is a device
-            # assert on CUDA, so each position is clamped and masked back
-            # to the old value — free/retired serving rows step past the
-            # end by design.
-            rows = torch.arange(b, device=q.device)
-            for j in range(t):
-                p = idx + j
-                ok = ((p >= 0) & (p < length))[:, None, None]
-                pc = p.clamp(0, length - 1).long()
-                ck[rows, pc] = torch.where(ok, k[:, j].to(ck.dtype), ck[rows, pc])
-                cv[rows, pc] = torch.where(ok, v[:, j].to(cv.dtype), cv[rows, pc])
+            if qc:
+                # Per-(position, head) scales; the fresh full-precision
+                # k/v stay as they are for the prefill's flash attention
+                # below — only the cache holds the int8 copies.
+                wk, k_s = quant._quantize_sym(k, dim=-1)
+                wv, v_s = quant._quantize_sym(v, dim=-1)
+                fresh_vals = {"k": wk, "v": wv, "k_scale": k_s[..., 0],
+                              "v_scale": v_s[..., 0]}
+            else:
+                fresh_vals = {"k": k, "v": v}
+            _cache_write(cache, fresh_vals, idx, t)
         if t > 1 and fresh:
             # Prefill: causal attention over the fresh K/V is the full
-            # answer (the cache was empty) — the flash kernel's path.
+            # answer (the cache was empty) — the flash kernel's path, with
+            # the same window and sinks mask.
             return flash_attention(
                 q, k, v, causal=True, window=self.window, sinks=self.sinks
             )
         # Decode step / chunk extension: the t fresh queries attend over
-        # the cache prefix [0 .. idx + row]; grouped einsum so each cached
-        # kv head streams once for its `rep` query heads.
+        # the cache; grouped so each cached kv head streams once for its
+        # `rep` query heads, products summed in f32.
         h_kv = ck.shape[2]
         rep = h // h_kv
-        q5 = q.reshape(b, t, h_kv, rep, d)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), ck.float())
-        s = s * d ** -0.5
-        qpos = (idx.reshape(1, 1) if idx.dim() == 0 else idx[:, None]) \
-            + steps[None, :]
-        kpos = torch.arange(length, dtype=torch.int32, device=q.device)
-        valid = kpos[None, None, :] <= qpos[:, :, None]  # [Bq, t, L]
-        if self.window is not None:
-            keep = kpos[None, None, :] > qpos[:, :, None] - self.window
-            if self.sinks:
-                keep = keep | (kpos < self.sinks)[None, None, :]
-            valid = valid & keep
+        steps = torch.arange(t, dtype=torch.int32, device=q.device)
+        qg = q.reshape(b, t, h_kv, rep, d).permute(0, 2, 3, 1, 4)
+        qg = qg.reshape(b * h_kv, rep * t, d)
+        keys = ck.permute(0, 2, 3, 1).contiguous().to(q.dtype)
+        s = _matmul_f32(qg, keys.view(b * h_kv, d, length))
+        s = s.view(b, h_kv, rep, t, length) * d ** -0.5
+        if qc:
+            # score = (q · k_int8) · k_scale: the scale factors out of the
+            # head-dim contraction onto the [.., L] scores.
+            s = s * cache["k_scale"].permute(0, 2, 1)[:, :, None, None, :]
+        if ring:
+            # Ring slots carry their absolute positions: valid = written,
+            # causal, and in the band or a pinned sink.
+            qpos = (idx + steps)[None, :, None]  # [1, t, 1]
+            kpos = cache["pos"][:, None, :]  # [B, 1, W]
+            band = (kpos > qpos - self.window) | (kpos < self.sinks)
+            valid = (kpos >= 0) & (kpos <= qpos) & band
+        else:
+            qpos = (idx.reshape(1, 1) if idx.dim() == 0 else idx[:, None]) \
+                + steps[None, :]
+            kpos = torch.arange(length, dtype=torch.int32, device=q.device)
+            valid = kpos[None, None, :] <= qpos[:, :, None]  # [Bq, t, L]
+            if self.window is not None:
+                keep = kpos[None, None, :] > qpos[:, :, None] - self.window
+                if self.sinks:
+                    keep = keep | (kpos < self.sinks)[None, None, :]
+                valid = valid & keep
         valid = valid[:, None, None, :, :]  # [Bq, 1, 1, t, L]
         s = torch.where(valid, s, torch.full_like(s, _BIG_NEG))
         p = torch.softmax(s, dim=-1)
-        out = torch.einsum(
-            "bhgqk,bkhd->bqhgd", p.to(cv.dtype).float(), cv.float()
-        )
+        if qc:
+            # The value side folds v_scale into the probabilities.
+            p = p * cache["v_scale"].permute(0, 2, 1)[:, :, None, None, :]
+        vals = cv.permute(0, 2, 1, 3).contiguous().to(q.dtype)
+        out = _matmul_f32(p.to(q.dtype).reshape(b * h_kv, rep * t, length),
+                          vals.view(b * h_kv, length, d))
+        out = out.view(b, h_kv, rep, t, d).permute(0, 3, 1, 2, 4)
         return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def _matmul_f32(a, b):
+    """Batched ``a @ b`` with an f32 result (the JAX model's
+    ``preferred_element_type=f32``): a 16-bit product on the card keeps
+    its operands and returns f32 (cuBLAS's f32 output); on the CPU, or for
+    f32 operands, the operands are f32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _cache_write(cache, fresh, idx, t):
+    """Write ``fresh`` (``{leaf: [B, t, ...]}``) into the cache leaves of
+    the same names at position ``idx`` (scalar: ``dynamic_update_slice``
+    semantics, the start clamped to L − t) or at per-row positions ``idx
+    [B]`` (positions outside [0, L) dropped, JAX's ``mode="drop"``)."""
+    any_leaf = cache["k"]
+    b, length = any_leaf.shape[:2]
+    steps = torch.arange(t, dtype=torch.int32, device=any_leaf.device)
+    if idx.dim() == 0:
+        pos = (idx.clamp(0, length - t) + steps).long()
+        for name, val in fresh.items():
+            cache[name].index_copy_(1, pos, val.to(cache[name].dtype))
+        return
+    # Per-row positions. An out-of-range index is a device assert on CUDA,
+    # so a dropped position p (p >= L, as free or retired serving rows
+    # step past the end) writes its slot p mod L back with its own value:
+    # with t <= L those slots lie below every row's first in-range write
+    # (or the row has none), so no two writes meet.
+    p = idx[:, None] + steps[None, :]  # [B, t]
+    ok = (p >= 0) & (p < length)
+    slot = torch.remainder(p, length).long()
+    rows = torch.arange(b, device=any_leaf.device)[:, None]
+    for name, val in fresh.items():
+        leaf = cache[name]
+        keep = ok.view(b, t, *([1] * (leaf.dim() - 2)))
+        leaf[rows, slot] = torch.where(keep, val.to(leaf.dtype),
+                                       leaf[rows, slot])
+
+
+def _ring_write(cache, k, v, idx, t, sinks, fresh):
+    """The ring cache's write (JAX ``sliding_cache``): positions below
+    ``sinks`` pin to slots [0, sinks), the rest ring over [sinks, L). A
+    prefill keeps the sinks and its last L − sinks ring positions (earlier
+    ones would be evicted within the same write); a step writes one token.
+    Lockstep (scalar) indices only."""
+    if idx.dim() != 0:
+        raise ValueError(
+            "per-row decode indices are not supported with sliding_cache "
+            "— the ring buffer's slot math is lockstep"
+        )
+    if t > 1 and not fresh:
+        raise ValueError(
+            "sliding_cache supports prefill + single-token decode steps; "
+            "chunk extension (speculative decoding's verify pass) needs the "
+            "full-history cache — evicted rows could be needed by the "
+            "chunk's early tokens"
+        )
+    ck = cache["k"]
+    b, length = ck.shape[:2]
+    win = length - sinks
+    dev = ck.device
+    if fresh:
+        # The prefill writes from position 0: which positions survive is
+        # known from t alone.
+        keep = [j for j in range(t) if j < sinks or j >= t - win]
+        src = torch.tensor(keep, dtype=torch.long, device=dev)
+        slot = torch.tensor(
+            [j if j < sinks else sinks + (j - sinks) % win for j in keep],
+            dtype=torch.long, device=dev)
+        new_pos = src.to(torch.int32)
+        k, v = k.index_select(1, src), v.index_select(1, src)
+    else:
+        new_pos = idx.reshape(1)
+        slot = torch.where(new_pos < sinks, new_pos,
+                           sinks + torch.remainder(new_pos - sinks, win))
+        slot = slot.long()
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(1, slot, new_pos.expand(b, -1).contiguous())
 
 
 class LMHead(nn.Module):
     """The LM head: ``[vocab, d_model]`` weight (flax ``lm_head/kernel``
-    transposed), a compute-dtype matmul, logits cast to ``logits_dtype``."""
+    transposed), a compute-dtype matmul, logits cast to ``logits_dtype``
+    (with ``int8_compute``: `quant.int8_dot_general` straight to
+    ``logits_dtype``)."""
 
     def __init__(self, d_model: int, vocab_size: int,
                  compute_dtype: torch.dtype, logits_dtype: torch.dtype):
@@ -264,9 +379,12 @@ class LMHead(nn.Module):
         self.weight = nn.Parameter(torch.empty(vocab_size, d_model))
         self.compute_dtype = compute_dtype
         self.logits_dtype = logits_dtype
+        self.int8_compute = False  # set by TransformerLM._propagate
 
     def forward(self, x):
         cd = self.compute_dtype
+        if self.int8_compute:
+            return quant.int8_linear(self, x, cd, out_dtype=self.logits_dtype)
         return F.linear(x.to(cd), self.weight.to(cd)).to(self.logits_dtype)
 
     def fused_loss(self, x, labels, n_chunks: int):
@@ -280,11 +398,14 @@ class LMHead(nn.Module):
 # ROADMAP item that ports each.
 _NOT_PORTED = {
     "moe_every": "queue A item 12 (remaining models: MoE)",
-    "int8_compute": "queue A item 10 (decode: models/quant.py)",
-    "quantized_cache": "queue A item 10 (decode: int8 KV cache)",
-    "sliding_cache": "queue A item 10 (decode: ring-buffer KV cache)",
     "sharding": "queue A item 12 (sequence/tensor parallelism)",
 }
+
+# The knobs `TransformerLM.clone` may change: the rest fix the parameter
+# shapes the clone shares.
+_CLONE_KNOBS = ("window", "dropout", "compute_dtype", "logits_dtype",
+                "attention_sinks", "remat", "fused_head_chunks",
+                "int8_compute", "quantized_cache", "sliding_cache")
 
 
 class TransformerLM(nn.Module):
@@ -300,7 +421,9 @@ class TransformerLM(nn.Module):
                  window: int | None = None, n_layers: int = 4,
                  dropout: float = 0.1, compute_dtype=torch.float32,
                  logits_dtype=torch.float32, attention_sinks: int = 0,
-                 remat: bool = False, fused_head_chunks: int = 0, *,
+                 remat: bool = False, fused_head_chunks: int = 0,
+                 int8_compute: bool = False, quantized_cache: bool = False,
+                 sliding_cache: bool = False, *,
                  device="cuda", seed: int = 0, **not_ported):
         super().__init__()
         for name, value in not_ported.items():
@@ -320,6 +443,9 @@ class TransformerLM(nn.Module):
         self.attention_sinks = attention_sinks
         self.remat = bool(remat)
         self.fused_head_chunks = int(fused_head_chunks)
+        self.int8_compute = bool(int8_compute)
+        self.quantized_cache = bool(quantized_cache)
+        self.sliding_cache = bool(sliding_cache)
         self.embed = nn.Embedding(vocab_size, d_model)
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, dropout, self.compute_dtype,
@@ -331,8 +457,51 @@ class TransformerLM(nn.Module):
         self.lm_head = LMHead(
             d_model, vocab_size, self.compute_dtype, self.logits_dtype
         )
+        self._propagate()
         self.reset_parameters(seed)
         self.to(dev)
+
+    def _propagate(self) -> None:
+        """Hand the model-level knobs down to the submodules that read
+        them (at construction and after `clone`)."""
+        cd = self.compute_dtype
+        for blk in self.blocks:
+            blk.compute_dtype = blk.ln_attn.dtype = blk.ln_mlp.dtype = cd
+            blk.window, blk.sinks = self.window, self.attention_sinks
+            blk.dropout = self.dropout
+            blk.int8_compute = self.int8_compute
+        self.ln_f.dtype = self.lm_head.compute_dtype = cd
+        self.lm_head.logits_dtype = self.logits_dtype
+        self.lm_head.int8_compute = self.int8_compute
+
+    def clone(self, **overrides) -> "TransformerLM":
+        """A model of this configuration with ``overrides`` applied that
+        SHARES this model's parameter tensors (flax's ``Module.clone`` as
+        ``examples/lm_generate.py`` uses it: the same weights decoded with
+        another window, sinks, cache or int8 knob). Knobs that shape the
+        parameters cannot change."""
+        bad = sorted(set(overrides) - set(_CLONE_KNOBS))
+        if bad:
+            raise ValueError(
+                f"clone cannot change {bad}: the clone shares the "
+                f"parameters; it may change {list(_CLONE_KNOBS)}"
+            )
+        memo = {id(t): t for t in (*self.parameters(), *self.buffers())}
+        new = copy.deepcopy(self, memo)
+        for name, value in overrides.items():
+            if name in ("compute_dtype", "logits_dtype"):
+                value = _dtype(value)
+            setattr(new, name, value)
+        if new.attention_sinks < 0:
+            raise ValueError("attention_sinks must be >= 0")
+        if new.attention_sinks and new.window is None:
+            raise ValueError(
+                "attention_sinks is the global+local mask's global part — "
+                "it needs window set (full causal attention already sees "
+                "every sink)"
+            )
+        new._propagate()
+        return new
 
     @property
     def device(self) -> torch.device:
@@ -350,6 +519,9 @@ class TransformerLM(nn.Module):
             "attention_sinks": self.attention_sinks,
             "remat": self.remat,
             "fused_head_chunks": self.fused_head_chunks,
+            "int8_compute": self.int8_compute,
+            "quantized_cache": self.quantized_cache,
+            "sliding_cache": self.sliding_cache,
         }
 
     @torch.no_grad()
@@ -380,6 +552,13 @@ class TransformerLM(nn.Module):
         ``[B, T]`` packs documents: positions restart at each run and
         attention keeps equal-id pairs. ``dropout_seed`` seeds dropout
         under ``train=True`` (each layer derives its own masks from it)."""
+        if self.int8_compute and (train or labels is not None):
+            raise ValueError(
+                "int8_compute is inference-only: round() kills gradients "
+                "(quantization-aware training would need a straight-"
+                "through estimator) — clone the model with "
+                "int8_compute=False for training"
+            )
         b, t = tokens.shape
         if segment_ids is None:
             positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -407,16 +586,56 @@ class TransformerLM(nn.Module):
             return self.lm_head.fused_loss(x, labels, self.fused_head_chunks)
         return self.lm_head(x)
 
+    def new_cache(self, batch: int, max_decode_len: int, device=None) -> dict:
+        """An empty decode cache for ``batch`` rows and ``max_decode_len``
+        positions, in the layout of this model's cache knobs: per block
+        ``k``/``v`` ``[B, L, H_kv, D]`` (int8 with f32 ``k_scale``/``v_scale``
+        ``[B, L, H_kv]`` under ``quantized_cache``; L = ``attention_sinks +
+        min(window, max_decode_len)`` slots with ``pos`` ``[B, L]`` = −1
+        under ``sliding_cache``), and a scalar int32 ``index``."""
+        if self.sliding_cache and self.window is None:
+            raise ValueError(
+                "sliding_cache is the ring buffer for sliding-window "
+                "attention — set window too"
+            )
+        if self.quantized_cache and self.sliding_cache:
+            raise ValueError(
+                "quantized_cache does not compose with sliding_cache (the "
+                "ring path keeps full-width slots) — pick one"
+            )
+        dev = self.device if device is None else device
+        h_kv = self.n_kv_heads or self.n_heads
+        hd = self.d_model // self.n_heads
+        length = (self.attention_sinks + min(self.window, max_decode_len)
+                  if self.sliding_cache else max_decode_len)
+        kv_dtype = torch.int8 if self.quantized_cache else self.compute_dtype
+
+        def block():
+            leaves = {n: torch.zeros((batch, length, h_kv, hd), dtype=kv_dtype,
+                                     device=dev) for n in ("k", "v")}
+            if self.quantized_cache:
+                for n in ("k_scale", "v_scale"):
+                    leaves[n] = torch.zeros((batch, length, h_kv),
+                                            dtype=torch.float32, device=dev)
+            if self.sliding_cache:
+                leaves["pos"] = torch.full((batch, length), -1,
+                                           dtype=torch.int32, device=dev)
+            return leaves
+
+        cache = {f"Block_{i}": block() for i in range(self.n_layers)}
+        cache["index"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return cache
+
     def decode(self, tokens, cache=None, *, max_decode_len: int = 0):
         """Decode-mode forward: ``(logits [B, T, vocab], cache)``.
 
         ``cache=None`` is the prefill: a fresh cache of ``max_decode_len``
-        positions is created, the prompt's K/V written at [0, T) and
-        attention runs causally over the prompt (the flash path). With a
-        cache, the T tokens land at ``cache["index"]`` (scalar, or ``[B]``
-        per-row) and attend over the cache; the returned cache shares the
-        passed K/V tensors (written in place) with ``index`` advanced by T.
-        """
+        positions is created (`new_cache`), the prompt's K/V written from
+        position 0 and attention runs causally over the prompt (the flash
+        path). With a cache, the T tokens land at ``cache["index"]``
+        (scalar, or ``[B]`` per-row) and attend over the cache; the
+        returned cache shares the passed tensors (written in place) with
+        ``index`` advanced by T."""
         b, t = tokens.shape
         dev = tokens.device
         fresh = cache is None
@@ -425,18 +644,7 @@ class TransformerLM(nn.Module):
                 raise ValueError(
                     f"max_decode_len ({max_decode_len}) < input length ({t})"
                 )
-            h_kv, hd = self.n_kv_heads or self.n_heads, self.d_model // self.n_heads
-            cache = {
-                f"Block_{i}": {
-                    n: torch.zeros(
-                        (b, max_decode_len, h_kv, hd),
-                        dtype=self.compute_dtype, device=dev,
-                    )
-                    for n in ("k", "v")
-                }
-                for i in range(self.n_layers)
-            }
-            cache["index"] = torch.zeros((), dtype=torch.int32, device=dev)
+            cache = self.new_cache(b, max_decode_len, dev)
         idx = cache["index"]
         offs = torch.arange(t, dtype=torch.int32, device=dev)
         if idx.dim() == 0:

@@ -5,41 +5,47 @@ without JAX and flax cannot read. The port's bundle is its own format, in
 the same timestamped directory convention (``export_dir/<stamp>/``):
 
 * ``generate.json`` — the JAX bundle's keys (shapes, sampling knobs,
-  eos/pad ids, streaming chunk, ...) plus ``model``: the `TransformerLM`
-  hyperparameters (a JAX bundle carries these inside its program);
-* ``weights.pt`` — ``torch.save`` of the model's state_dict.
+  eos/pad ids, streaming chunk, the int8 and speculative knobs, ...) plus
+  ``model``: the `TransformerLM` hyperparameters (a JAX bundle carries
+  these inside its program);
+* ``weights.pt`` — ``torch.save`` of the model's state_dict;
+* ``tokenizer.json`` — optional `data.tokenizer.ByteBPETokenizer`, in the
+  JAX package's format.
 
 Ragged prompts are first-class: the bundle serves one ``[batch_size,
 prompt_len]`` shape, and prompts of any length ≤ ``prompt_len`` are
 right-padded with per-row true lengths (the decoding module's ragged
-contract), so clients never see the static shape. Token-id serving only:
-the tokenizer is not ported yet.
+contract), so clients never see the static shape. The knobs bake in as in
+the JAX bundle: ``int8_compute`` (int8 prefill matmuls), ``quantized_cache``
+(the int8 K/V cache), ``speculative_gamma`` (the speculative decoder with
+the prompt-lookup draft: greedy only, no eos, no int8_compute) and
+``streaming_chunk`` (the chunked generator pair), with the JAX bundle's
+validation and errors.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import time
 
 import numpy as np
 import torch
 
+from horovod_tpu_torch.data.tokenizer import ByteBPETokenizer
 from horovod_tpu_torch.models.decoding import (
     make_chunked_generate_fns,
     make_generate_fn,
     make_rng,
 )
+from horovod_tpu_torch.models.speculative import make_speculative_fn
 from horovod_tpu_torch.models.transformer import TransformerLM
 from horovod_tpu_torch.runtime import resolve_device
 
 GEN_META_FILE = "generate.json"
 GEN_WEIGHTS_FILE = "weights.pt"
-
-_TOKENIZER_TODO = (
-    "tokenizers are not ported yet — ROADMAP queue A item 10 "
-    "(data/tokenizer.py); serve token ids"
-)
+TOKENIZER_FILE = "tokenizer.json"
 
 
 def _atomic_write(path: str, data: bytes) -> None:
@@ -47,6 +53,60 @@ def _atomic_write(path: str, data: bytes) -> None:
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+
+
+def _generators(model, *, max_new_tokens: int, temperature: float,
+                top_k: int, top_p: float, eos_id, int8_compute: bool,
+                quantized_cache: bool, speculative_gamma: int,
+                streaming_chunk: int) -> dict:
+    """The bundle's generator functions over ``model``, validated as the
+    JAX bundle validates them: ``{"call": one-shot fn}`` or ``{"start",
+    "cont"}`` for a streaming bundle."""
+    if speculative_gamma:
+        if temperature != 0.0:
+            raise ValueError(
+                "speculative bundles are greedy-only (temperature == 0): "
+                "the exported program carries no rng input"
+            )
+        if eos_id is not None:
+            raise ValueError(
+                "speculative decoding does not support eos early-stop — "
+                "export without eos_id or without speculative_gamma"
+            )
+        if int8_compute:
+            raise ValueError(
+                "int8_compute is not wired into the speculative loop — "
+                "export with one or the other"
+            )
+    if streaming_chunk:
+        if speculative_gamma:
+            raise ValueError(
+                "streaming_chunk and speculative_gamma are exclusive — "
+                "one program shape per bundle"
+            )
+        if int8_compute:
+            raise ValueError(
+                "int8_compute is not wired into the chunked generator — "
+                "export with one or the other"
+            )
+        start, cont = make_chunked_generate_fns(
+            model, max_new_tokens=max_new_tokens, chunk=streaming_chunk,
+            temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
+            quantized_cache=quantized_cache,
+        )
+        return {"start": start, "cont": cont}
+    if speculative_gamma:
+        target = (model.clone(quantized_cache=True) if quantized_cache
+                  else model)
+        return {"call": make_speculative_fn(
+            target, max_new_tokens=max_new_tokens, gamma=speculative_gamma,
+            include_prompt=False,
+        )}
+    return {"call": make_generate_fn(
+        model, max_new_tokens=max_new_tokens, temperature=temperature,
+        top_k=top_k, top_p=top_p, eos_id=eos_id, include_prompt=False,
+        int8_compute=int8_compute, quantized_cache=quantized_cache,
+    )}
 
 
 def export_generate(
@@ -76,30 +136,17 @@ def export_generate(
             f"batch_size ({batch_size}) and prompt_len ({prompt_len}) "
             "must be >= 1"
         )
-    if tokenizer is not None:
-        raise NotImplementedError(_TOKENIZER_TODO)
-    if int8_compute or quantized_cache:
-        raise NotImplementedError(
-            "int8_compute / quantized_cache are not ported yet — ROADMAP "
-            "queue A item 10 (decode: models/quant.py)"
-        )
-    if speculative_gamma:
-        raise NotImplementedError(
-            "speculative bundles are not ported yet — ROADMAP queue A item "
-            "10 (decode: speculative.py)"
-        )
+    if isinstance(tokenizer, str) and not os.path.isfile(tokenizer):
+        raise FileNotFoundError(f"no tokenizer file {tokenizer}")
     # The generator builders validate the knobs (chunk | max_new_tokens,
-    # sampling ranges) — build them once for that.
-    if streaming_chunk:
-        make_chunked_generate_fns(
-            model, max_new_tokens=max_new_tokens, chunk=streaming_chunk,
-            temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
-        )
-    else:
-        make_generate_fn(
-            model, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, top_p=top_p, eos_id=eos_id,
-        )
+    # sampling ranges) — build them once for that. Every check runs before
+    # the output directory exists.
+    _generators(model, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_id=eos_id, int8_compute=int8_compute,
+                quantized_cache=quantized_cache,
+                speculative_gamma=speculative_gamma,
+                streaming_chunk=streaming_chunk)
     stamp = timestamp or time.strftime("%Y%m%d-%H%M%S")
     out_dir = os.path.join(export_dir, stamp)
     os.makedirs(out_dir, exist_ok=True)
@@ -121,11 +168,19 @@ def export_generate(
         "quantized_cache": quantized_cache,
         "speculative_gamma": speculative_gamma,
         "streaming_chunk": streaming_chunk,
-        "has_tokenizer": False,
+        "has_tokenizer": tokenizer is not None,
         "created": stamp,
         "model": model.config(),
     }
-    # Meta LAST: a crash mid-export never leaves a bundle that loads.
+    # Tokenizer BEFORE the meta that advertises it, and the meta LAST: a
+    # crash mid-export never leaves a bundle that loads, or one whose meta
+    # promises what is not there.
+    if tokenizer is not None:
+        tok_path = os.path.join(out_dir, TOKENIZER_FILE)
+        if isinstance(tokenizer, str):
+            shutil.copyfile(tokenizer, tok_path)
+        else:
+            tokenizer.save(tok_path)
     _atomic_write(
         os.path.join(out_dir, GEN_META_FILE),
         json.dumps(meta, indent=2).encode(),
@@ -138,12 +193,14 @@ def is_generate_bundle(bundle_dir: str) -> bool:
 
 
 class GenerateBundle:
-    """A reloaded generation bundle on ``device``: pad → run → trim.
+    """A reloaded generation bundle on ``device``: tokenize → pad → run →
+    trim → detokenize.
 
     ``generate_tokens(prompts, seed)`` takes token-id sequences (each of
     length 1..prompt_len); requests of any row count are split / padded to
-    the bundle's batch internally. Generations are trimmed at ``eos_id``
-    when the bundle was exported with one.
+    the bundle's batch internally. ``generate_text(texts, seed)`` adds the
+    tokenizer round trip (the bundle must carry one). Generations are
+    trimmed at ``eos_id`` when the bundle was exported with one.
     """
 
     def __init__(self, bundle_dir: str, device="cuda"):
@@ -158,9 +215,18 @@ class GenerateBundle:
                 f"{bundle_dir} carries no 'model' hyperparameters — a JAX "
                 "(StableHLO) bundle; export it with horovod_tpu_torch"
             )
-        if self.meta.get("has_tokenizer"):
-            raise NotImplementedError(_TOKENIZER_TODO)
         self.tokenizer = None
+        tok_path = os.path.join(bundle_dir, TOKENIZER_FILE)
+        if os.path.exists(tok_path):
+            self.tokenizer = ByteBPETokenizer.load(tok_path)
+        elif self.meta.get("has_tokenizer"):
+            # An incomplete bundle fails here, not as token-id-only
+            # serving behind a /healthz that advertises a tokenizer.
+            raise FileNotFoundError(
+                f"{bundle_dir} advertises a tokenizer (generate.json "
+                f"has_tokenizer=true) but {TOKENIZER_FILE} is missing — "
+                "the bundle is incomplete"
+            )
         self.model = TransformerLM(**self.meta["model"], device=self.device)
         state = torch.load(
             os.path.join(bundle_dir, GEN_WEIGHTS_FILE),
@@ -168,22 +234,20 @@ class GenerateBundle:
         )
         self.model.load_state_dict(state)
         self.model.eval()
-        knobs = dict(
+        fns = _generators(
+            self.model,
             max_new_tokens=int(self.meta["max_new_tokens"]),
             temperature=float(self.meta["temperature"]),
             top_k=int(self.meta["top_k"]),
             top_p=float(self.meta["top_p"]),
             eos_id=self.meta.get("eos_id"),
+            int8_compute=bool(self.meta.get("int8_compute")),
+            quantized_cache=bool(self.meta.get("quantized_cache")),
+            speculative_gamma=int(self.meta.get("speculative_gamma") or 0),
+            streaming_chunk=int(self.meta.get("streaming_chunk") or 0),
         )
-        if self.meta.get("streaming_chunk"):
-            self._start, self._cont = make_chunked_generate_fns(
-                self.model, chunk=int(self.meta["streaming_chunk"]), **knobs
-            )
-            self._call = None
-        else:
-            self._call = make_generate_fn(
-                self.model, include_prompt=False, **knobs
-            )
+        self._call = fns.get("call")
+        self._start, self._cont = fns.get("start"), fns.get("cont")
 
     @property
     def batch_size(self) -> int:
@@ -265,7 +329,9 @@ class GenerateBundle:
                     rows[i].extend(r)
             return [self._trim(r) for r in rows]
         padded, lengths = self._pad(prompts)
-        rng = make_rng(seed, self.device, salt=chunk)
+        # Speculative bundles are greedy: no generator (the seed is unused).
+        rng = (None if self.meta.get("speculative_gamma")
+               else make_rng(seed, self.device, salt=chunk))
         gen = self._call(padded, rng, lengths)[: len(prompts)]
         return [self._trim(row) for row in gen.tolist()]
 
@@ -287,6 +353,28 @@ class GenerateBundle:
         if eos is None:
             return row
         return row[: row.index(eos)] if eos in row else row
+
+    def encode_texts(self, texts) -> list:
+        """Texts → token-id prompts through the bundle's tokenizer, each
+        within ``prompt_len``."""
+        if self.tokenizer is None:
+            raise ValueError(
+                "this bundle has no tokenizer.json — export with "
+                "tokenizer=... or POST token ids to /v1/generate instead"
+            )
+        prompts = [self.tokenizer.encode(t) for t in texts]
+        for i, p in enumerate(prompts):
+            if len(p) > self.prompt_len:
+                raise ValueError(
+                    f"text {i} tokenizes to {len(p)} tokens; this bundle "
+                    f"serves prompts of up to {self.prompt_len} tokens"
+                )
+        return prompts
+
+    def generate_text(self, texts, seed: int = 0) -> list:
+        """Texts → generated texts (tokenize, generate, detokenize)."""
+        gen = self.generate_tokens(self.encode_texts(texts), seed=seed)
+        return [self.tokenizer.decode(g) for g in gen]
 
 
 def load_generate(bundle_dir: str, device="cuda") -> GenerateBundle:

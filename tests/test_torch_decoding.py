@@ -159,5 +159,86 @@ def test_bad_generator_arguments_rejected():
         tdec.make_chunked_generate_fns(tm, max_new_tokens=10, chunk=4)
     with pytest.raises(ValueError):
         tdec.filter_logits(torch.zeros(2, 4), 0.0, 0, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.make_generate_fn(tm, max_new_tokens=4, quantized=True)
+    # quantized=True (ported since) decodes from an int8 tree it is given.
+    fn = tdec.make_generate_fn(tm, max_new_tokens=4, quantized=True)
+    with pytest.raises(ValueError, match="quantize_params"):
+        fn(np.zeros((1, 3), np.int32))
+
+
+@pytest.mark.parametrize("knobs", [{"quantized": True},
+                                   {"int8_compute": True},
+                                   {"quantized_cache": True}],
+                         ids=["quantized", "int8_compute", "quantized_cache"])
+def test_int8_knobs_match_jax(knobs):
+    """The decode knobs of `make_generate_fn` against JAX's on the same
+    weights (the int8 tree converted from the JAX one), ragged, greedy:
+    tokens equal (JAX op by op for ``quantized``: under jit its CPU backend
+    skips the bf16 rounding of the dequantized weights)."""
+    from horovod_tpu.models import quant as jquant
+    from horovod_tpu_torch.models.convert import qparams_from_flax
+
+    jm, params, tm = _pair()
+    prompt, lengths = _ragged(3)
+    jparams, tparams = params, None
+    if knobs.get("quantized"):
+        jparams = jquant.quantize_params(params, min_size=16)
+        tparams = qparams_from_flax(jax.device_get(jparams))
+    jfn = jdec.make_generate_fn(jm, max_new_tokens=8, include_prompt=False,
+                                **knobs)
+    with jax.disable_jit(bool(knobs.get("quantized"))):
+        jt = np.asarray(jfn(jparams, jnp.asarray(prompt),
+                            jax.random.PRNGKey(0), jnp.asarray(lengths)))
+    tfn = tdec.make_generate_fn(tm, max_new_tokens=8, include_prompt=False,
+                                **knobs)
+    tt = tfn(prompt, None, lengths, params=tparams).numpy()
+    np.testing.assert_array_equal(tt, jt)
+
+
+def test_chunked_int8_cache_equals_one_shot():
+    _, _, tm = _pair()
+    prompt, lengths = _ragged(4)
+    one = tdec.make_generate_fn(tm, max_new_tokens=8, include_prompt=False,
+                                quantized_cache=True)(prompt, None, lengths)
+    start, cont = tdec.make_chunked_generate_fns(
+        tm, max_new_tokens=8, chunk=4, quantized_cache=True)
+    a, state = start(prompt, tdec.make_rng(0, "cpu"), lengths)
+    assert state[0]["Block_0"]["k"].dtype == torch.int8
+    b, _ = cont(state)
+    np.testing.assert_array_equal(torch.cat([a, b], 1).numpy(), one.numpy())
+
+
+def test_steps_run_eagerly_on_the_cpu():
+    """On the CPU the step function runs eagerly, counted, no graph."""
+    _, _, tm = _pair()
+    fn = tdec.make_generate_fn(tm, max_new_tokens=5)
+    fn(np.ones((2, 3), np.int32))
+    assert not fn.steps.graphs
+    assert fn.steps.counts() == {"eager_steps": 4, "captures": 0,
+                                 "replays": 0}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the decode step is captured on "
+                    "CUDA only")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_p": 0.9}],
+                         ids=["greedy", "sampled"])
+def test_graph_replays_equal_eager_steps(cuda, sampling):
+    """On the card: the captured step replayed equals the same steps run
+    eagerly, bit for bit, on the same generator state."""
+    tm = ttr.TransformerLM(vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
+                           n_layers=LAYERS, dropout=0.0, device=cuda)
+    prompt, lengths = _ragged(5)
+    fn = tdec.make_generate_fn(tm, max_new_tokens=12, **sampling)
+    fn.steps.graphs = False
+    eager = fn(prompt, tdec.make_rng(3, cuda), lengths)
+    fn.steps.graphs = True
+    first = fn(prompt, tdec.make_rng(3, cuda), lengths)
+    again = fn(prompt, tdec.make_rng(3, cuda), lengths)
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+    assert fn.steps.captures == 1 and fn.steps.replays == 10 + 11

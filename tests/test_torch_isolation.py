@@ -217,3 +217,42 @@ def test_cifar_slice_modules_are_scanned():
         assert m in mods
         path = os.path.join(REPO, *m.split(".")) + ".py"
         assert path in _port_files()
+
+
+DECODE_MODULES = ("data.tokenizer", "models.quant", "models.speculative",
+                  "models.beam", "models.decoding", "examples.lm_generate")
+
+
+@pytest.mark.parametrize("name", DECODE_MODULES)
+def test_decode_slice_modules_are_scanned(name):
+    """The decode slice's modules are in both scans (imported by the fresh
+    interpreter, parsed for forbidden imports)."""
+    assert f"horovod_tpu_torch.{name}" in _modules()
+    path = os.path.join(PKG, *name.split(".")) + ".py"
+    assert path in _port_files()
+
+
+def test_decode_slice_entry_points_refuse_cpu_fallback(no_cuda, tmp_path,
+                                                       monkeypatch):
+    """The twin defaults to the card and raises without CUDA; a bundle with
+    a tokenizer and the int8 knobs loads onto the card by default too."""
+    from horovod_tpu_torch.data.tokenizer import ByteBPETokenizer
+    from horovod_tpu_torch.examples import lm_generate
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.serving import export_generate, load_generate
+
+    monkeypatch.delenv("HVT_DEVICE", raising=False)
+    for name in ("HVT_COORDINATOR_ADDRESS", "HVT_NUM_PROCESSES",
+                 "HVT_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_generate.main()
+    m = TransformerLM(vocab_size=300, d_model=8, n_heads=2, n_layers=1,
+                      device="cpu")
+    tok = ByteBPETokenizer.train(["a b a b c"], 260)
+    d = export_generate(str(tmp_path), m, batch_size=1, prompt_len=4,
+                        max_new_tokens=2, tokenizer=tok, quantized_cache=True,
+                        speculative_gamma=2, timestamp="t")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_generate(d)
+    assert load_generate(d, device="cpu").generate_text(["a b"])

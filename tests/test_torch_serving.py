@@ -111,14 +111,23 @@ def test_prompt_lengths_validated(bundle, bad):
 
 
 def test_export_rejects_unported_knobs(tmp_path):
+    """Refused exports write nothing. The tokenizer and speculative knobs
+    are ported since: what is refused now is what the JAX bundle refuses
+    (a missing tokenizer file, a sampled or eos speculative bundle,
+    int8_compute beside speculative or streaming, speculative + streaming,
+    a chunk that does not divide max_new_tokens)."""
     m = _model()
     kw = dict(batch_size=2, prompt_len=4, max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         export_generate(str(tmp_path), m, tokenizer="tok.json", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_generate(str(tmp_path), m, speculative_gamma=2, **kw)
-    with pytest.raises(ValueError):
-        export_generate(str(tmp_path), m, streaming_chunk=3, **kw)
+    for bad in (dict(speculative_gamma=2, temperature=0.5),
+                dict(speculative_gamma=2, eos_id=1),
+                dict(speculative_gamma=2, int8_compute=True),
+                dict(speculative_gamma=2, streaming_chunk=2),
+                dict(streaming_chunk=2, int8_compute=True),
+                dict(streaming_chunk=3)):
+        with pytest.raises(ValueError):
+            export_generate(str(tmp_path), m, **bad, **kw)
     assert not os.listdir(tmp_path)  # nothing written for a refused export
 
 
