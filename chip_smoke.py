@@ -27,11 +27,11 @@ Phases (any failed check exits non-zero before the result line):
 4. serving main path — a `TransformerLM` at the bench LM's full width
    (vocab 8192, d_model 512, 8 heads, 8 layers, bf16 compute, seeded
    weights) is exported as a streaming bundle (batch 8, prompt_len 128, 64
-   new tokens, chunk 16, greedy) and served by ``make_server`` →
-   continuous-batching engine; 12 concurrent ragged requests (some
-   streaming) must each get 64 tokens equal to the bundle run on that
-   prompt alone, and the flash launch count must equal n_layers × prefill
-   dispatches, every one on the tensor-core route;
+   new tokens, chunk 16, greedy) and served by ``make_server(...,
+   continuous=True)`` → continuous-batching engine; 12 concurrent ragged
+   requests (some streaming) must each get 64 tokens equal to the bundle
+   run on that prompt alone, and the flash launch count must equal
+   n_layers × prefill dispatches, every one on the tensor-core route;
 5. serving against the plain path — one f32 prefill at 8 × 128 on the card
    (kernel) and on the CPU (plain version), logits compared;
 6. training main path — ``Trainer.fit`` of the same LM with the fused-CE
@@ -142,14 +142,46 @@ Phases (any failed check exits non-zero before the result line):
       bytes, and every step's logits against the full cache under the same
       mask (f32, ``RING_LOGITS_ATOL``);
    f. a bundle with a byte-BPE tokenizer trained to 8192 ids and the int8
-      cache served by ``make_server``: text in, text and tokens out, equal
+      cache served by ``make_server`` (continuous): text in, text and
+      tokens out, equal
       to the bundle run alone; its speculative variant equals the plain
       int8-cache bundle;
    g. the twin ``horovod_tpu_torch.examples.lm_generate`` at its defaults
       (``STREAM=1``), which asserts speculative == greedy itself;
    and B1 at the ring's windowed prefill with sinks against its plain
    version, SDPA with the same boolean mask and the bound;
-14. the ``kernels`` JSON line, then the last line
+14. the serving tier at the bench LM's width (phase 4's shape, bf16,
+   seeded weights), ``make_server``'s default coalescing mode unless
+   named:
+   a. 24 concurrent single-row ragged requests to a greedy one-shot
+      bundle: each equal to the bundle run on its prompt alone, bit for
+      bit; device calls well under 24; B1 launched n_layers × prefill
+      dispatches, all on tc;
+   b. a speculative bundle (γ 8) over HTTP: the 24 prompts in one request
+      equal greedy's tokens;
+   c. a predict bundle (a seeded f32 ``MnistCNN`` at batch 16): 64
+      concurrent single-row clients, coalesced and serialized, each prob
+      equal to the program on its row padded to the batch alone, bit for
+      bit; requests/s and device calls of both;
+   d. ``bench.py``'s A/B at equal open-loop offered load: 48 streaming
+      requests at twice the coalescing path's solo rate, coalescing and
+      continuous: TTFT and TPOT p50/p95, device calls (information);
+   e. (a)'s ``/metrics``, parsed with ``obs.prom.parse_text``: the 200s
+      and the TTFT count equal the requests sent, device calls equal
+      ``app.stats``, no 500s;
+   f. ``/admin/reload`` from the seed-0 bundle to the seed-1 bundle under
+      four clients' traffic, coalescing and continuous: every reply 200
+      and one bundle's solo tokens, every reply sent after the swap the
+      new bundle's; the swap's seconds;
+   g. the router (``serving.router``, in this process) over two launched
+      replica processes (``python -m horovod_tpu_torch.launch.serve``) on
+      the one card: requests spread, tokens equal solo, a drained replica
+      gets none, ``code="500"`` reads 0;
+   h. SIGTERM to each replica with requests in flight: every one ends 200
+      with its solo tokens and the process exits 0;
+   then a ``serve_tier`` line (each replica's log is under
+   ``build/chip_smoke/``);
+15. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
@@ -170,14 +202,17 @@ prints no result. Everything it writes goes under ``build/chip_smoke/``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -828,7 +863,7 @@ def main_path(torch):
         streaming_chunk=CHUNK, timestamp="smoke",
     )
     del model
-    server = make_server(bundle_dir, port=0, device=DEVICE)
+    server = make_server(bundle_dir, port=0, device=DEVICE, continuous=True)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -2682,7 +2717,7 @@ def decode_bundle(torch, model):
     spec_dir = export_generate(root, model, speculative_gamma=SPEC_GAMMA,
                                timestamp="speculative", **kw)
     texts = [" ".join(_corpus(200, seed=s)[0].split()[:12]) for s in range(4)]
-    server = make_server(served, port=0, device=DEVICE)
+    server = make_server(served, port=0, device=DEVICE, continuous=True)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/v1/generate"
@@ -2820,6 +2855,516 @@ def window_sinks_timing(torch):
     return res
 
 
+# -- phase 14 ---------------------------------------------------------------
+
+# The serving tier at the bench LM's width: phase 4's batch 8 × prompt 128,
+# 64 new tokens (chunk 16 where streaming), bf16, seeded random weights.
+TIER_REQUESTS = 24  # (a): concurrent single-row ragged requests
+# (c): a seeded f32 MnistCNN exported at batch 16. The tf1 twin exports at
+# the reference's input_shape (1, 28, 28, 1): a batch of one, where rows
+# cannot coalesce.
+PREDICT_BATCH, PREDICT_CLIENTS = 16, 64
+AB_REQUESTS = 48  # (d): streaming requests a mode, bench.py's count
+RELOAD_CLIENTS, RELOAD_PROMPTS = 4, 8  # (f)
+ROUTER_REQUESTS, DRAIN_REQUESTS = 16, 16  # (g), (h)
+REPLICA_START_S = 180
+
+
+@contextlib.contextmanager
+def _served(bundle_dir, **kw):
+    """``make_server`` on the card, serving from a thread; on exit the
+    server and its device worker (or scheduler) are stopped, so no other
+    thread touches the card afterwards."""
+    from horovod_tpu_torch.launch.serve import make_server
+
+    server = make_server(bundle_dir, port=0, device=DEVICE, **kw)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server, f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.app.close()
+        thread.join(timeout=30)
+
+
+def _request(url, payload, timeout=300):
+    """POST JSON; ``(code, body)`` for any status, the body parsed (NDJSON
+    as a list of lines)."""
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, raw = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read().decode()
+    lines = [json.loads(ln) for ln in raw.splitlines() if ln.strip()]
+    return code, lines[0] if len(lines) == 1 else lines
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _scrape(url):
+    from horovod_tpu_torch.obs import prom
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as resp:
+        return prom.parse_text(resp.read().decode())
+
+
+def _tier_prompts(n, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = [1, PROMPT_LEN] + list(rng.randint(1, PROMPT_LEN + 1, n - 2))
+    return [rng.randint(0, MODEL["vocab_size"], k).tolist()
+            for k in lengths[:n]]
+
+
+def _in_parallel(fn, args):
+    with concurrent.futures.ThreadPoolExecutor(len(args)) as pool:
+        return list(pool.map(fn, args))
+
+
+def _pct(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))]
+
+
+def _solo(torch, bundle_dir, prompts):
+    """Each prompt's tokens from the bundle run on it alone, on this
+    thread (no server runs meanwhile)."""
+    from horovod_tpu_torch.serving import load_generate
+
+    bundle = load_generate(bundle_dir, device=DEVICE)
+    out = [bundle.generate_batch([p])[0] for p in prompts]
+    bundle.release_graphs()
+    return out
+
+
+def tier_coalesced(torch, dirs, prompts):
+    """14a + 14e: 24 concurrent single-row ragged requests to the default
+    (coalescing) server over a greedy one-shot bundle; then its /metrics."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    with _served(dirs["greedy"]) as (server, url):
+        app = server.app
+        check(_request(f"{url}/v1/generate", {"prompt": [[1, 2, 3]]})[0]
+              == 200, "14a: warm-up request failed")
+        calls0 = app.stats["device_calls"]
+        fa.launches = fa.launches_tc = 0
+        t0 = time.perf_counter()
+        replies = _in_parallel(
+            lambda p: _request(f"{url}/v1/generate", {"prompt": [p]}),
+            prompts)
+        wall = time.perf_counter() - t0
+        launches, launches_tc = fa.launches, fa.launches_tc
+        calls = app.stats["device_calls"] - calls0
+        stats = dict(app.stats)
+        metrics = _scrape(url)
+    solo = _solo(torch, dirs["greedy"], prompts)
+    for i, (code, body) in enumerate(replies):
+        check(code == 200, f"14a: request {i}: HTTP {code} {body}")
+        check(body["tokens"] == [solo[i]],
+              f"14a: request {i} (len {len(prompts[i])}) differs from the "
+              "bundle run on it alone")
+    check(calls <= len(prompts) // 2,
+          f"14a: {calls} device calls for {len(prompts)} requests")
+    check(launches == MODEL["n_layers"] * calls and launches > 0,
+          f"14a: B1 launches {launches} != n_layers × prefill dispatches "
+          f"({MODEL['n_layers']} × {calls})")
+    check(launches_tc == launches,
+          f"14a: {launches_tc} of {launches} B1 launches on tc")
+    sent = len(prompts) + 1  # and the warm-up
+    ok = 'hvt_serve_requests_total{route="/v1/generate",code="200"}'
+    check(metrics.get(ok) == sent, f"14e: {ok} = {metrics.get(ok)}, "
+          f"sent {sent}")
+    check(metrics.get("hvt_serve_ttft_seconds_count") == sent,
+          f"14e: TTFT count {metrics.get('hvt_serve_ttft_seconds_count')}")
+    check(metrics.get("hvt_serve_device_calls_total")
+          == stats["device_calls"],
+          f"14e: device calls {metrics.get('hvt_serve_device_calls_total')}"
+          f" vs app.stats {stats['device_calls']}")
+    check(not any('code="500"' in k and v for k, v in metrics.items()),
+          "14e: 500s in /metrics")
+    return solo, {
+        "requests": len(prompts), "device_calls": calls, "wall_s": wall,
+        "requests_per_s": len(prompts) / wall,
+        "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+        "b1_launches": launches, "b1_launches_tc": launches_tc,
+        "metrics_requests_200": metrics[ok],
+        "metrics_ttft_count": metrics["hvt_serve_ttft_seconds_count"],
+        "metrics_ttft_sum_s": metrics["hvt_serve_ttft_seconds_sum"],
+    }
+
+
+def tier_speculative(torch, dirs, prompts, solo):
+    """14b: a speculative bundle (γ 8, prompt lookup) over HTTP: the 24
+    prompts in one request (three batches) equal greedy's tokens."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    with _served(dirs["speculative"]) as (server, url):
+        fa.launches = 0
+        t0 = time.perf_counter()
+        code, body = _request(f"{url}/v1/generate", {"prompt": prompts})
+        wall = time.perf_counter() - t0
+        launches = fa.launches
+        calls = server.app.stats["device_calls"]
+    check(code == 200, f"14b: HTTP {code} {body}")
+    check(body["tokens"] == solo, "14b: the speculative bundle's tokens "
+          "differ from the greedy bundle's")
+    return {"rows": len(prompts), "device_calls": calls, "wall_s": wall,
+            "b1_launches": launches}
+
+
+def tier_predict(torch, dirs):
+    """14c: 64 concurrent single-row clients on a predict bundle, coalesced
+    and serialized; each prob equals the program on that row padded to the
+    batch alone, bit for bit."""
+    import numpy as np
+
+    from horovod_tpu_torch import checkpoint
+
+    x = np.random.RandomState(4).rand(PREDICT_CLIENTS, 28, 28, 1).astype(
+        np.float32)
+    res = {}
+    for mode, coalesce in (("coalesced", True), ("serialized", False)):
+        with _served(dirs["predict"], coalesce=coalesce) as (server, url):
+            check(_request(f"{url}/v1/predict",
+                           {"input": x[:1].tolist()})[0] == 200,
+                  "14c: warm-up request failed")
+            calls0 = server.app.stats["device_calls"]
+            t0 = time.perf_counter()
+            replies = _in_parallel(
+                lambda i: _request(f"{url}/v1/predict",
+                                   {"input": x[i:i + 1].tolist()}),
+                range(PREDICT_CLIENTS))
+            wall = time.perf_counter() - t0
+            calls = server.app.stats["device_calls"] - calls0
+        for i, (code, body) in enumerate(replies):
+            check(code == 200, f"14c {mode}: client {i}: HTTP {code} {body}")
+        res[mode] = {"requests_per_s": PREDICT_CLIENTS / wall,
+                     "wall_s": wall, "device_calls": calls,
+                     "device_calls_per_request": calls / PREDICT_CLIENTS,
+                     "probs": np.asarray([b["prob"][0] for _, b in replies],
+                                         np.float32)}
+    fn = checkpoint.load_serving(dirs["predict"], device=DEVICE)
+    alone = np.stack([fn(np.repeat(x[i:i + 1], PREDICT_BATCH, 0))[0]
+                      for i in range(PREDICT_CLIENTS)])
+    for mode in res:
+        probs = res[mode].pop("probs")
+        err = float(np.abs(probs - alone).max())
+        res[mode]["max_abs_err_vs_alone"] = err
+        check(err == 0.0, f"14c {mode}: prob differs from the row padded "
+              f"alone by {err}")
+    check(res["serialized"]["device_calls"] == PREDICT_CLIENTS,
+          f"14c: serialized made {res['serialized']['device_calls']} calls")
+    check(res["coalesced"]["device_calls"] < PREDICT_CLIENTS,
+          f"14c: coalesced made {res['coalesced']['device_calls']} calls")
+    res["batch"] = PREDICT_BATCH
+    return res
+
+
+def _one_stream(url, prompt):
+    """One streaming request: (TTFT s, TPOT s, tokens) on the client's
+    clock — TPOT is the decode tail past the first chunk, per token."""
+    req = urllib.request.Request(
+        f"{url}/v1/generate",
+        data=json.dumps({"prompt": [prompt], "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t_start = time.perf_counter()
+    ttft, lines = None, []
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        check(resp.status == 200, f"14d: HTTP {resp.status}")
+        for raw in resp:
+            if ttft is None:
+                ttft = time.perf_counter() - t_start
+            lines.append(json.loads(raw))
+    total = time.perf_counter() - t_start
+    check(lines and lines[-1].get("done"), f"14d: stream died: {lines[-1:]}")
+    tokens = lines[-1]["tokens"][0]
+    return ttft, (total - ttft) / max(1, len(tokens) - CHUNK), tokens
+
+
+def tier_ab(torch, dirs):
+    """14d: bench.py's serving A/B at the bench LM's width — 48 streaming
+    requests on one open-loop schedule at twice the coalescing path's solo
+    rate, through both modes. Information, not a gate."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    prompts = _tier_prompts(AB_REQUESTS, 2)
+    with _served(dirs["stream"]) as (_, url):
+        _one_stream(url, prompts[0])
+        t0 = time.perf_counter()
+        for p in prompts[:4]:
+            _one_stream(url, p)
+        solo_s = (time.perf_counter() - t0) / 4
+    gap = solo_s / 2.0
+    res = {"requests": AB_REQUESTS, "solo_request_s": solo_s,
+           "offered_requests_per_s": 1.0 / gap}
+    for mode, continuous in (("coalescing", False), ("continuous", True)):
+        with _served(dirs["stream"], continuous=continuous) as (server, url):
+            for p in prompts[:2]:
+                _one_stream(url, p)
+            app = server.app
+
+            def calls():
+                return (app.engine.stats()["device_calls_total"]
+                        if continuous else app.stats["device_calls"])
+
+            calls0 = calls()
+            fa.launches = 0
+            results = [None] * AB_REQUESTS
+            t_begin = time.perf_counter() + 0.05
+
+            def client(i):
+                # Open loop: fire at the scheduled time, late or not.
+                delay = t_begin + i * gap - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                results[i] = _one_stream(url, prompts[i])
+
+            t0 = time.perf_counter()
+            _in_parallel(client, range(AB_REQUESTS))
+            elapsed = time.perf_counter() - t0
+            n_calls, launches = calls() - calls0, fa.launches
+        ttft = [r[0] for r in results]
+        tpot = [r[1] for r in results]
+        check(all(len(r[2]) == NEW_TOKENS for r in results),
+              f"14d {mode}: a stream ended short")
+        res[mode] = {
+            "ttft_p50_s": _pct(ttft, 0.5), "ttft_p95_s": _pct(ttft, 0.95),
+            "tpot_p50_s": _pct(tpot, 0.5), "tpot_p95_s": _pct(tpot, 0.95),
+            "device_calls": n_calls, "elapsed_s": elapsed,
+            "tokens_per_s": AB_REQUESTS * NEW_TOKENS / elapsed,
+            "b1_launches": launches,
+        }
+        res[f"{mode}_tokens"] = [r[2] for r in results]
+    same = sum(a == b for a, b in zip(res.pop("coalescing_tokens"),
+                                      res.pop("continuous_tokens")))
+    res["same_tokens_both_modes"] = f"{same}/{AB_REQUESTS}"
+    return res
+
+
+def tier_reload(torch, dirs):
+    """14f: /admin/reload from the seed-0 bundle to the seed-1 bundle under
+    four clients' traffic, in both modes: every reply 200 and one bundle's
+    solo tokens for its prompt, every reply sent after the swap returned
+    the new bundle's."""
+    prompts = _tier_prompts(RELOAD_PROMPTS, 3)
+    res = {}
+    for mode, a, b in (("coalescing", "greedy", "greedy_b"),
+                       ("continuous", "stream", "stream_b")):
+        solo_a = _solo(torch, dirs[a], prompts)
+        solo_b = _solo(torch, dirs[b], prompts)
+        check(solo_a != solo_b, f"14f: the {a} and {b} bundles agree")
+        replies, stop, swapped = [], threading.Event(), threading.Event()
+        with _served(dirs[a], continuous=mode == "continuous",
+                     allow_reload=True) as (server, url):
+
+            def client(k):
+                i = k
+                while not stop.is_set():
+                    i = (i + 1) % len(prompts)
+                    after = swapped.is_set()
+                    code, body = _request(f"{url}/v1/generate",
+                                          {"prompt": [prompts[i]]})
+                    replies.append((after, i, code, body))
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(RELOAD_CLIENTS)]
+            for t in threads:
+                t.start()
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            code, body = _request(f"{url}/admin/reload",
+                                  {"bundle_dir": dirs[b]})
+            swap_s = time.perf_counter() - t0
+            swapped.set()
+            time.sleep(1.0)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+            check(not any(t.is_alive() for t in threads),
+                  "14f: a client is stuck")
+        check(code == 200, f"14f {mode}: reload HTTP {code} {body}")
+        before = sum(1 for r in replies if not r[0])
+        for after, i, rcode, rbody in replies:
+            check(rcode == 200, f"14f {mode}: HTTP {rcode} {rbody}")
+            got = rbody["tokens"][0]
+            check(got == solo_b[i] if after else got in (solo_a[i],
+                                                         solo_b[i]),
+                  f"14f {mode}: a reply {'after' if after else 'around'} "
+                  "the swap is neither bundle's solo tokens")
+        check(before and len(replies) > before,
+              f"14f {mode}: no traffic on one side of the swap")
+        res[mode] = {"swap_s": swap_s, "replies": len(replies),
+                     "replies_sent_after_swap": len(replies) - before}
+    return res
+
+
+def _launch_replica(bundle_dir, name):
+    """``python -m horovod_tpu_torch.launch.serve`` on the card, started;
+    `_replica_url` waits for its address."""
+    with open(os.path.join(WORK, f"{name}.log"), "w") as log_f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.launch.serve",
+             bundle_dir, "--port", "0", "--host", "127.0.0.1"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=log_f, text=True)
+
+
+def _replica_url(proc, name):
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        line = pool.submit(proc.stdout.readline).result(
+            timeout=REPLICA_START_S)
+    check("serving" in line, f"14g: replica {name} did not start: {line!r}")
+    return line.split(" on ")[1].split()[0]
+
+
+def tier_router(torch, dirs, prompts, solo):
+    """14g + 14h: the router (this process, no device work) in front of two
+    launched replica processes sharing the card; then SIGTERM to each
+    replica mid-traffic."""
+    from horovod_tpu_torch.serving.router import ReplicaSet, make_router
+
+    procs, res = [], {}
+    try:
+        # Both start together (each takes seconds to reach the card).
+        for k in range(2):
+            procs.append(_launch_replica(dirs["greedy"], f"replica{k}"))
+        urls = [_replica_url(p, f"replica{k}") for k, p in enumerate(procs)]
+        for u in urls:  # warm-up: the first request captures the graphs
+            check(_request(f"{u}/v1/generate", {"prompt": [[1, 2]]})[0]
+                  == 200, "14g: replica warm-up failed")
+        rs = ReplicaSet()
+        for k, u in enumerate(urls):
+            rs.add(f"r{k}", u)
+        router = make_router(port=0, replicas=rs)
+        thread = threading.Thread(target=router.serve_forever, daemon=True)
+        thread.start()
+        rurl = f"http://127.0.0.1:{router.server_address[1]}"
+
+        def rows():
+            return [_get_json(f"{u}/healthz")["stats"]["rows"] for u in urls]
+
+        try:
+            rows0 = rows()
+            idx = list(range(ROUTER_REQUESTS))
+            replies = _in_parallel(
+                lambda i: _request(f"{rurl}/v1/generate",
+                                   {"prompt": [prompts[i]]}), idx)
+            rows1 = rows()
+            rs.drain("r0")
+            drained = [_request(f"{rurl}/v1/generate",
+                                {"prompt": [prompts[i]]}) for i in range(4)]
+            rows2 = rows()
+            metrics = _scrape(rurl)
+        finally:
+            router.shutdown()
+            router.server_close()
+            thread.join(timeout=30)
+        for i, (code, body) in zip(idx + list(range(4)), replies + drained):
+            check(code == 200, f"14g: HTTP {code} {body}")
+            check(body["tokens"] == [solo[i]],
+                  f"14g: request {i} through the router differs from solo")
+        spread = [b - a for a, b in zip(rows0, rows1)]
+        check(all(s > 0 for s in spread), f"14g: no spread: {spread}")
+        check(rows2[0] == rows1[0] and rows2[1] == rows1[1] + 4,
+              f"14g: the drained replica got traffic: {rows1} -> {rows2}")
+        bad = 'hvt_serve_requests_total{route="/v1/generate",code="500"}'
+        check(metrics.get(bad) == 0, f"14g: {bad} = {metrics.get(bad)}")
+        res["router"] = {"requests": ROUTER_REQUESTS, "spread": spread,
+                         "drained_rows_unchanged": True,
+                         "code_500": metrics[bad]}
+        # 14h: SIGTERM each replica with requests in flight.
+        for k, (proc, u) in enumerate(zip(procs, urls)):
+            pool = concurrent.futures.ThreadPoolExecutor(DRAIN_REQUESTS)
+            futs = [pool.submit(_request, f"{u}/v1/generate",
+                                {"prompt": [prompts[i]]})
+                    for i in range(DRAIN_REQUESTS)]
+            deadline = time.monotonic() + 60
+            seen = 0
+            while seen < 4 and time.monotonic() < deadline:
+                seen = _get_json(f"{u}/healthz")["inflight"]
+            check(seen >= 4, f"14h: replica {k}: inflight {seen}")
+            proc.send_signal(signal.SIGTERM)
+            t0 = time.perf_counter()
+            done = [f.result(timeout=120) for f in futs]
+            pool.shutdown()
+            code = proc.wait(timeout=120)
+            res[f"sigterm_replica{k}"] = {
+                "inflight_at_signal": seen, "exit_code": code,
+                "drain_to_exit_s": time.perf_counter() - t0}
+            check(code == 0, f"14h: replica {k} exited {code}")
+            for i, (rcode, body) in enumerate(done):
+                check(rcode == 200 and body["tokens"] == [solo[i]],
+                      f"14h: replica {k}: request {i} HTTP {rcode}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+    return res
+
+
+def serve_tier(torch, card):
+    """Phase 14: the serving tier at the bench LM's width."""
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.models.cnn import MnistCNN
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.serving import export_generate
+
+    t_start = time.perf_counter()
+    root = os.path.join(WORK, "serve_tier")
+    kw = dict(batch_size=BATCH, prompt_len=PROMPT_LEN,
+              max_new_tokens=NEW_TOKENS)
+    dirs = {}
+    for seed, suffix in ((0, ""), (1, "_b")):
+        model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
+                              device=DEVICE, seed=seed)
+        dirs["greedy" + suffix] = export_generate(
+            root, model, timestamp="greedy" + suffix, **kw)
+        dirs["stream" + suffix] = export_generate(
+            root, model, streaming_chunk=CHUNK, timestamp="stream" + suffix,
+            **kw)
+        if seed == 0:
+            dirs["speculative"] = export_generate(
+                root, model, speculative_gamma=SPEC_GAMMA,
+                timestamp="speculative", **kw)
+        del model
+    dirs["predict"] = checkpoint.export_serving(
+        os.path.join(root, "predict"), MnistCNN(device=DEVICE, seed=0),
+        input_shape=(PREDICT_BATCH, 28, 28, 1), timestamp="predict")
+    prompts = _tier_prompts(TIER_REQUESTS, 1)
+    res = {"card": card}
+    steps = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    solo, res["coalesced"] = timed("a_e", tier_coalesced, torch, dirs,
+                                   prompts)
+    res["speculative"] = timed("b", tier_speculative, torch, dirs, prompts,
+                               solo)
+    res["predict"] = timed("c", tier_predict, torch, dirs)
+    res["ab"] = timed("d", tier_ab, torch, dirs)
+    res["reload"] = timed("f", tier_reload, torch, dirs)
+    res.update(timed("g_h", tier_router, torch, dirs, prompts, solo))
+    res["step_seconds"] = steps
+    res["seconds"] = time.perf_counter() - t_start
+    log("serve_tier", json.dumps(res))
+    log(f"serve tier phase seconds: {res['seconds']:.1f}")
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -2936,6 +3481,7 @@ def main(argv=None) -> int:
         sync_bn_on_card(torch)
         cifar_vit(torch)
         decode = decode_phase(torch)
+        tier = serve_tier(torch, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3005,6 +3551,14 @@ def main(argv=None) -> int:
                 "bundle_served": decode["bundle"]["b1_launches_served"],
             }
             entry["window_sinks_prefill"] = decode["window_sinks_prefill"]
+            # Phase 14's paths in this process (the router's replicas are
+            # processes of their own): a prefill is 8 B1 launches, all tc.
+            entry["launches_serve_tier"] = {
+                "coalesced": tier["coalesced"]["b1_launches"],
+                "speculative": tier["speculative"]["b1_launches"],
+                "ab_coalescing": tier["ab"]["coalescing"]["b1_launches"],
+                "ab_continuous": tier["ab"]["continuous"]["b1_launches"],
+            }
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]

@@ -20,10 +20,11 @@ package's, unchanged:
 
 The serving export is a timestamped directory holding a ``torch.export``
 program of ``input → softmax(logits)`` (``model.pt2``) and
-``signature.json``. Not ported yet: sharded checkpoints and asynchronous
-saves (ROADMAP queue A item 13), stream cursors in the manifest, and the
-JAX package's export formats (``stablehlo``, ``savedmodel``; queue A item
-10).
+``signature.json``; ``python -m horovod_tpu_torch.launch.serve`` serves
+it. Not ported yet: sharded checkpoints and asynchronous saves (ROADMAP
+queue A item 13) and stream cursors in the manifest. The JAX package's
+export formats (``stablehlo``, ``savedmodel``) stay refused: writing them
+needs jax or TensorFlow.
 """
 
 from __future__ import annotations
@@ -321,8 +322,9 @@ def export_serving(export_dir: str, module, input_shape: tuple,
     if format != EXPORT_FORMAT:
         raise NotImplementedError(
             f"export format {format!r} is not ported — the port exports "
-            f"{EXPORT_FORMAT!r} programs; ROADMAP queue A item 10 (predict "
-            "bundles) holds the JAX package's stablehlo/savedmodel formats"
+            f"{EXPORT_FORMAT!r} programs; the JAX package's stablehlo and "
+            "savedmodel formats stay refused, since writing them needs jax "
+            "or TensorFlow, which the port does not import"
         )
     stamp = timestamp or time.strftime("%Y%m%d-%H%M%S")
     out_dir = os.path.join(export_dir, stamp)

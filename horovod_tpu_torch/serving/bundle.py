@@ -249,6 +249,14 @@ class GenerateBundle:
         self._call = fns.get("call")
         self._start, self._cont = fns.get("start"), fns.get("cont")
 
+    def release_graphs(self) -> None:
+        """Drop the CUDA graphs of this bundle's decode steps (a server
+        retiring the bundle calls it on the thread that ran them, so the
+        graphs are never destroyed by another thread mid-capture)."""
+        for fn in (self._call, self._start):
+            if fn is not None:
+                fn.steps.reset()
+
     @property
     def batch_size(self) -> int:
         return int(self.meta["batch_size"])

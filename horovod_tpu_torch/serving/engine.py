@@ -209,6 +209,18 @@ class ContinuousBatchingEngine:
             )
         return out
 
+    def drain(self, timeout: float) -> bool:
+        """Wait until no sequence is live or waiting (the reload and
+        SIGTERM barrier). Returns False on timeout — callers decide."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._has_work():
+                    return True
+            time.sleep(0.005)
+        with self._cond:
+            return not self._has_work()
+
     def stop(self) -> None:
         """Stop the scheduler thread; in-flight sequences fail out."""
         with self._cond:

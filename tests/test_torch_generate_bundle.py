@@ -171,7 +171,7 @@ def _serve(bundle_dir):
 def _stop(srv, th):
     srv.shutdown()
     srv.server_close()
-    srv.app.engine.stop()
+    srv.app.close()
     th.join(timeout=10)
     assert not th.is_alive()
 

@@ -256,3 +256,42 @@ def test_decode_slice_entry_points_refuse_cpu_fallback(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         load_generate(d)
     assert load_generate(d, device="cpu").generate_text(["a b"])
+
+
+SERVE_TIER_MODULES = ("obs", "obs.core", "obs.prom", "obs.server",
+                      "serving.router", "launch.serve")
+
+
+@pytest.mark.parametrize("name", SERVE_TIER_MODULES)
+def test_serving_tier_modules_are_scanned(name):
+    """The serving tier's modules are in both scans (imported by the fresh
+    interpreter, parsed for forbidden imports)."""
+    assert f"horovod_tpu_torch.{name}" in _modules()
+    path = os.path.join(PKG, *name.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
+    assert path in _port_files()
+
+
+def test_serving_tier_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
+    """A predict bundle's server and the launched server default to the
+    card and raise without CUDA; the CPU serves only when named."""
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.launch.serve import make_server
+    from horovod_tpu_torch.models.cnn import MnistCNN
+
+    bundle = checkpoint.export_serving(
+        str(tmp_path), MnistCNN(device="cpu"), input_shape=(2, 28, 28, 1),
+        timestamp="t")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_server(bundle)
+    srv = make_server(bundle, device="cpu")
+    srv.server_close()
+    srv.app.close()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.launch.serve", bundle,
+         "--port", "0", "--host", "127.0.0.1"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert "serving" not in proc.stdout

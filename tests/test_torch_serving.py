@@ -288,7 +288,8 @@ def test_blocks_for_and_reuse():
 
 @pytest.fixture
 def server(bundle_dir):
-    srv = serve_mod.make_server(bundle_dir, port=0, device="cpu")
+    srv = serve_mod.make_server(bundle_dir, port=0, device="cpu",
+                                continuous=True)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     yield srv, f"http://127.0.0.1:{srv.server_address[1]}"
@@ -353,7 +354,7 @@ def test_server_404_and_429(server, monkeypatch):
     srv, url = server
     assert _post(f"{url}/v1/predict", {"input": [[1]]})[0] == 404
     with pytest.raises(urllib.error.HTTPError) as e:
-        urllib.request.urlopen(f"{url}/metrics")
+        urllib.request.urlopen(f"{url}/nope")
     assert e.value.code == 404
 
     def full(*a, **k):
@@ -366,7 +367,8 @@ def test_server_404_and_429(server, monkeypatch):
 def test_server_sizes_engine_from_knobs(bundle_dir, monkeypatch):
     monkeypatch.setenv("HVT_SERVE_MAX_SEQS", "2")
     monkeypatch.setenv("HVT_SERVE_QUEUE_DEPTH", "5")
-    srv = serve_mod.make_server(bundle_dir, port=0, device="cpu")
+    srv = serve_mod.make_server(bundle_dir, port=0, device="cpu",
+                                continuous=True)
     try:
         assert srv.app.engine.max_seqs == 2
         assert srv.app.engine.queue_depth == 5
