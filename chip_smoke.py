@@ -181,19 +181,47 @@ Phases (any failed check exits non-zero before the result line):
       with its solo tokens and the process exits 0;
    then a ``serve_tier`` line (each replica's log is under
    ``build/chip_smoke/``);
-15. the ``kernels`` JSON line, then the last line
+15. the sharded and quantized reduction (no new kernel: the quantization
+   and sums are plain torch ops on the card), one launch of two gloo ranks
+   sharing the card for (a) and (b):
+   a. ``quantized_group_sum`` (int8, fp8) on CUDA tensors against the same
+      call on the CPU within one f32 ulp of the sum, the error-mass
+      identity on the card's tensors, and ``reduce_gradients(scatter=2)``
+      against the dense reduction cut locally, bit for bit, on the f32 and
+      bf16 wires (``phase15a``);
+   b. the bench LM at full width (phase 6's data, 4 × 1024 rows a rank,
+      K = 2, ``fit(dataset=)`` with graph replays, 12 steps) from one
+      seed: (i) f32 replicated, (ii) int8 replicated, (iii) int8 ZeRO-1
+      with the overlap on and off, (iv) fp8 ZeRO-1. (iii) must equal (ii)
+      bit for bit (parameters, gathered optimizer state, residual rows),
+      every quantized loss stay within ``REDUCTION_LOSS_RTOL`` of (i)'s,
+      every loss be finite and the last below the first, the ranks end
+      equal, and B1/B2/B3 launch n_layers × K × (eager steps + captures)
+      times, all on tc; a ``phase15b`` line a run: step ms, wire bytes a
+      step, optimizer-state and residual bytes a rank, peak memory, the
+      card;
+   c. the tf2 twin with ``HVT_COMPRESSION=int8`` at one NCCL rank and at
+      two gloo ranks (``TWIN_INT8_CUT``): the loss falls, every checkpoint
+      is intact and holds a residual row per rank, and a relaunch resumed
+      from the next-to-last checkpoint retrains the last epoch with the
+      same loss at every step, bit for bit, and ends in the same state
+      (``phase15c``);
+16. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
 the native batch engine, as the JAX tf1 script does where g++ builds it.
 
 ``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8, 9,
-11's launch, 12a with its breakdown and 12b, at N NCCL ranks, one card
-each, with the reference budgets for N ranks: the multi-rank NCCL path
-that one card cannot host (in phase 11 a captured cross-rank all-reduce;
-in 12a and 12b the BN all-reduces too, captured in each rank's step). The
-ranks must end bit-identical, running statistics included, and 12b's
-replays equal to eager steps on every rank.
+11's launch, 12a with its breakdown and 12b, and 15b's runs (ii) and
+(iii), at N NCCL ranks, one card each, with the reference budgets for N
+ranks: the multi-rank NCCL path that one card cannot host (in phase 11 a
+captured cross-rank all-reduce; in 12a and 12b the BN all-reduces too,
+captured in each rank's step; in 15b the quantized wire's all-to-all and
+all-gathers, ZeRO-1's parameter all-gather, one graph a step). At four
+ranks 15b also runs the two-hop reduction (``HVT_DCN_FACTOR=2``) with the
+int8 ici wire. The ranks must end bit-identical, running statistics
+included, and 12b's replays equal to eager steps on every rank.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -312,6 +340,31 @@ CIFAR_GRAPH_VS_EAGER_STEPS = 10
 SYNC_BN_BATCH, SYNC_BN_STEPS, SYNC_BN_SIDE, SYNC_BN_ATOL = 4, 4, 16, 2e-6
 # 12d: the ViT branch (ARCH=vit) at the example's width, cut.
 VIT_CUT = {"ARCH": "vit", "DRIVE_STEPS": "100", "DRIVE_EPOCHS": "3"}
+# Phase 15: the sharded and quantized reduction. 15b trains the bench LM
+# (MODEL, bf16, fused-CE head) at REDUCTION_RANKS gloo ranks sharing the
+# card, REDUCTION_ROWS × TRAIN_SEQ rows a microbatch, REDUCTION_K
+# microbatches a step, REDUCTION_STEPS steps (one eager, one capture,
+# replays); step ms is the median of steps 3 .. REDUCTION_STEPS.
+REDUCTION_RANKS, REDUCTION_ROWS, REDUCTION_K, REDUCTION_STEPS = 2, 4, 2, 12
+# The quantized runs' losses against the f32 control's at every step,
+# stated before the first run on the card: 1 % of the control's loss. The
+# CPU tests' int8 and fp8 trajectories of a 2-layer LM stay within 0.04 %
+# of f32 (tests/test_torch_zero1.py holds an MLP's within 2e-3 absolute);
+# the bench LM's first steps move the loss ~10× more a step.
+REDUCTION_LOSS_RTOL = 0.01
+# 15a: the quantized sum on the card against the same call on the CPU,
+# within one f32 ulp of the sum; the error-mass identity to 1e-6 of the
+# inputs' largest magnitude.
+REDUCTION_MASS_RTOL = 1e-6
+# 15a: the optimizer's int8 reduction on the card against the CPU's, two
+# steps of ~0.2 M delivered and residual elements: equal to four f32 ulps
+# of the largest sum but for at most this many rounding flips, each
+# within one quantum.
+REDUCTION_EF_MAX_FLIPS = 16
+# 15c: the tf2 twin on the int8 wire, cut: DRIVE_STEPS × DRIVE_EPOCHS, then
+# the same launch resumed from epoch DRIVE_EPOCHS - 1's checkpoint.
+TWIN_INT8_CUT = {"DRIVE_STEPS": "20", "DRIVE_EPOCHS": "3",
+                 "HVT_COMPRESSION": "int8"}
 
 
 class SmokeFailure(RuntimeError):
@@ -3365,6 +3418,420 @@ def serve_tier(torch, card):
     return res
 
 
+# -- phase 15 -------------------------------------------------------------------
+
+# Launched at N ranks by reduction_phase: 15a (the collectives on the card,
+# SMOKE_15A set) and 15b (the bench LM's runs named in SMOKE_RUNS). Each
+# rank prints its JSON lines; rank 0's carry the figures.
+REDUCTION_CHILD = r"""
+import gc, json, os, statistics, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import callbacks, checkpoint, runtime
+from horovod_tpu_torch.data.datasets import copy_task
+from horovod_tpu_torch.models.transformer import TransformerLM
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import collectives as c
+
+# SMOKE_DEVICE / SMOKE_MODEL / SMOKE_SEQ rehearse this child on the CPU at a
+# tiny size; the smoke itself runs it on the card at the bench LM's width.
+ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
+r, n = ht.rank(), ht.size()
+dev = runtime.device()
+cuda = dev.type == "cuda"
+MODEL = json.loads(os.environ.get("SMOKE_MODEL") or "null") or cs.MODEL
+SEQ = int(os.environ.get("SMOKE_SEQ") or cs.TRAIN_SEQ)
+
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def emit(name, obj):
+    print(name, json.dumps(obj), flush=True)
+
+
+def ulp(t):
+    return float(np.spacing(np.float32(t.abs().max().item())))
+
+
+if os.environ.get("SMOKE_15A"):
+    out = {}
+    for w, wd in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        g = torch.Generator().manual_seed(100 + r)
+        v = torch.randn(1 << 20, generator=g) * (1 + r)
+        tot_d, err_d = c.quantized_group_sum(v.to(dev), wd)
+        tot_h, err_h = c.quantized_group_sum(v, wd)
+        diff = (tot_d.cpu() - tot_h).abs().max().item()
+        vs = c.all_gather_tensor(v.to(dev)).double().sum(0)
+        errs = c.all_gather_tensor(err_d).double().sum(0)
+        mass = (errs - (vs - tot_d.double())).abs().max().item()
+        out[w] = {"card_vs_cpu_max_abs": diff, "ulp_of_sum": ulp(tot_h),
+                  "err_card_vs_cpu_max_abs":
+                      (err_d.cpu() - err_h).abs().max().item(),
+                  "mass_identity_max_abs": mass,
+                  "mass_bound": cs.REDUCTION_MASS_RTOL
+                  * c.all_gather_tensor(v.abs().max()).max().item()}
+    g = torch.Generator().manual_seed(200 + r)
+    tree = {"w": torch.randn(1024, 96, generator=g),
+            "b": torch.randn(95, generator=g),
+            "k": torch.randn(8, 3, 64, generator=g)}
+    tree = {k: t.to(dev) for k, t in tree.items()}
+    for name, wire in (("f32", None), ("bf16", torch.bfloat16)):
+        dense = c.reduce_gradients(tree, wire_dtype=wire, bucket_bytes=1 << 16,
+                                   reverse=True)
+        scat = c.reduce_gradients(tree, wire_dtype=wire, bucket_bytes=1 << 16,
+                                  reverse=True, scatter=n)
+        cut = c.slice_zero1_local(dense, n)
+        out[f"scatter_{name}_equal"] = all(
+            torch.equal(scat[k], cut[k]) for k in tree)
+    # The optimizer's int8 reduction (what 15b trains through) on the card
+    # against the same on the CPU, whose arithmetic the CPU tests hold to
+    # the JAX package's: two steps from a nonzero residual, several
+    # buckets; the delivered gradients and the residual.
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        g = torch.Generator().manual_seed(300 + r)
+        params = [torch.nn.Parameter(torch.zeros(s, device=where))
+                  for s in ((1024, 96), (95,), (8, 3, 64))]
+        opt = ht.DistributedOptimizer(torch.optim.SGD(params, lr=1.0),
+                                      compression="int8")
+        opt.bucket_bytes = 1 << 16
+        for v in opt.residual:
+            v.copy_(torch.randn(v.shape, generator=g) * 0.02)
+        outs = []
+        for t in range(2):
+            for p in params:
+                p.grad = torch.randn(p.shape, generator=g).to(where)
+            opt.reduce_gradients()
+            # Copies: on the CPU `.cpu()` would alias the live residual.
+            outs += [p.grad.to("cpu", copy=True) for p in params]
+            outs += [v.to("cpu", copy=True) for v in opt.residual]
+        got[where.type] = torch.cat([o.reshape(-1) for o in outs])
+    mag = 6.0  # |N(0, 1)| draws of this size stay below 6
+    gap = (got[dev.type].double() - got["cpu"].double()).abs()
+    off = gap > 4 * float(np.spacing(np.float32(mag * n)))
+    out["ef_card_vs_cpu"] = {
+        "elements": gap.numel(), "flips": int(off.sum()),
+        "flip_max_abs": float(gap[off].max()) if off.any() else 0.0,
+        "quantum": mag * n / 127.0}
+    emit("phase15a", out)
+
+
+class Clock(callbacks.Callback):
+    def on_train_begin(self, logs=None):
+        self.t, self.losses, self.first_step_bytes = [], [], None
+        sync()
+        self.t.append(time.perf_counter())
+
+    def on_batch_end(self, batch, logs=None):
+        self.losses.append(float(logs["loss"]))
+        sync()
+        self.t.append(time.perf_counter())
+        if self.first_step_bytes is None:
+            self.first_step_bytes = dict(c.traffic)
+
+
+def draw(x, y, rng):
+    while True:
+        idx = rng.randint(0, len(x), size=cs.REDUCTION_ROWS)
+        yield x[idx], y[idx]
+
+
+RUNS = {
+    "i_f32": dict(compression="none"),
+    "i_f32_overlap": dict(compression="none", overlap_reduction=True),
+    "ii_int8": dict(compression="int8"),
+    "iii_int8_zero1_overlap": dict(compression="int8", shard_update=True,
+                                   overlap_reduction=True),
+    "iii_int8_zero1": dict(compression="int8", shard_update=True,
+                           overlap_reduction=False),
+    "iv_fp8_zero1": dict(compression="fp8", shard_update=True),
+    "v_int8_ici_int8_zero1": dict(compression="int8", compression_ici="int8",
+                                  shard_update=True),
+}
+def state_leaves(trainer):
+    # The model's and the optimizer's state as CPU leaves, in order.
+    leaves, _ = c.tree_flatten([dict(trainer.module.state_dict()),
+                                trainer.tx.state_dict()])
+    return [l.detach().cpu().clone() if isinstance(l, torch.Tensor) else l
+            for l in leaves]
+
+
+def leaf_diffs(a, b, limit=6):
+    # Where two state_leaves lists differ: (index, what) pairs.
+    if len(a) != len(b):
+        return [("count", len(a), len(b))]
+    out = []
+    for i, (u, v) in enumerate(zip(a, b)):
+        if isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor):
+            if u.shape != v.shape or u.dtype != v.dtype:
+                out.append((i, str(tuple(u.shape)), str(tuple(v.shape))))
+            elif not torch.equal(u, v):
+                out.append((i, str(tuple(u.shape)),
+                            (u.double() - v.double()).abs().max().item()))
+        elif repr(u) != repr(v):
+            out.append((i, repr(u)[:60], repr(v)[:60]))
+        if len(out) >= limit:
+            break
+    return out
+
+
+x, y = copy_task(4096, SEQ, MODEL["vocab_size"])
+names = [k for k in os.environ.get("SMOKE_RUNS", "").split(",") if k]
+n_params = None
+reference = None
+for name in names:
+    cfg = dict(RUNS[name])
+    shard = cfg.pop("shard_update", False)
+    overlap = cfg.pop("overlap_reduction", False)
+    model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
+                          fused_head_chunks=8, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = ht.DistributedOptimizer(ht.adamw(ht.scale_lr(3e-4)),
+                                 backward_passes_per_step=cs.REDUCTION_K,
+                                 **cfg)
+    trainer = ht.Trainer(model, tx, loss="module", seed=0, device=dev,
+                         shard_update=shard, overlap_reduction=overlap)
+    clock = Clock()
+    feed = draw(x, y, np.random.RandomState(r))
+    sync()
+    # Earlier runs leave memory allocated (caches the kernels' wrappers
+    # keep): a run's own peak is its peak above what it started with.
+    base_bytes = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches_tc = fa.launches_bwd_dq_tc = fa.launches_bwd_dkv_tc = 0
+    c.traffic.update(bytes=0, calls=0)
+    trainer.fit(dataset=feed, epochs=1, steps_per_epoch=cs.REDUCTION_STEPS,
+                callbacks=[clock], verbose=0)
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_bwd_dq,
+                "flash_bwd_dkv": fa.launches_bwd_dkv,
+                "flash_fwd_tc": fa.launches_tc,
+                "flash_bwd_dq_tc": fa.launches_bwd_dq_tc,
+                "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc}
+    runner = trainer._runner
+    steps_ms = [(b - a) * 1e3 for a, b in zip(clock.t, clock.t[1:])]
+    res = {
+        "run": name, "ranks": n, "backend": runtime.backend(),
+        "compression": cfg.get("compression"),
+        "compression_ici": cfg.get("compression_ici", "none"),
+        "shard_update": shard, "overlap_reduction": overlap,
+        "dcn": tx.dcn, "losses": clock.losses,
+        "step_ms_median": statistics.median(steps_ms[2:]),
+        "step_ms_min": min(steps_ms[2:]), "step_ms_max": max(steps_ms[2:]),
+        "wire_bytes_per_step": clock.first_step_bytes["bytes"],
+        "collectives_per_step": clock.first_step_bytes["calls"],
+        "params": n_params,
+        "wire_bytes_per_param": clock.first_step_bytes["bytes"] / n_params,
+        "optimizer_state_bytes": tx.state_bytes(),
+        "residual_bytes": tx.residual_bytes(),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated() - base_bytes
+                              if cuda else "not measured"),
+        "allocated_before_bytes": base_bytes,
+        "launches": launches, "eager_steps": runner.eager_steps,
+        "captures": runner.captures, "replays": runner.replays,
+        "digest": checkpoint.state_digest(trainer.state),
+    }
+    if name == "ii_int8":
+        reference = state_leaves(trainer)
+    elif name.startswith("iii_") and reference is not None:
+        res["differs_from_ii"] = leaf_diffs(reference,
+                                            state_leaves(trainer))
+    emit("phase15b", res)
+    del trainer, model, tx, runner
+    gc.collect()  # the optimizer's grad hooks make a cycle with the model
+    if cuda:
+        torch.cuda.empty_cache()
+ht.shutdown()
+"""
+
+
+def _phase15_lines(lines, prefix, nprocs):
+    out = {}
+    for rank in range(nprocs):
+        tag = f"[rank {rank}] {prefix} "
+        out[rank] = [json.loads(line[len(tag):]) for line in lines
+                     if line.startswith(tag)]
+    return out
+
+
+def reduction_runs(torch, card, nprocs, runs, backend, with_15a=False,
+                   dcn=None):
+    """15a (``with_15a``) and 15b's ``runs`` in one launch at ``nprocs``
+    ranks on ``backend``; checks the gates and returns rank 0's figures."""
+    knobs = {"SMOKE_RUNS": ",".join(runs)}
+    if backend == "gloo":
+        knobs["HVT_BACKEND"] = "gloo"
+    if with_15a:
+        knobs["SMOKE_15A"] = "1"
+    if dcn:
+        knobs["HVT_DCN_FACTOR"] = str(dcn)
+    lines, wall, _, _ = _launch(f"reduction_{nprocs}_{backend}", nprocs,
+                                None, knobs, code=REDUCTION_CHILD,
+                                timeout=900)
+    res = {"wall_s": wall, "card": card}
+    if with_15a:
+        a = _phase15_lines(lines, "phase15a", nprocs)[0][0]
+        for w in ("int8", "fp8"):
+            f = a[w]
+            check(f["card_vs_cpu_max_abs"] <= f["ulp_of_sum"],
+                  f"15a: {w} quantized sum on the card differs from the "
+                  f"CPU's by {f['card_vs_cpu_max_abs']} > {f['ulp_of_sum']}")
+            check(f["mass_identity_max_abs"] <= f["mass_bound"],
+                  f"15a: {w} error mass off by {f['mass_identity_max_abs']}")
+        for w in ("f32", "bf16"):
+            check(a[f"scatter_{w}_equal"],
+                  f"15a: the {w} scatter reduction differs from the dense "
+                  "one cut locally")
+        ef = a["ef_card_vs_cpu"]
+        check(ef["flips"] <= REDUCTION_EF_MAX_FLIPS
+              and ef["flip_max_abs"] <= ef["quantum"],
+              f"15a: the optimizer's int8 reduction on the card differs "
+              f"from the CPU's beyond four ulps at {ef['flips']} of "
+              f"{ef['elements']} elements (at most {REDUCTION_EF_MAX_FLIPS},"
+              f" each within a quantum {ef['quantum']}; largest "
+              f"{ef['flip_max_abs']})")
+        res["15a"] = a
+        log("phase15a", json.dumps(dict(a, card=card)))
+    b = _phase15_lines(lines, "phase15b", nprocs)
+    check(all(len(b[k]) == len(runs) for k in b),
+          f"15b: {[len(v) for v in b.values()]} run records, want "
+          f"{len(runs)} a rank")
+    by = {rec["run"]: rec for rec in b[0]}
+    ref = by.get("i_f32")
+    for i, name in enumerate(runs):
+        rec = by[name]
+        if ref is not None and name != "i_f32":
+            gap = max(abs(a - b) / b
+                      for a, b in zip(rec["losses"], ref["losses"]))
+            rec["loss_gap_rel_to_f32"] = gap
+            check(gap <= REDUCTION_LOSS_RTOL,
+                  f"15b {name}: loss {gap:.4g} of the f32 control's away, "
+                  f"bound {REDUCTION_LOSS_RTOL}")
+        digests = {b[k][i]["digest"] for k in b}
+        check(len(digests) == 1, f"15b {name}: the ranks' states differ")
+        losses = rec["losses"]
+        check(len(losses) == REDUCTION_STEPS
+              and all(map(math.isfinite, losses)),
+              f"15b {name}: losses {losses}")
+        check(losses[-1] < losses[0],
+              f"15b {name}: loss did not fall: {losses[0]} → {losses[-1]}")
+        want = MODEL["n_layers"] * REDUCTION_K * (rec["eager_steps"]
+                                                  + rec["captures"])
+        for kname, count in rec["launches"].items():
+            check(count == want, f"15b {name}: {kname} launched {count} "
+                  f"times, want n_layers × K × (eager steps + captures) = "
+                  f"{want}, all on the tensor-core route")
+        check(rec["replays"] == REDUCTION_STEPS - 1,
+              f"15b {name}: {rec['replays']} replays")
+        log("phase15b", json.dumps(dict(
+            {k: v for k, v in rec.items() if k != "digest"},
+            digest=rec["digest"][:16], card=card)))
+    if "i_f32_overlap" in by:
+        check(by["i_f32_overlap"]["digest"] == by["i_f32"]["digest"],
+              "15b i_f32_overlap: the overlapped f32 reduction's state "
+              "differs from the serialized one's")
+    for name in runs:
+        if name.startswith("iii_"):
+            check(by[name]["digest"] == by["ii_int8"]["digest"],
+                  f"15b {name}: ZeRO-1 state differs from the replicated "
+                  "int8 run's (parameters, gathered optimizer state, "
+                  "residual rows): "
+                  f"{by[name].get('differs_from_ii')}")
+    res["runs"] = by
+    return res
+
+
+def _twin_events(model_path):
+    records = _jsonl(os.path.join(model_path, "horovod-mnist",
+                                  "events.jsonl"))
+    return ({r["step"]: r["batch/loss"] for r in records
+             if "batch/loss" in r},
+            [r["epoch/loss"] for r in records if "epoch/loss" in r])
+
+
+def reduction_twin(torch, nprocs):
+    """15c: the tf2 twin on the int8 wire at ``nprocs`` ranks (NCCL at 1,
+    gloo at 2): the loss falls, every checkpoint is intact and holds a
+    residual row per rank, and a resume from the next-to-last checkpoint
+    retrains the last epoch bit for bit (every step's loss, and the final
+    state digest)."""
+    from horovod_tpu_torch import checkpoint
+
+    backend = "nccl" if nprocs == 1 else "gloo"
+    knobs = dict(TWIN_INT8_CUT)
+    if backend == "gloo":
+        knobs["HVT_BACKEND"] = "gloo"
+    name = f"twin_int8_{nprocs}"
+    lines, wall, _, model_path = _launch(name, nprocs, "tf2_style_mnist",
+                                         knobs)
+    _world(lines, nprocs, backend)
+    steps, epochs = int(knobs["DRIVE_STEPS"]), int(knobs["DRIVE_EPOCHS"])
+    result, _ = _tf2_summary(lines, model_path, steps, nprocs)
+    model_dir = os.path.join(model_path, "horovod-mnist")
+    names = result["checkpoints"]
+    check(len(names) == epochs, f"15c: checkpoints {names}")
+    rows = []
+    for cname in names:
+        payload = torch.load(os.path.join(model_dir, cname),
+                             map_location="cpu", weights_only=True)
+        res = payload["optimizer"].get("ef_residual")
+        check(res is not None and all(t.shape[0] == nprocs for t in res),
+              f"15c: {cname} holds no residual row per rank")
+        rows.append(float(sum(t.abs().sum() for t in res)))
+    check(rows[-1] > 0, "15c: the residual is all zero")
+    # Resume: a copy of the run without its last checkpoint retrains the
+    # last epoch from the one before.
+    batch, _ = _twin_events(model_path)
+    resumed = model_path + "_resumed"
+    shutil.rmtree(resumed, ignore_errors=True)
+    shutil.copytree(model_path, resumed)
+    rdir = os.path.join(resumed, "horovod-mnist")
+    last = os.path.join(rdir, names[-1])
+    for suffix in ("", checkpoint.DIGEST_SUFFIX, checkpoint.META_SUFFIX):
+        os.remove(last + suffix)
+    os.remove(os.path.join(rdir, "events.jsonl"))
+    env_path = dict(knobs)
+    lines2, wall2, _, _ = _launch(name + "_resumed", nprocs,
+                                  "tf2_style_mnist", env_path)
+    check(any(f"Resuming from checkpoint epoch {epochs - 1}" in line
+              for line in lines2), "15c: the relaunch did not resume")
+    batch2, _ = _twin_events(os.path.join(WORK, name + "_resumed"))
+    first = (epochs - 1) * steps + 1
+    want = [batch[s] for s in range(first, epochs * steps + 1)]
+    got = [batch2.get(s) for s in range(first, epochs * steps + 1)]
+    check(got == want, f"15c: the resumed epoch's losses {got[:3]}... "
+          f"differ from the uninterrupted run's {want[:3]}...")
+    d1 = _rank_line(lines, "State digests:").split()
+    d2 = _rank_line(lines2, "State digests:").split()
+    check(d1 == d2, "15c: the resumed run ends in another state")
+    result.update({"backend": backend, "cut": knobs, "wall_s": wall + wall2,
+                   "residual_abs_sum_per_checkpoint": rows,
+                   "resumed_epoch_losses_bit_equal": True,
+                   "resumed_first_step_loss": got[0]})
+    log("phase15c", json.dumps(result))
+    return result
+
+
+def reduction_phase(torch, card):
+    """Phase 15: the sharded and quantized reduction on the card."""
+    t0 = time.perf_counter()
+    res = reduction_runs(torch, card, REDUCTION_RANKS,
+                         ["i_f32", "ii_int8", "iii_int8_zero1_overlap",
+                          "iii_int8_zero1", "iv_fp8_zero1"], "gloo",
+                         with_15a=True)
+    res["twin_1"] = reduction_twin(torch, 1)
+    res["twin_2"] = reduction_twin(torch, 2)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"reduction phase seconds: {res['seconds']:.1f}")
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -3399,25 +3866,43 @@ def _max_err(cases, keys, route):
                 for k in keys), default=None)
 
 
-def multi_card(torch, ranks: int) -> int:
+def reduction_multi_card(torch, card, ranks: int):
+    """Phase 15b's f32 runs with the overlap off and on, and its replicated
+    and ZeRO-1 int8 runs, at ``ranks`` NCCL ranks, each step one captured
+    graph with its collectives; at four ranks also the two-hop reduction
+    (``HVT_DCN_FACTOR=2``) with the int8 ici wire."""
+    res = {"flat": reduction_runs(torch, card, ranks,
+                                  ["i_f32", "i_f32_overlap", "ii_int8",
+                                   "iii_int8_zero1_overlap"], "nccl")}
+    if ranks == 4:
+        res["two_hop"] = reduction_runs(
+            torch, card, ranks, ["ii_int8", "v_int8_ici_int8_zero1"], "nccl",
+            dcn=2)
+    return res
+
+
+def multi_card(torch, ranks: int, reduction_only: bool = False) -> int:
     """``--ranks N``: only the MNIST twins and the CIFAR ResNet-20 twin
-    with its breakdown and graph-against-eager check, at N NCCL ranks, one
-    card each (the multi-rank NCCL path one card cannot host: the gradient
-    all-reduce and, in the ResNet, the BN all-reduces inside each rank's
-    captured step), then the result line."""
+    with its breakdown and graph-against-eager check, and phase 15b's runs,
+    at N NCCL ranks, one card each (the multi-rank NCCL path one card
+    cannot host: the gradient all-reduce and, in the ResNet, the BN
+    all-reduces inside each rank's captured step), then the result line.
+    ``reduction_only``: phase 15b's runs alone."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
               f"--ranks {ranks} needs {ranks} cards, this host has "
               f"{torch.cuda.device_count()}")
         card = toolchain(torch)
-        mnist_tf2(torch, ranks, cut={})
-        mnist_tf1(torch, ranks)
-        mnist_ci_cached(torch, ranks)
-        cifar_resnet(torch, ranks)
-        log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch, ranks),
-                                               card=card)))
-        cifar_graph_vs_eager(torch, ranks)
+        if not reduction_only:
+            mnist_tf2(torch, ranks, cut={})
+            mnist_tf1(torch, ranks)
+            mnist_ci_cached(torch, ranks)
+            cifar_resnet(torch, ranks)
+            log("breakdown_cifar", json.dumps(dict(
+                cifar_breakdown(torch, ranks), card=card)))
+            cifar_graph_vs_eager(torch, ranks)
+        reduction_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3438,6 +3923,9 @@ def main(argv=None) -> int:
         help="N > 1: run only the MNIST twins (phases 8, 9 and 11's "
              "launch) and the CIFAR ResNet-20 twin (12a) at N NCCL ranks "
              "(N cards)")
+    parser.add_argument(
+        "--reduction-only", action="store_true",
+        help="with --ranks N: only phase 15b's runs at N NCCL ranks")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -3452,7 +3940,7 @@ def main(argv=None) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     if args.ranks > 1:
-        return multi_card(torch, args.ranks)
+        return multi_card(torch, args.ranks, args.reduction_only)
     t_start = time.perf_counter()
     try:
         card = toolchain(torch)
@@ -3482,6 +3970,7 @@ def main(argv=None) -> int:
         cifar_vit(torch)
         decode = decode_phase(torch)
         tier = serve_tier(torch, card)
+        reduction = reduction_phase(torch, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3559,6 +4048,15 @@ def main(argv=None) -> int:
                 "ab_coalescing": tier["ab"]["coalescing"]["b1_launches"],
                 "ab_continuous": tier["ab"]["continuous"]["b1_launches"],
             }
+        if name.endswith("_sm90"):
+            # Phase 15b's runs (rank 0 of two gloo ranks): n_layers × K ×
+            # (eager steps + captures) each, all on the tensor-core route.
+            key = {"flash_fwd_sm90": "flash_fwd_tc",
+                   "flash_bwd_dq_sm90": "flash_bwd_dq_tc",
+                   "flash_bwd_dkv_sm90": "flash_bwd_dkv_tc"}[name]
+            entry["launches_reduction"] = {
+                run: rec["launches"][key]
+                for run, rec in reduction["runs"].items()}
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]

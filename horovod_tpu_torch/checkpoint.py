@@ -156,9 +156,12 @@ def restore(path: str, template):
     """Load a checkpoint into ``template`` (a built `TrainState`, filled in
     place and returned). The file is verified against its sidecar
     (`CheckpointCorruptError` on a mismatch)."""
-    payload = torch.load(io.BytesIO(_read_verified(path)), map_location="cpu",
-                         weights_only=True)
-    return _adopt(template, payload)
+    return _adopt(template, _load_payload(path))
+
+
+def _load_payload(path: str) -> dict:
+    return torch.load(io.BytesIO(_read_verified(path)), map_location="cpu",
+                      weights_only=True)
 
 
 def save_checkpoint(directory: str, state, epoch: int, step: int = 0) -> str:
@@ -231,23 +234,44 @@ def _discard_future_checkpoints(directory: str, epoch: int) -> None:
                 pass
 
 
-def broadcast_parameters(state, root_rank: int = 0):
-    """``hvd.broadcast_global_variables(root)`` for a `TrainState`: every
-    rank adopts the root's parameters and buffers (tensor broadcasts), its
-    optimizer state, step and rng (one object broadcast). Identity without
-    a process group."""
-    if not runtime.is_distributed():
-        return state
+def _per_rank_state(optimizer) -> bool:
+    """Whether ``optimizer`` keeps state of its own on each rank (ZeRO-1
+    shards, error-feedback residuals), so its `state_dict` is a
+    collective."""
+    return bool(getattr(optimizer, "state_is_collective", False))
+
+
+def _broadcast_model(state, root_rank: int) -> None:
+    """Every rank adopts the root's parameters and buffers, in place."""
     sd = state.model.state_dict()
     synced = collectives.broadcast_pytree(dict(sd), root=root_rank)
     with torch.no_grad():
         for k, v in sd.items():
             v.copy_(synced[k])
+
+
+def broadcast_parameters(state, root_rank: int = 0):
+    """``hvd.broadcast_global_variables(root)`` for a `TrainState`: every
+    rank adopts the root's parameters and buffers (tensor broadcasts), its
+    optimizer state, step and rng (one object broadcast). An optimizer
+    with per-rank state (ZeRO-1 shards, error-feedback residuals) sends
+    only what every rank holds alike (the tail parameters' state and the
+    hyperparameters); each rank keeps its own shards and residual.
+    Identity without a process group."""
+    if not runtime.is_distributed():
+        return state
+    _broadcast_model(state, root_rank)
+    opt = state.optimizer
+    per_rank = _per_rank_state(opt)
+    root = runtime.rank() == root_rank
     extra = collectives.broadcast_object(
-        (state.optimizer.state_dict(), int(state.step), int(state.rng))
-        if runtime.rank() == root_rank else None, root=root_rank)
-    if runtime.rank() != root_rank:
-        state.optimizer.load_state_dict(extra[0])
+        ((opt.replicated_state_dict() if per_rank else opt.state_dict()),
+         int(state.step), int(state.rng)) if root else None, root=root_rank)
+    if not root:
+        if per_rank:
+            opt.load_replicated_state_dict(extra[0])
+        else:
+            opt.load_state_dict(extra[0])
         state.step, state.rng = extra[1], extra[2]
     return state
 
@@ -289,6 +313,22 @@ def restore_latest_and_broadcast(directory: str, template, *,
 
     if epoch == 0 and step == 0:
         return ret(template, 0, 0)
+    opt = template.optimizer
+    if _per_rank_state(opt):
+        # The root loads the model and cuts every rank's part of the
+        # optimizer state (its shards and residual row); each rank gets
+        # only its own.
+        parts = None
+        if primary:
+            payload = _load_payload(path)
+            template.model.load_state_dict(payload["model"])
+            parts = [(opt.cut_for_rank(payload["optimizer"], r),
+                      int(payload["step"]), int(payload["rng"]))
+                     for r in range(runtime.size())]
+        _broadcast_model(template, 0)
+        mine, template.step, template.rng = collectives.scatter_object(parts)
+        opt.load_state_dict(mine)
+        return ret(template, epoch, step)
     state = restore(path, template) if primary else template
     return ret(broadcast_parameters(state), epoch, step)
 

@@ -21,7 +21,10 @@ Run it bare (one process, no process group), or under the launcher:
         python -m horovod_tpu_torch.examples.tf2_style_mnist
 
 Knobs: ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``),
-``HVT_BACKWARD_PASSES``, ``HVT_COMPRESSION``; smoke-test cuts
+``HVT_BACKWARD_PASSES``, ``HVT_COMPRESSION`` (``none``/``bf16``/``fp16``,
+or the quantized ``int8``/``fp8`` with error feedback, whose residual rows
+the checkpoints then carry), ``HVT_COMPRESSION_ICI`` (the two-hop
+reduction's ici wire, with ``HVT_DCN_FACTOR``); smoke-test cuts
 ``DRIVE_STEPS``, ``DRIVE_EPOCHS`` (full reference budget when unset). The
 port's twin also prints the world, and ends by printing every rank's state
 digest and the peak device memory, which ``chip_smoke.py`` reads.
@@ -69,6 +72,7 @@ def main() -> None:
 
     backward_passes = int(os.environ.get("HVT_BACKWARD_PASSES") or 1)
     compression = os.environ.get("HVT_COMPRESSION") or "none"
+    compression_ici = os.environ.get("HVT_COMPRESSION_ICI") or "none"
     trainer = hvt.Trainer(
         MnistCNN(compute_dtype=torch.bfloat16, device=device),
         # Adam(0.001 × size) wrapped for gradient averaging.
@@ -76,6 +80,7 @@ def main() -> None:
             hvt.adam(hvt.scale_lr(0.001)),
             backward_passes_per_step=backward_passes,
             compression=compression,
+            compression_ici=compression_ici,
         ),
         loss="sparse_categorical_crossentropy",
         device=device,

@@ -31,6 +31,9 @@ class Callback:
     uses."""
 
     trainer = None
+    #: Whether the callback saves the training state at epoch ends (the
+    #: fit then snapshots an optimizer state that is a collective).
+    saves_state = False
 
     def set_trainer(self, trainer):
         self.trainer = trainer
@@ -147,6 +150,8 @@ def save_state(filepath_template: str, epoch: int, state, *,
     step)``."""
     from horovod_tpu_torch import checkpoint
 
+    if step and getattr(state.optimizer, "state_is_collective", False):
+        state.optimizer.snapshot()
     if not runtime.is_primary():
         return None
     completed = epoch + 1 if step == 0 else epoch
@@ -161,7 +166,16 @@ class ModelCheckpoint(Callback):
     ``save_every_steps=N`` also saves every N optimizer steps within an
     epoch (default ``HVT_SAVE_EVERY_STEPS``, else 0 = epoch cadence only),
     counted from the fit's resume step, with an ``(epoch, step)`` manifest
-    so a restart resumes at that step. Saves are synchronous."""
+    so a restart resumes at that step. Saves are synchronous.
+
+    An optimizer with per-rank state (ZeRO-1 shards, error-feedback
+    residuals) gathers it in a collective: where this callback runs on
+    some rank, the fit takes that snapshot on every rank at each epoch
+    end, so an epoch-cadence callback may run on the primary alone; with
+    ``save_every_steps`` the callback must run on every rank (only the
+    primary writes)."""
+
+    saves_state = True
 
     def __init__(self, filepath: str, async_save: bool = False,
                  save_every_steps: int | None = None):

@@ -25,6 +25,7 @@ from horovod_tpu_torch import runtime
 from horovod_tpu_torch.data.loader import ArrayDataset, training_pipeline
 from horovod_tpu_torch.data.prefetch import DevicePrefetcher
 from horovod_tpu_torch.parallel import collectives
+from horovod_tpu_torch.training.callbacks import agree_any
 from horovod_tpu_torch.training.graphs import StepRunner, _host
 from horovod_tpu_torch.training.train_state import (
     _run_train_end, _teardown_callbacks,
@@ -81,6 +82,12 @@ def finish_epoch(trainer, epoch, epochs, means, t0, callbacks,
     fetched once), validation, callbacks, history."""
     logs = dict(means)
     logs["epoch_time_s"] = time.perf_counter() - t0
+    if trainer.tx.state_is_collective and agree_any(
+            any(cb.saves_state for cb in callbacks)):
+        # A checkpoint callback runs on some rank (often the primary
+        # alone): every rank gathers the optimizer state here, so that
+        # callback reads it without a collective.
+        trainer.tx.snapshot()
     if validation_data is not None:
         val = run_evaluate(trainer, validation_data[0], validation_data[1],
                            batch_size=batch_size, cache=val_cache)

@@ -21,15 +21,26 @@ never change while the graph lives:
 
 The optimizer runs in its capturable form with a device learning rate
 (`DistributedOptimizer.set_scale` fills it outside the graph, once per
-epoch). The gradient all-reduce is captured with the step when the
-collective can be captured: without a process group, or under NCCL once
-its communicator exists. Under gloo a collective goes through host memory,
-which a graph cannot hold, so the step is two graphs — forward, backward
-and bucket packing; then unpacking and the optimizer — around the eager
-all-reduce; and a module whose forward itself reduces over the ranks (the
-global-batch BatchNorm) steps eagerly there (`eager_steps` counts it).
-The backend and the module decide, never a failure. Buffers a step updates
-(BN's running statistics) are written in place, so their addresses hold.
+epoch). The gradient reduction is captured with the step when its
+collectives can be captured: without a process group, or under NCCL once
+its communicators exist — the all-reduce, the quantized wire's all-to-all
+and all-gathers, ZeRO-1's reduce-scatter and its parameter all-gather
+alike. Under gloo a collective goes through host memory, which a graph
+cannot hold, so the step is two graphs — forward, backward and bucket
+packing; then unpacking and the optimizer — around the eager reduction
+(the quantized wire's quantization included), and under ZeRO-1 a third
+graph copies the eagerly all-gathered shards into the parameters. Every
+buffer the eager stages read or write (buckets, residuals, reduced
+buckets, gathered shards) was allocated by a graph, at a fixed address.
+A module whose forward itself reduces over the ranks (the global-batch
+BatchNorm) steps eagerly there (`eager_steps` counts it). The backend and
+the module decide, never a failure. Buffers a step updates (BN's running
+statistics) are written in place, so their addresses hold.
+
+``overlap_reduction`` issues each bucket's reduction from the backward of
+the last microbatch (`DistributedOptimizer.arm_overlap`) in eager steps
+and in one-graph captures; where the collectives sit between graphs
+(gloo) it changes nothing.
 
 Before a runner captures for the first time, and again after `feed`
 brought rows of another shape, one step runs eagerly on the capture
@@ -100,6 +111,7 @@ class StepRunner:
         self.eager_steps = 0  # steps run without a graph (warm-ups too)
         self._graphs: list = []
         self._packed = None
+        self._packed_params = None
         self._key = None
         self._layout = None
         self._warm = False  # a step ran eagerly since the layout was set
@@ -149,6 +161,7 @@ class StepRunner:
         if self._graphs:
             torch.cuda.synchronize()  # no replay still reads them
         self._graphs, self._packed, self._key = [], None, None
+        self._packed_params = None
         self._warm = False
 
     def close(self) -> None:
@@ -189,6 +202,7 @@ class StepRunner:
         self._upload_seeds(n)
         self._t_host += n
         tr = self.trainer
+        tr.tx.state_changed()
         if self.graphs and self._stale():
             if not self._warm:
                 self._warm_up()
@@ -219,6 +233,8 @@ class StepRunner:
             loss_vec, correct = tr._loss_and_correct(x, y, train=True,
                                                      seed=seeds[k])
             loss = loss_vec.mean()
+            if k == K - 1 and self._overlap_here():
+                tr.tx.arm_overlap()
             loss.backward()
             losses.append(loss.detach())
             accs.append(correct.mean().detach())
@@ -230,18 +246,21 @@ class StepRunner:
         self.last = {"loss": loss, "accuracy": acc}
         self.t.add_(1)
 
-    def _optimizer_step(self, packed) -> None:
-        tx = self.trainer.tx
-        tx.unpack_gradients(packed)
-        tx.optimizer.step()
+    def _overlap_here(self) -> bool:
+        """Whether a bucket's reduction may issue inside the backward: in
+        eager steps, and in captures that hold the collectives."""
+        return not self.graphs or runtime.backend() != "gloo"
 
     def _step(self) -> None:
         """One whole step, eagerly (the plain version, and the warm-up)."""
         self.eager_steps += 1
+        tx = self.trainer.tx
         self._forward_backward()
-        packed = self.trainer.tx.pack_gradients()
-        self.trainer.tx.communicate(packed)
-        self._optimizer_step(packed)
+        packed = tx.pack_gradients()
+        tx.communicate(packed)
+        packed_params = tx.apply(packed)
+        tx.communicate_params(packed_params)
+        tx.unpack_params(packed_params)
 
     # -- graphs ---------------------------------------------------------------
 
@@ -262,11 +281,14 @@ class StepRunner:
         torch.cuda.current_stream().wait_stream(stream)
 
     def _capture(self) -> None:
-        """Capture the step: one graph when the all-reduce can be captured
-        (no process group, or NCCL), else two graphs around it."""
+        """Capture the step: one graph when the reduction's collectives can
+        be captured (no process group, or NCCL), else two graphs around the
+        eager reduction and, under ZeRO-1, a third after the eager
+        parameter all-gather."""
         in_graph = runtime.backend() != "gloo"
         stream = self._stream
         self._graphs = []
+        packed_params = None
         torch.cuda.synchronize()
         stream.wait_stream(torch.cuda.current_stream())
         with self.capture_guard(), torch.cuda.stream(stream):
@@ -278,16 +300,25 @@ class StepRunner:
                 packed = tx.pack_gradients()
                 if in_graph:
                     tx.communicate(packed)
-                    self._optimizer_step(packed)
+                    packed_params = tx.apply(packed)
+                    tx.communicate_params(packed_params)
+                    tx.unpack_params(packed_params)
             self._graphs.append(first)
             if not in_graph:
                 second = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(second, stream=stream,
                                       pool=first.pool()):
-                    self._optimizer_step(packed)
+                    packed_params = tx.apply(packed)
                 self._graphs.append(second)
+                if packed_params is not None:
+                    third = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(third, stream=stream,
+                                          pool=first.pool()):
+                        tx.unpack_params(packed_params)
+                    self._graphs.append(third)
         torch.cuda.current_stream().wait_stream(stream)
         self._packed = packed
+        self._packed_params = packed_params
         self._key = self._capture_key()
         self.captures += 1
 
@@ -295,6 +326,10 @@ class StepRunner:
         first, *rest = self._graphs
         first.replay()
         if rest:
-            self.trainer.tx.communicate(self._packed)
+            tx = self.trainer.tx
+            tx.communicate(self._packed)
             rest[0].replay()
+            if len(rest) > 1:
+                tx.communicate_params(self._packed_params)
+                rest[1].replay()
         self.replays += 1

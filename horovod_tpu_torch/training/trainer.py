@@ -22,14 +22,23 @@ per_token_correct)``, as the port's `TransformerLM` does.
 with ``seed``, epoch-anchored, so its batches are byte-identical to the
 JAX trainer's. Options not ported raise `NotImplementedError` naming their
 ROADMAP item.
+
+The boundary reduction is the `DistributedOptimizer`'s: its wire
+(``compression``, ``compression_ici``, error feedback), the two-hop factor
+(`parallel.mesh.dcn_factor`, ``HVT_DCN_FACTOR``), and the Trainer's
+``shard_update`` (ZeRO-1, `training.zero1`), ``overlap_reduction`` and
+``bucket_order``, as in the JAX Trainer.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.parallel import mesh
 from horovod_tpu_torch.runtime import derive_seed, resolve_device
 from horovod_tpu_torch.training import feeding
 from horovod_tpu_torch.training.graphs import StepRunner
@@ -45,9 +54,6 @@ _NOT_PORTED = {
             "rank)",
     "param_specs": "queue A item 12 (sharded layouts)",
     "batch_specs": "queue A item 12 (sharded layouts)",
-    "shard_update": "queue A item 11 (ZeRO-1 reduction)",
-    "overlap_reduction": "queue A item 11 (bucketed reduction)",
-    "bucket_order": "queue A item 11 (bucketed reduction)",
 }
 
 
@@ -71,12 +77,27 @@ class Trainer:
         chunk's last metrics.
       device: ``"cuda"`` (default) or ``"cpu"``; CUDA is never replaced by
         the CPU silently.
+      shard_update: ZeRO-1 (`training.zero1`): the optimizer's state and
+        update cut over the ranks, the reduction scattered into that layout
+        (a quantized dcn wire reduces dense and cuts locally), the updated
+        shards all-gathered back into the replicated parameters. A no-op
+        in a world of one.
+      overlap_reduction: issue each bucket's reduction from the last
+        microbatch's backward as soon as its gradients are final (default
+        ``HVT_OVERLAP_REDUCTION``, else on); the arithmetic is the
+        serialized form's. Where the collectives sit between captured
+        graphs (gloo) it changes nothing.
+      bucket_order: ``"reverse"`` (default ``HVT_BUCKET_ORDER``, else
+        reverse: the leaves last-first, the order the backward finishes
+        them) or ``"forward"``.
     """
 
     def __init__(self, module, optimizer,
                  loss="sparse_categorical_crossentropy", seed: int = 0,
                  device="cuda", bucket_bytes: int | None = None,
-                 steps_per_execution: int = 1, **not_ported):
+                 steps_per_execution: int = 1, shard_update: bool = False,
+                 overlap_reduction: bool | None = None,
+                 bucket_order: str | None = None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -91,6 +112,20 @@ class Trainer:
                    else DistributedOptimizer(optimizer))
         if bucket_bytes:
             self.tx.bucket_bytes = int(bucket_bytes)
+        if bucket_order is not None:  # else the optimizer's HVT_BUCKET_ORDER
+            if bucket_order not in ("reverse", "forward"):
+                raise ValueError("bucket_order must be 'reverse' or "
+                                 f"'forward', got {bucket_order!r}")
+            self.tx.bucket_reverse = bucket_order == "reverse"
+        if overlap_reduction is None:
+            overlap_reduction = os.environ.get("HVT_OVERLAP_REDUCTION") in (
+                None, "") or runtime.env_flag("HVT_OVERLAP_REDUCTION")
+        self.tx.overlap = bool(overlap_reduction)
+        self.shard_update = bool(shard_update)
+        # The two-hop factor: HVT_DCN_FACTOR (checked here: it must divide
+        # the world size), else the hosts, asked at the first step.
+        if os.environ.get(mesh.ENV_DCN_FACTOR):
+            self.tx.dcn = mesh.dcn_factor()
         self._accum_steps = self.tx.backward_passes_per_step
         self.loss_fn = _resolve_loss(loss)
         self._module_loss = loss == "module"
@@ -126,7 +161,8 @@ class Trainer:
         del sample_x, sample_y
         if self.state is None:
             self.module.to(self.device)
-            self.tx.bind(self.module.parameters())
+            self.tx.bind(self.module.parameters(),
+                         shard_update=self.shard_update)
             self.state = TrainState(step=0, model=self.module,
                                     optimizer=self.tx, rng=self.seed)
         return self.state

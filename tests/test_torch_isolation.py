@@ -295,3 +295,30 @@ def test_serving_tier_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "CUDA" in proc.stderr
     assert "serving" not in proc.stdout
+
+
+REDUCTION_MODULES = ("training.zero1", "training.optimizer",
+                     "parallel.collectives", "parallel.mesh")
+
+
+@pytest.mark.parametrize("name", REDUCTION_MODULES)
+def test_reduction_slice_modules_are_scanned(name):
+    """The sharded and quantized reduction's modules are in both scans."""
+    assert f"horovod_tpu_torch.{name}" in _modules()
+    path = os.path.join(PKG, *name.split(".")) + ".py"
+    assert path in _port_files()
+
+
+def test_reduction_entry_points_refuse_cpu_fallback(no_cuda):
+    """A ZeRO-1, int8-wire Trainer defaults to the card and raises without
+    CUDA; it runs on the CPU only when named."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    m = TransformerLM(vocab_size=16, d_model=8, n_heads=2, n_layers=1,
+                      device="cpu")
+    tx = ht.DistributedOptimizer(ht.adamw(1e-3), compression="int8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Trainer(m, tx, loss="module", shard_update=True)
+    assert ht.Trainer(m, tx, loss="module", shard_update=True,
+                      device="cpu").device.type == "cpu"
