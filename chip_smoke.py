@@ -206,17 +206,39 @@ Phases (any failed check exits non-zero before the result line):
       from the next-to-last checkpoint retrains the last epoch with the
       same loss at every step, bit for bit, and ends in the same state
       (``phase15c``);
-16. the ``kernels`` JSON line, then the last line
+16. the launch layer (no kernel of its own; the training it launches runs
+   on the card), each part a ``phase16`` line with its wall seconds and
+   the card:
+   a. phase 11's CI job went through ``python -m horovod_tpu_torch.launch
+      job`` on a copy of the port's ``launch/jobs/mnist-ci.yaml`` (paths
+      under ``build/chip_smoke/``): its exit code 0 is the loss gate, and
+      ``gate --check loss=0.0..0.0001`` on the same metrics must exit 1;
+   b. the tf2 twin at phase 10's cut under ``run --nprocs 1 --max-restarts
+      2 --backoff 0.5 --status-port 0`` with ``HVT_FAULT=0:1:exit1`` and a
+      stamp: ``/healthz``, ``/status`` and ``/metrics`` scraped once while
+      it runs; exactly one ``crash`` restart with progress in the journal
+      (``gate --check restarts=1..1 --aggregate count`` exits 0); the
+      relaunch resumes from epoch 1's checkpoint and ends in a clean run's
+      state bit for bit; ``metrics.prom`` reads ``hvt_restarts_total 1``;
+      the fault-to-relaunch seconds;
+   c. (b) with ``HVT_FAULT=0:1:hang`` and ``--heartbeat-timeout 15``: a
+      ``hang`` restart, the same resume and state, the detection latency;
+   d. ``pod --hosts 127.0.0.1,localhost`` through a PATH-shimmed ``ssh``
+      (``tests/test_launch.py``'s shim), ``HVT_BACKEND=gloo``: a world of
+      two ranks sharing the card, their states equal;
+17. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
 the native batch engine, as the JAX tf1 script does where g++ builds it.
 
 ``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8, 9,
-11's launch, 12a with its breakdown and 12b, and 15b's runs (ii) and
-(iii), at N NCCL ranks, one card each, with the reference budgets for N
-ranks: the multi-rank NCCL path that one card cannot host (in phase 11 a
-captured cross-rank all-reduce; in 12a and 12b the BN all-reduces too,
+11's launch (the CI job at N ranks), 12a with its breakdown and 12b, 16d
+as ``pod --hosts 127.0.0.1 --nprocs-per-host N`` on NCCL, and 15b's runs
+(ii) and (iii), at N NCCL ranks, one card each, with the reference
+budgets for N ranks: the multi-rank NCCL
+path that one card cannot host (in phase 11 a captured cross-rank
+all-reduce; in 12a and 12b the BN all-reduces too,
 captured in each rank's step; in 15b the quantized wire's all-to-all and
 all-gathers, ZeRO-1's parameter all-gather, one graph a step). At four
 ranks 15b also runs the two-hop reduction (``HVT_DCN_FACTOR=2``) with the
@@ -300,6 +322,8 @@ MNIST_BATCH = 128
 MNIST_TF2_CUT = {"DRIVE_EPOCHS": "5"}
 MNIST_2RANK_CUT = {"DRIVE_STEPS": "20", "DRIVE_EPOCHS": "3"}
 CI_LOSS_GATE = (0.0, 0.3)  # launch/jobs/mnist-ci.yaml's loss range
+# Phase 11 runs the port's CI job spec through `launch job` (16a).
+CI_JOB_SPEC = "horovod_tpu_torch/launch/jobs/mnist-ci.yaml"
 SERVE_ATOL = RESUME_ATOL = 1e-6
 # The bundle against predict, entry by entry: the same f32 ops on the same
 # card in the same batches, so any difference is rounding. The relative
@@ -1435,12 +1459,16 @@ def adamw_forms_gap(torch, grads, lr):
 # -- phases 8-10 ----------------------------------------------------------------
 
 def _launch(name, nprocs, script, knobs, timeout=MNIST_TIMEOUT_S,
-            code=None):
+            code=None, launch=None, on_line=None):
     """Run ``horovod_tpu_torch.examples.<script>`` (or, with ``code``, that
     python source) under the port's launcher with ``nprocs`` ranks and the
     env ``knobs``, its artifacts under WORK/<name> and the dataset cache
-    under WORK/data. Returns (output lines, wall seconds, launch wall-clock
-    time, model path); the whole output is kept in WORK/<name>.log."""
+    under WORK/data. ``launch``: the launcher's arguments instead of ``run
+    --nprocs N --`` (the child command is appended after ``--`` unless
+    they name a job); ``on_line`` sees each output line as it arrives.
+    Returns (output lines, wall seconds,
+    launch wall-clock time, model path); the whole output is kept in
+    WORK/<name>.log."""
     import signal
 
     model_path = os.path.join(WORK, name)
@@ -1451,22 +1479,35 @@ def _launch(name, nprocs, script, knobs, timeout=MNIST_TIMEOUT_S,
                **knobs)
     child = (["-c", code] if code is not None
              else ["-m", f"horovod_tpu_torch.examples.{script}"])
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.launch", "run",
-           "--nprocs", str(nprocs), "--", sys.executable, *child]
+    if launch is None:
+        launch = ["run", "--nprocs", str(nprocs)]
+    if launch[0] != "job":
+        launch = [*launch, "--", sys.executable, *child]
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.launch", *launch]
     started = time.time()
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
+    lines: list[str] = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if on_line is not None:
+                on_line(lines[-1])
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
     try:
-        out, _ = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
+        proc.wait()
+    reader.join(timeout=30)
     wall = time.perf_counter() - t0
     with open(os.path.join(WORK, f"{name}.log"), "w") as f:
-        f.write(out)
-    lines = out.splitlines()
+        f.write("\n".join(lines) + "\n")
     check(proc.returncode == 0,
           f"{name}: the launch exited {proc.returncode}; last lines:\n"
           + "\n".join(lines[-15:]))
@@ -1800,12 +1841,55 @@ def _mnist_arrays():
             (xt.astype(np.float32) / 255.0)[..., None], eye[yt])
 
 
+def _gate(metrics, check_, aggregate="mean"):
+    """``python -m horovod_tpu_torch.launch gate`` on ``metrics`` with one
+    ``NAME=LO..HI`` check, called in this process (its exit code)."""
+    from horovod_tpu_torch.launch import launcher
+
+    return launcher.main(["gate", "--metrics", metrics, "--check", check_,
+                          "--aggregate", aggregate])
+
+
+def _ci_job_spec(name, nprocs):
+    """A copy of the port's ``launch/jobs/mnist-ci.yaml`` with its paths
+    under WORK/<name>, ``nprocs`` ranks and this interpreter; returns the
+    spec's path and its metrics path."""
+    model_path = os.path.join(WORK, name)
+    with open(os.path.join(ROOT, CI_JOB_SPEC)) as f:
+        text = f.read()
+    for old, new in (
+            ("/tmp/hvt-ci-models", model_path),
+            ("nprocs: 1", f"nprocs: {nprocs}"),
+            ("command: python -m horovod_tpu_torch.examples.tf1_style_mnist",
+             f'command: ["{sys.executable}", "-m", '
+             '"horovod_tpu_torch.examples.tf1_style_mnist"]')):
+        check(old in text, f"{CI_JOB_SPEC} has no {old!r}")
+        text = text.replace(old, new)
+    spec = os.path.join(WORK, f"{name}.yaml")
+    with open(spec, "w") as f:
+        f.write(text)
+    return spec, os.path.join(model_path, "metrics.jsonl")
+
+
 def mnist_ci_cached(torch, nprocs=1):
-    """Phase 11: the CI job's configuration — the tf1 twin with
-    ``HVT_DEVICE_CACHE=1`` at ``nprocs`` NCCL ranks, the reference budget
-    (ceil(12 / nprocs) epochs). Returns the figures and the model path."""
+    """Phase 11 (and 16a): the CI job — the port's ``mnist-ci.yaml`` (the
+    tf1 twin with ``HVT_DEVICE_CACHE=1``) through ``python -m
+    horovod_tpu_torch.launch job`` at ``nprocs`` NCCL ranks, the reference
+    budget (ceil(12 / nprocs) epochs); the job's exit code 0 is its loss
+    gate. Then the same metrics against an impossible range must fail the
+    ``gate`` subcommand. Returns the figures and the model path."""
+    spec, metrics_path = _ci_job_spec("mnist_ci_cached", nprocs)
     lines, wall, started, model_path = _launch(
-        "mnist_ci_cached", nprocs, "tf1_style_mnist", {"HVT_DEVICE_CACHE": "1"})
+        "mnist_ci_cached", nprocs, None, {}, launch=["job", spec])
+    gate_line = next((ln for ln in lines if ln.startswith("check loss:")),
+                     None)
+    check(gate_line is not None and gate_line.endswith("PASS"),
+          f"16a: the job's loss gate line: {gate_line}")
+    dead = _gate(metrics_path, "loss=0.0..0.0001")
+    check(dead == 1, f"16a: an impossible gate exited {dead}")
+    ci_job = {"part": "a_ci_job", "job_exit": 0, "gate": gate_line,
+              "impossible_gate_exit": dead, "wall_s": wall,
+              "nprocs": nprocs}
     world = _world(lines, nprocs, "nccl")
     feed = json.loads(_rank_line(lines, "Feed:"))
     check(feed["path"] == "device",
@@ -1856,6 +1940,7 @@ def mnist_ci_cached(torch, nprocs=1):
         "ranks_bit_identical": True, "wall_s": wall,
         "peak_memory_bytes": int(_rank_line(lines,
                                         "Peak device memory (bytes):")),
+        "ci_job": ci_job,
     }
     log("mnist_ci_cached", json.dumps(result))
     return result, model_path
@@ -3832,6 +3917,173 @@ def reduction_phase(torch, card):
     return res
 
 
+# -- phase 16 ---------------------------------------------------------------
+
+# The tf2 twin's cut for the supervised runs and the pod (phase 10's cut);
+# the supervisor's restart knobs and the hang run's heartbeat timeout.
+LAUNCH_CUT = MNIST_2RANK_CUT
+SUP_BACKOFF_S, HANG_TIMEOUT_S = 0.5, 15
+SSH_SHIM = """#!/bin/bash
+while [[ "$1" == -* ]]; do
+  if [[ "$1" == "-o" ]]; then shift 2; else shift; fi
+done
+host="$1"; shift
+exec sh -c "$*"
+"""
+
+
+def _digests(lines):
+    """Every rank's state digest from the one "State digests:" line."""
+    line = next((ln for ln in lines if "State digests:" in ln), None)
+    check(line is not None, "no 'State digests:' line in the output")
+    return line.split("State digests:")[1].split()
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read().decode()
+
+
+def _supervised_twin(name, fault, extra, clean):
+    """16b/16c: the tf2 twin at LAUNCH_CUT under ``run --nprocs 1
+    --max-restarts 2 --backoff 0.5 --status-port 0`` with ``HVT_FAULT=
+    fault`` and a stamp; the status routes are scraped once while it runs.
+    One ``restarts`` record of the fault's kind, progressed; the relaunch
+    resumes from epoch 1's checkpoint and ends in the clean run's state
+    bit for bit; the journal gates through ``gate``; ``metrics.prom``
+    reads one restart. Times from the stamp's mtime (the fault, touched
+    just before it fires) to the journal's record (the kill) and to the
+    arrival of the relaunched rank's "Resuming from checkpoint" line
+    (training goes on: the backoff, the new rank's interpreter and CUDA
+    start and the checkpoint's load included; the rank runs unbuffered so
+    the line arrives as it is printed)."""
+    from horovod_tpu_torch.obs import prom
+
+    model_path = os.path.join(WORK, name)
+    stamp = os.path.join(model_path, "fault-stamp")
+    scraped: dict = {}
+    resumed: list[float] = []
+
+    def scrape(line):
+        if "Resuming from checkpoint" in line and not resumed:
+            resumed.append(time.time())
+        if "supervisor: status on " in line and not scraped:
+            url = line.split("supervisor: status on ", 1)[1].strip()
+            try:
+                scraped["healthz"] = json.loads(_get(url + "/healthz"))
+                scraped["status"] = json.loads(_get(url + "/status"))
+                scraped["metrics"] = prom.parse_text(_get(url + "/metrics"))
+            except (OSError, ValueError) as e:
+                scraped["error"] = repr(e)
+
+    knobs = dict(LAUNCH_CUT, HVT_FAULT=fault, HVT_FAULT_STAMP=stamp,
+                 PYTHONUNBUFFERED="1")
+    launch = ["run", "--nprocs", "1", "--max-restarts", "2", "--backoff",
+              str(SUP_BACKOFF_S), "--status-port", "0", *extra]
+    lines, wall, _, _ = _launch(name, 1, "tf2_style_mnist", knobs,
+                                launch=launch, on_line=scrape)
+    check("error" not in scraped and scraped.get("healthz", {}).get(
+        "status") == "ok", f"16: the status scrape failed: {scraped}")
+    check(scraped["status"]["coordinator"] is None
+          and "hvt_restart_budget_remaining" in scraped["metrics"],
+          f"16: /status or /metrics incomplete: {scraped}")
+    journal = os.path.join(model_path, "restarts.jsonl")
+    records = [r for r in _jsonl(journal) if r["name"] == "restarts"]
+    kind = "hang" if fault.endswith(":hang") else "crash"
+    check(len(records) == 1 and records[0]["kind"] == kind
+          and records[0]["progressed"] is True,
+          f"16: want one progressed {kind} restart, journal {records}")
+    check(_gate(journal, "restarts=1..1", "count") == 0,
+          "16: the journal gate `restarts=1..1 --aggregate count` failed")
+    check(any("Resuming from checkpoint epoch 1" in ln for ln in lines),
+          "16: the relaunch did not resume from epoch 1")
+    digest = _digests(lines)
+    check(digest == clean, f"16: the restarted run ends in {digest}, the "
+          f"clean run in {clean}")
+    with open(os.path.join(model_path, "metrics.prom")) as f:
+        dump = prom.parse_text(f.read())
+    check(dump.get("hvt_restarts_total") == 1,
+          f"16: metrics.prom hvt_restarts_total {dump}")
+    fault_at = os.stat(stamp).st_mtime
+    return {"fault": fault, "kind": kind, "wall_s": wall,
+            "detection_s": records[0]["wall_time"] - fault_at,
+            "fault_to_relaunch_s": resumed[0] - fault_at,
+            "state_bit_equal_to_clean": True, "journal_gate_exit": 0,
+            "metrics_prom": {k: dump[k] for k in (
+                "hvt_restarts_total", "hvt_committed_epoch",
+                "hvt_committed_step", "hvt_restart_budget_remaining")},
+            "scraped_during_run": sorted(scraped)}
+
+
+def pod_twin(hosts, per_host, backend):
+    """16d: the tf2 twin at LAUNCH_CUT through ``pod`` over a PATH-shimmed
+    ``ssh`` that runs the remote command here (the shim of
+    ``tests/test_launch.py``), the knobs passed as ``--env`` exports: the
+    world is ``len(hosts) × per_host`` ranks on ``backend`` and every rank
+    ends in one state."""
+    shim = os.path.join(WORK, "fakebin")
+    os.makedirs(shim, exist_ok=True)
+    with open(os.path.join(shim, "ssh"), "w") as f:
+        f.write(SSH_SHIM)
+    os.chmod(os.path.join(shim, "ssh"), 0o755)
+    name = f"pod_{len(hosts)}x{per_host}_{backend}"
+    model_path = os.path.join(WORK, name)
+    exports = dict(LAUNCH_CUT, PS_MODEL_PATH=model_path,
+                   HVT_DATA_DIR=os.path.join(WORK, "data"), PYTHONPATH=ROOT)
+    if backend == "gloo":
+        exports["HVT_BACKEND"] = "gloo"
+    from horovod_tpu_torch.launch.launcher import pick_free_port
+
+    launch = ["pod", "--hosts", ",".join(hosts), "--nprocs-per-host",
+              str(per_host), "--port", str(pick_free_port()), "--workdir",
+              ROOT]
+    for k, v in exports.items():
+        launch += ["--env", f"{k}={v}"]
+    world_n = len(hosts) * per_host
+    lines, wall, _, _ = _launch(
+        name, world_n, "tf2_style_mnist",
+        {"PATH": shim + os.pathsep + os.environ.get("PATH", "")},
+        launch=launch)
+    world = next((ln for ln in lines if "World:" in ln), "")
+    check(f"process_count={world_n}," in world
+          and f"backend='{backend}'" in world,
+          f"16d: want {world_n} ranks on {backend}, got {world}")
+    digests = _digests(lines)
+    check(len(digests) == world_n and len(set(digests)) == 1,
+          f"16d: the pod's ranks end in different states: {digests}")
+    return {"part": "d_pod", "hosts": hosts, "nprocs_per_host": per_host,
+            "world": world_n, "backend": backend, "wall_s": wall,
+            "ranks_bit_identical": True}
+
+
+def launch_phase(torch, card, ci_job):
+    """Phase 16: the launch layer on the card. (a) phase 11's CI job went
+    through ``launch job`` (its figures are ``ci_job``); (b) a supervised
+    crash and restart, (c) a hang detected and restarted, both ending in
+    the clean run's state bit for bit; (d) ``pod`` over the ssh shim at
+    two gloo ranks sharing the card."""
+    t0 = time.perf_counter()
+    log("phase16", json.dumps(dict(ci_job, card=card)))
+    lines, wall, _, _ = _launch("launch_clean", 1, "tf2_style_mnist",
+                                LAUNCH_CUT)
+    clean = _digests(lines)
+    res = {"clean_wall_s": wall}
+    res["b"] = dict(_supervised_twin("launch_crash", "0:1:exit1", [],
+                                     clean), part="b_crash", card=card)
+    log("phase16", json.dumps(res["b"]))
+    res["c"] = dict(_supervised_twin(
+        "launch_hang", "0:1:hang",
+        ["--heartbeat-timeout", str(HANG_TIMEOUT_S)], clean),
+        part="c_hang", heartbeat_timeout_s=HANG_TIMEOUT_S, card=card)
+    log("phase16", json.dumps(res["c"]))
+    res["d"] = dict(pod_twin(["127.0.0.1", "localhost"], 1, "gloo"),
+                    card=card)
+    log("phase16", json.dumps(res["d"]))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"launch phase seconds: {res['seconds']:.1f}")
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -3902,6 +4154,8 @@ def multi_card(torch, ranks: int, reduction_only: bool = False) -> int:
             log("breakdown_cifar", json.dumps(dict(
                 cifar_breakdown(torch, ranks), card=card)))
             cifar_graph_vs_eager(torch, ranks)
+            log("phase16", json.dumps(dict(
+                pod_twin(["127.0.0.1"], ranks, "nccl"), card=card)))
         reduction_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3971,6 +4225,7 @@ def main(argv=None) -> int:
         decode = decode_phase(torch)
         tier = serve_tier(torch, card)
         reduction = reduction_phase(torch, card)
+        launch_phase(torch, card, ci["ci_job"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -12,8 +12,10 @@ package's, unchanged:
   and on restore, so a file corrupted after landing is skipped in favour
   of the previous one;
 * a ``.meta.json`` progress manifest ``{"epoch", "step",
-  "payload_sha256"}``; a manifest whose digest no longer matches the
-  payload falls back to ``(filename epoch, 0)``;
+  "payload_sha256"}`` (and the stream ``cursor`` a checkpoint callback
+  stamps, `Trainer.stream_cursor`: the supervisor reads its epoch
+  geometry for ``hvt_committed_step``); a manifest whose digest no longer
+  matches the payload falls back to ``(filename epoch, 0)``;
 * resume is decided by the primary rank (its view of the directory),
   which discards checkpoints newer than the one it resumes, loads it and
   broadcasts the state to every rank.
@@ -21,10 +23,10 @@ package's, unchanged:
 The serving export is a timestamped directory holding a ``torch.export``
 program of ``input → softmax(logits)`` (``model.pt2``) and
 ``signature.json``; ``python -m horovod_tpu_torch.launch.serve`` serves
-it. Not ported yet: sharded checkpoints and asynchronous saves (ROADMAP
-queue A item 13) and stream cursors in the manifest. The JAX package's
-export formats (``stablehlo``, ``savedmodel``) stay refused: writing them
-needs jax or TensorFlow.
+it. Not ported yet: sharded checkpoints, asynchronous saves and checking
+a manifest's cursor on resume (ROADMAP queue A item 13.3). The JAX
+package's export formats (``stablehlo``, ``savedmodel``) stay refused:
+writing them needs jax or TensorFlow.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.runtime import resolve_device
 
@@ -134,11 +137,13 @@ def _adopt(state, payload: dict):
     return state
 
 
-def save(path: str, state, progress: tuple | None = None) -> str:
+def save(path: str, state, progress: tuple | None = None,
+         cursor: dict | None = None) -> str:
     """Serialize a `TrainState` (its model, optimizer state, step and rng)
     to one file, atomically, with its digest sidecar. The caller gates the
     rank (the callbacks do). ``progress=(epoch, step)`` also writes the
-    ``.meta.json`` manifest (step 0 = an epoch boundary)."""
+    ``.meta.json`` manifest (step 0 = an epoch boundary), with ``cursor``
+    (`Trainer.stream_cursor`) inside it when given."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     buf = io.BytesIO()
     torch.save(_payload(state), buf)
@@ -148,6 +153,8 @@ def save(path: str, state, progress: tuple | None = None) -> str:
         epoch, step = progress
         meta = {"epoch": int(epoch), "step": int(step),
                 "payload_sha256": hashlib.sha256(data).hexdigest()}
+        if cursor is not None:
+            meta["cursor"] = dict(cursor)
         _atomic_write(path + META_SUFFIX, json.dumps(meta).encode())
     return path
 
@@ -337,7 +344,9 @@ def restore_latest_and_broadcast(directory: str, template, *,
 
 SIGNATURE_FILE = "signature.json"
 PROGRAM_FILE = "model.pt2"
-EXPORT_FORMAT = "torch.export"
+# The one format the port writes: the registered default of
+# ``HVT_EXPORT_FORMAT``, the examples' knob.
+EXPORT_FORMAT = registry.knob("HVT_EXPORT_FORMAT").default
 
 
 class _Predict(torch.nn.Module):

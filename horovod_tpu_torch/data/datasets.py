@@ -21,9 +21,11 @@ import os
 
 import numpy as np
 
+from horovod_tpu_torch.analysis import registry
+
 # The cache directory when neither ``cache_dir`` nor ``HVT_DATA_DIR`` says
-# otherwise (the JAX package's knob default).
-DEFAULT_DATA_DIR = "~/.cache/horovod_tpu"
+# otherwise (the knob's registered default).
+DEFAULT_DATA_DIR = registry.knob("HVT_DATA_DIR").default
 
 # 5x7 bitmap font for digits 0-9 (rows top→bottom, 5 bits per row).
 _DIGIT_FONT = {
@@ -74,7 +76,7 @@ def _load_or_create(path: str, cache_dir: str | None, synthesize):
     it via ``synthesize() -> ((xtr, ytr), (xte, yte))`` with an atomic
     rename (no torn files under concurrent writers)."""
     cache_dir = cache_dir or os.path.expanduser(
-        os.environ.get("HVT_DATA_DIR") or DEFAULT_DATA_DIR)
+        registry.get_str("HVT_DATA_DIR"))
     full = path if os.path.isabs(path) else os.path.join(cache_dir, path)
     if os.path.exists(full):
         with np.load(full) as f:

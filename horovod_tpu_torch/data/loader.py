@@ -21,8 +21,8 @@ from typing import Iterator
 
 import numpy as np
 
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import stream as stream_lib
-from horovod_tpu_torch.runtime import env_flag
 
 
 class ArrayDataset:
@@ -231,7 +231,8 @@ def training_pipeline(arrays, batch_size: int, seed: int = 0,
     dict) receives ``{"engine": "native" | "python"}``."""
     n = len(arrays[0])
     full_shuffle = shuffle_buffer is None or shuffle_buffer >= n
-    if full_shuffle and batch_size <= n and not env_flag("HVT_NO_NATIVE"):
+    if (full_shuffle and batch_size <= n
+            and not registry.get_flag("HVT_NO_NATIVE")):
         from horovod_tpu_torch.data import native_loader
 
         if native_loader.available():

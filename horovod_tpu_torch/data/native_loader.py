@@ -33,8 +33,8 @@ from typing import Sequence
 
 import numpy as np
 
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.ops._build import BUILD_DIR
-from horovod_tpu_torch.runtime import env_flag
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "hvt_data.cc")
@@ -86,7 +86,7 @@ def _load():
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        if env_flag("HVT_NO_NATIVE"):
+        if registry.get_flag("HVT_NO_NATIVE"):
             _load_failed = True
             return None
         so = _build()

@@ -16,7 +16,6 @@ main thread only launches the steps.
 from __future__ import annotations
 
 import contextlib
-import os
 import queue
 import threading
 from typing import Iterator
@@ -24,13 +23,17 @@ from typing import Iterator
 import numpy as np
 import torch
 
-#: Staged batches kept ahead of the consumer unless ``depth`` says.
-DEFAULT_DEPTH = 2
+from horovod_tpu_torch.analysis import registry
+
+#: Staged batches kept ahead of the consumer unless ``depth`` says (the
+#: knob's registered default).
+DEFAULT_DEPTH = registry.knob("HVT_PREFETCH_DEPTH").default
 
 
 def default_depth() -> int:
-    """``HVT_PREFETCH_DEPTH``, else 2 (double buffering)."""
-    return int(os.environ.get("HVT_PREFETCH_DEPTH") or 0) or DEFAULT_DEPTH
+    """``HVT_PREFETCH_DEPTH`` (0 or unset: `DEFAULT_DEPTH`, 2 = double
+    buffering)."""
+    return registry.get_int("HVT_PREFETCH_DEPTH") or DEFAULT_DEPTH
 
 
 def _map(fn, item):

@@ -28,6 +28,7 @@ import torch
 
 import horovod_tpu_torch as hvt
 from horovod_tpu_torch import checkpoint, metrics
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import datasets
 from horovod_tpu_torch.data.loader import ArrayDataset
 from horovod_tpu_torch.models.resnet import ResNetCIFAR
@@ -38,7 +39,7 @@ from horovod_tpu_torch.parallel import collectives
 def main() -> None:
     model_dir = os.path.join(os.environ.get("PS_MODEL_PATH", "./models"),
                              "horovod-cifar")
-    device = os.environ.get("HVT_DEVICE") or "cuda"
+    device = registry.get_str("HVT_DEVICE")
 
     topology = hvt.init(device=device)
     metrics.init(sync_tensorboard=True)

@@ -32,6 +32,7 @@ import torch
 
 import horovod_tpu_torch as hvt
 from horovod_tpu_torch import checkpoint, metrics
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import datasets
 from horovod_tpu_torch.models.cnn import MnistCNN
 from horovod_tpu_torch.parallel import collectives
@@ -41,7 +42,7 @@ def main() -> None:
     model_path = os.environ.get("PS_MODEL_PATH", "./models")
     model_dir = os.path.join(model_path, "horovod-mnist")
     export_dir = os.path.join(model_path, "horovod-mnist-export")
-    device = os.environ.get("HVT_DEVICE") or "cuda"
+    device = registry.get_str("HVT_DEVICE")
 
     metrics.init(sync_tensorboard=True)
     topology = hvt.init(device=device)
@@ -94,7 +95,7 @@ def main() -> None:
     # validate from there (Trainer.fit cache='device'). Off by default, as
     # the reference streams.
     fit_kwargs = (
-        {"cache": "device"} if hvt.runtime.env_flag("HVT_DEVICE_CACHE") else {}
+        {"cache": "device"} if registry.get_flag("HVT_DEVICE_CACHE") else {}
     )
     trainer.fit(
         x=x_train,
@@ -120,8 +121,7 @@ def main() -> None:
         # Serving export: timestamped dir, input → prob signature.
         bundle = checkpoint.export_serving(
             export_dir, restored.model, input_shape=(1, 28, 28, 1),
-            format=os.environ.get("HVT_EXPORT_FORMAT",
-                                  checkpoint.EXPORT_FORMAT),
+            format=registry.get_str("HVT_EXPORT_FORMAT"),
         )
         print("Exported serving bundle:", bundle)
 

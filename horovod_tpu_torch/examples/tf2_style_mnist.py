@@ -37,6 +37,7 @@ import torch
 
 import horovod_tpu_torch as hvt
 from horovod_tpu_torch import checkpoint, metrics
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import datasets
 from horovod_tpu_torch.data.loader import ArrayDataset
 from horovod_tpu_torch.models.cnn import MnistCNN
@@ -46,7 +47,7 @@ from horovod_tpu_torch.parallel import collectives
 def main() -> None:
     model_dir = os.path.join(os.environ.get("PS_MODEL_PATH", "./models"),
                              "horovod-mnist")
-    device = os.environ.get("HVT_DEVICE") or "cuda"
+    device = registry.get_str("HVT_DEVICE")
 
     # Bootstrap: one call, idempotent, launched and unlaunched.
     topology = hvt.init(device=device)
@@ -70,9 +71,9 @@ def main() -> None:
         .batch(per_process_batch)
     )
 
-    backward_passes = int(os.environ.get("HVT_BACKWARD_PASSES") or 1)
-    compression = os.environ.get("HVT_COMPRESSION") or "none"
-    compression_ici = os.environ.get("HVT_COMPRESSION_ICI") or "none"
+    backward_passes = registry.get_int("HVT_BACKWARD_PASSES")
+    compression = registry.get_str("HVT_COMPRESSION")
+    compression_ici = registry.get_str("HVT_COMPRESSION_ICI")
     trainer = hvt.Trainer(
         MnistCNN(compute_dtype=torch.bfloat16, device=device),
         # Adam(0.001 × size) wrapped for gradient averaging.

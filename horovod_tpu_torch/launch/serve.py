@@ -72,6 +72,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from horovod_tpu_torch import trace as trace_lib
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.obs import core as obs_core
 from horovod_tpu_torch.obs import prom as obs_prom
 from horovod_tpu_torch.serving import bundle as bundle_lib
@@ -83,26 +84,7 @@ from horovod_tpu_torch.serving.engine import (
 # Monotone per-process request ids for the serving `request` spans.
 _request_ids = itertools.count(1)
 
-# The serving knobs, with the JAX package's defaults
-# (`horovod_tpu/analysis/registry.py`); the environment overrides them.
-_KNOBS = {
-    "HVT_SERVE_MAX_SEQS": 0,
-    "HVT_SERVE_BLOCK_TOKENS": 16,
-    "HVT_SERVE_KV_BLOCKS": 0,
-    "HVT_SERVE_QUEUE_DEPTH": 64,
-    "HVT_SERVE_DRAIN_TIMEOUT_S": 30.0,
-    "HVT_STATUS_HOST": "127.0.0.1",
-}
-
 _ITEM_13 = "ROADMAP queue A item 13 (the control plane), not ported yet"
-
-
-def knob(name: str):
-    """The knob's value from the environment, else its default, in the
-    default's type."""
-    default = _KNOBS[name]
-    raw = os.environ.get(name)
-    return type(default)(raw) if raw else default
 
 
 class _Slot:
@@ -392,10 +374,10 @@ class _GenerateApp:
     def _start_engine(self) -> None:
         self.engine = ContinuousBatchingEngine(
             self.bundle,
-            max_seqs=knob("HVT_SERVE_MAX_SEQS"),
-            block_tokens=knob("HVT_SERVE_BLOCK_TOKENS"),
-            kv_blocks=knob("HVT_SERVE_KV_BLOCKS"),
-            queue_depth=knob("HVT_SERVE_QUEUE_DEPTH"),
+            max_seqs=registry.get_int("HVT_SERVE_MAX_SEQS"),
+            block_tokens=registry.get_int("HVT_SERVE_BLOCK_TOKENS"),
+            kv_blocks=registry.get_int("HVT_SERVE_KV_BLOCKS"),
+            queue_depth=registry.get_int("HVT_SERVE_QUEUE_DEPTH"),
         )
 
     def reload(self, bundle_dir: str) -> None:
@@ -407,7 +389,7 @@ class _GenerateApp:
         weights and every later one runs on the new. A bundle that fails
         to load raises, and the old one goes on serving."""
         if self.engine is not None:
-            timeout = knob("HVT_SERVE_DRAIN_TIMEOUT_S")
+            timeout = registry.get_float("HVT_SERVE_DRAIN_TIMEOUT_S")
             with self._lock:
                 if not self.engine.drain(timeout):
                     raise RuntimeError(
@@ -634,11 +616,13 @@ def make_server(bundle_dir: str, port: int = 0, host: str = "127.0.0.1",
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
-            self.wfile.write(body)
+            # Counted before the body goes out: a client that has read the
+            # reply finds it in /metrics.
             reg.counter(
                 "hvt_serve_requests_total", route=_route(self.path),
                 code=str(code),
             )
+            self.wfile.write(body)
 
         def log_message(self, *args):  # one line per request is noise
             pass
@@ -811,7 +795,8 @@ def serve_forever(bundle_dir: str, port: int = 8000, host: str = "0.0.0.0",
         accepting. The shutdown runs on a helper thread: the handler runs
         on the main thread, which is inside serve_forever()."""
         def _drain_and_stop():
-            deadline = time.monotonic() + knob("HVT_SERVE_DRAIN_TIMEOUT_S")
+            deadline = time.monotonic() + registry.get_float(
+                "HVT_SERVE_DRAIN_TIMEOUT_S")
             while server.inflight_count() and time.monotonic() < deadline:
                 time.sleep(0.05)
             if server.app.engine is not None:

@@ -19,6 +19,7 @@ import time
 from typing import Protocol
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
 
 
 class MetricsSink(Protocol):
@@ -65,7 +66,7 @@ def init(sync_tensorboard: bool = False, path: str | None = None) -> None:
     _sink = None
     _sync_tensorboard = bool(sync_tensorboard)
     _configured_path = path or os.path.join(
-        os.environ.get("HVT_METRICS_DIR")
+        registry.get_str("HVT_METRICS_DIR")
         or os.environ.get("PS_MODEL_PATH", "./models"),
         "metrics.jsonl",
     )
@@ -77,7 +78,7 @@ def sync_tensorboard_enabled() -> bool:
 
 def _can_decide_primary() -> bool:
     return (runtime.is_initialized()
-            or not os.environ.get(runtime.ENV_COORDINATOR))
+            or not registry.get_raw(runtime.ENV_COORDINATOR))
 
 
 def _resolve() -> MetricsSink | None:

@@ -26,6 +26,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from horovod_tpu_torch.analysis import registry as knobs
 from horovod_tpu_torch.obs import core, prom
 
 
@@ -40,8 +41,8 @@ class _ProfileTrigger:
         self._active: str | None = None
 
     def start(self, seconds: float) -> str:
-        out_root = (os.environ.get("HVT_TRACE_DIR")
-                    or os.environ.get("HVT_PROFILE"))
+        out_root = (knobs.get_str("HVT_TRACE_DIR")
+                    or knobs.get_str("HVT_PROFILE"))
         if not out_root:
             raise ValueError(
                 "on-demand profiling needs HVT_TRACE_DIR or HVT_PROFILE "
@@ -107,9 +108,7 @@ def start_metrics_server(port: int, host: str | None = None,
     ``server.server_address[1]`` carries the real one. Returns the
     started server; callers own ``shutdown()``."""
     if host is None:
-        from horovod_tpu_torch.launch.serve import knob
-
-        host = knob("HVT_STATUS_HOST")
+        host = knobs.get_str("HVT_STATUS_HOST")
     reg = registry if registry is not None else core.default_registry()
     trigger = _ProfileTrigger() if profile else None
 

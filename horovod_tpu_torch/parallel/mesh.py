@@ -7,12 +7,12 @@ factoring of the ranks into process subgroups (`hier_groups`)."""
 from __future__ import annotations
 
 import math
-import os
 import socket
 
 import torch
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
 
 #: Overrides the dcn factor (the fake-topology knob for running the two-hop
 #: reduction on one host); it must divide the world size.
@@ -62,9 +62,8 @@ def dcn_factor() -> int:
     time in a process group: every rank calls it at one point (the
     `Trainer` does at construction)."""
     size = runtime.size()
-    raw = os.environ.get(ENV_DCN_FACTOR)
-    if raw not in (None, ""):
-        dcn = int(raw)
+    dcn = registry.get_int(ENV_DCN_FACTOR)
+    if dcn is not None:
         if dcn < 1 or size % dcn:
             raise ValueError(f"{ENV_DCN_FACTOR}={dcn} must divide the world "
                              f"size ({size})")

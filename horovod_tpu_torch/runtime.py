@@ -28,12 +28,19 @@ import socket
 import numpy as np
 import torch
 
+from horovod_tpu_torch.analysis import registry
+
 ENV_COORDINATOR = "HVT_COORDINATOR_ADDRESS"
 ENV_NUM_PROCESSES = "HVT_NUM_PROCESSES"
 ENV_PROCESS_ID = "HVT_PROCESS_ID"
 ENV_LOCAL_RANK = "HVT_LOCAL_RANK"
 # The process group's backend, when the caller names it (``nccl``/``gloo``).
 ENV_BACKEND = "HVT_BACKEND"
+# Liveness contract with the restart supervisor (launch/supervisor.py):
+# when set, fit() auto-installs callbacks.HeartbeatCallback, which touches
+# $HVT_HEARTBEAT_DIR/rank-<rank> through training; the supervisor kills
+# and relaunches a fleet whose newest beat goes stale.
+ENV_HEARTBEAT_DIR = "HVT_HEARTBEAT_DIR"
 
 # A collective that waits longer than this for a peer fails instead of
 # hanging the job (the launcher then stops the other ranks).
@@ -45,14 +52,9 @@ _world: dict | None = None
 
 def env_flag(name: str) -> bool:
     """Shared boolean env-var contract: unset/''/'0'/'false'/'no' are off
-    (case-insensitive), anything else is on — the same spellings as the
-    JAX package's knob registry accepts."""
-    return (os.environ.get(name) or "").lower() not in ("", "0", "false", "no")
-
-
-def _env_int(name: str) -> int | None:
-    value = os.environ.get(name)
-    return int(value) if value not in (None, "") else None
+    (case-insensitive), anything else is on — the contract itself lives in
+    `analysis.registry.flag_like`."""
+    return registry.flag_like(os.environ.get(name))
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -142,16 +144,16 @@ def init(coordinator_address: str | None = None,
     backend, card = _place(
         dev.type, local_rank(),
         torch.cuda.device_count() if dev.type == "cuda" else 0,
-        backend or os.environ.get(ENV_BACKEND) or None)
+        backend or registry.get_str(ENV_BACKEND))
     if card is not None:
         dev = torch.device("cuda", card)
         torch.cuda.set_device(dev)
     coordinator_address = (coordinator_address
-                           or os.environ.get(ENV_COORDINATOR) or None)
+                           or registry.get_str(ENV_COORDINATOR))
     if num_processes is None:
-        num_processes = _env_int(ENV_NUM_PROCESSES)
+        num_processes = registry.get_int(ENV_NUM_PROCESSES)
     if process_id is None:
-        process_id = _env_int(ENV_PROCESS_ID)
+        process_id = registry.get_int(ENV_PROCESS_ID)
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError(
@@ -235,7 +237,7 @@ def local_rank() -> int:
     """Ordinal of this process among those on its host (≈
     ``hvd.local_rank()``), from ``HVT_LOCAL_RANK`` (0 unlaunched) — the
     card it pins."""
-    return _env_int(ENV_LOCAL_RANK) or 0
+    return registry.get_int(ENV_LOCAL_RANK)
 
 
 def local_size() -> int:

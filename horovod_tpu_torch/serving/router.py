@@ -208,11 +208,13 @@ def make_router(port: int = 0, host: str = "127.0.0.1",
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
-            self.wfile.write(body)
+            # Counted before the body goes out: a client that has read the
+            # reply finds it in /metrics.
             reg.counter(
                 "hvt_serve_requests_total", route=_route(self.path),
                 code=str(code),
             )
+            self.wfile.write(body)
 
         def do_GET(self):
             if self.path == "/metrics":
@@ -292,11 +294,11 @@ def make_router(port: int = 0, host: str = "127.0.0.1",
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(payload)))
                 self.end_headers()
-                self.wfile.write(payload)
                 reg.counter(
                     "hvt_serve_requests_total", route=_route(self.path),
                     code=str(e.code),
                 )
+                self.wfile.write(payload)
                 return None
 
         def _relay(self, upstream, t0: float):

@@ -17,10 +17,12 @@ import socket
 import threading
 import time
 
+from horovod_tpu_torch.analysis import registry
+
 
 def span_dir() -> str | None:
     """The ``HVT_TRACE_DIR`` target, or None when spans are off."""
-    return os.environ.get("HVT_TRACE_DIR") or None
+    return registry.get_str("HVT_TRACE_DIR")
 
 
 class _SpanWriter:

@@ -10,19 +10,25 @@
 * `ModelCheckpoint` / `ScalarLogger` — rank-0-only checkpoints and scalar
   logs (``events.jsonl`` and TensorBoard event files).
 * `ExponentialMovingAverage` — the parameters' EMA (`training.ema`).
+* `PreemptionCheckpointCallback` — a signal becomes an agreed save-and-stop
+  at the next epoch end.
+* `HeartbeatCallback` and `env_callbacks` — what the launcher's
+  environment asks for (``HVT_HEARTBEAT_DIR``, ``HVT_FAULT``), appended by
+  ``fit()`` on every path.
 
-Not ported yet (ROADMAP queue A item 13, the control plane): preemption
-checkpoints, heartbeats, the metrics-push callback, env-requested
-callbacks, asynchronous and sharded checkpoints.
+Not ported yet (ROADMAP queue A item 13.3): the metrics-push callback,
+asynchronous and sharded checkpoints.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import time
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.parallel import collectives
 
 
@@ -141,13 +147,14 @@ class LearningRateScheduleCallback(Callback):
 
 
 def save_state(filepath_template: str, epoch: int, state, *,
-               step: int = 0) -> str | None:
+               step: int = 0, cursor: dict | None = None) -> str | None:
     """One single-file checkpoint of ``state`` by the primary rank (others
     return None). ``step == 0``: the end of 0-based epoch ``epoch`` — file
     ``checkpoint-{epoch+1}``, manifest ``(epoch+1, 0)``. ``step > 0``: a
     mid-epoch save after ``step`` optimizer steps of epoch ``epoch`` — file
     ``checkpoint-{epoch}`` (advanced in place), manifest ``(epoch,
-    step)``."""
+    step)``. ``cursor`` (`Trainer.stream_cursor`) rides in the
+    manifest."""
     from horovod_tpu_torch import checkpoint
 
     if step and getattr(state.optimizer, "state_is_collective", False):
@@ -156,7 +163,13 @@ def save_state(filepath_template: str, epoch: int, state, *,
         return None
     completed = epoch + 1 if step == 0 else epoch
     path = filepath_template.format(epoch=completed)
-    return checkpoint.save(path, state, progress=(completed, step))
+    return checkpoint.save(path, state, progress=(completed, step),
+                           cursor=cursor)
+
+
+def _cursor(trainer, epoch: int, step: int):
+    fn = getattr(trainer, "stream_cursor", None)
+    return fn(epoch, step) if callable(fn) else None
 
 
 class ModelCheckpoint(Callback):
@@ -186,7 +199,7 @@ class ModelCheckpoint(Callback):
             )
         self.filepath = filepath
         if save_every_steps is None:
-            save_every_steps = int(os.environ.get("HVT_SAVE_EVERY_STEPS") or 0)
+            save_every_steps = registry.get_int("HVT_SAVE_EVERY_STEPS")
         self.save_every_steps = max(0, int(save_every_steps))
         self._epoch = 0
         self._last_save_step = 0
@@ -205,10 +218,73 @@ class ModelCheckpoint(Callback):
         if done - self._last_save_step < self.save_every_steps:
             return
         self._last_save_step = done
-        save_state(self.filepath, self._epoch, self.trainer.state, step=done)
+        save_state(self.filepath, self._epoch, self.trainer.state, step=done,
+                   cursor=_cursor(self.trainer, self._epoch, done))
 
     def on_epoch_end(self, epoch: int, logs=None):
-        save_state(self.filepath, epoch, self.trainer.state)
+        save_state(self.filepath, epoch, self.trainer.state,
+                   cursor=_cursor(self.trainer, epoch + 1, 0))
+
+
+class PreemptionCheckpointCallback(Callback):
+    """Preemption-graceful training: a scheduler's SIGTERM (grace window,
+    then SIGKILL) becomes a clean save-and-stop.
+
+    * the signal handler only sets a flag — all real work happens at the
+      next epoch end, outside collectives and graph replays;
+    * at every epoch end the flag is agreed across ranks (`agree_any`: any
+      rank's signal stops every rank at the same epoch, so none is left in
+      a collective);
+    * on agreement: one final checkpoint (`save_state`, the primary
+      writes), ``trainer.stop_training``, and optionally a distinct exit
+      status.
+
+    ``exit_code`` (143 = 128 + SIGTERM is the convention the supervisor
+    classifies as ``preemption``): when set, ``on_train_end`` raises
+    ``SystemExit`` with it after the save; the trainer runs every
+    callback's ``on_train_end`` before propagating it. Default None: fit
+    returns with ``callback.preempted == True``. The callback must run on
+    every rank (its agreement is a collective), and fit must run on the
+    main thread (Python delivers signals there)."""
+
+    saves_state = True
+
+    def __init__(self, filepath: str, signals=(signal.SIGTERM,),
+                 exit_code: int | None = None, verbose: int = 1):
+        self.filepath = filepath
+        self.signals = tuple(signals)
+        self.exit_code = exit_code
+        self.verbose = verbose
+        self.preempted = False
+        self._hit = False
+        self._old: dict = {}
+
+    def on_train_begin(self, logs=None):
+        self._hit = False
+        self.preempted = False
+        for s in self.signals:
+            self._old[s] = signal.signal(s, self._handler)
+
+    def _handler(self, signum, frame):
+        self._hit = True
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        if not agree_any(self._hit):
+            return
+        save_state(self.filepath, epoch, self.trainer.state,
+                   cursor=_cursor(self.trainer, epoch + 1, 0))
+        self.trainer.stop_training = True
+        self.preempted = True
+        if self.verbose and runtime.is_primary():
+            print(f"PreemptionCheckpoint: signal received — epoch "
+                  f"{epoch + 1} saved, stopping training", flush=True)
+
+    def on_train_end(self, logs=None):
+        for s, h in self._old.items():
+            signal.signal(s, h)
+        self._old = {}
+        if self.preempted and self.exit_code is not None:
+            raise SystemExit(self.exit_code)
 
 
 class ScalarLogger(Callback):
@@ -313,6 +389,72 @@ class ScalarLogger(Callback):
         if self._tb_writer is not None:
             self._tb_writer.close()
             self._tb_writer = None
+
+
+class HeartbeatCallback(Callback):
+    """Touch a per-rank liveness file, ``<directory>/rank-<rank>``, so the
+    restart supervisor (`launch/supervisor.py`) can tell a hung fleet from
+    a slow one. ``fit()`` installs it when the supervisor exports
+    ``HVT_HEARTBEAT_DIR`` (`env_callbacks`).
+
+    Beats land at train and epoch boundaries always and at batch ends
+    throttled to ``interval`` seconds, synchronously with the training
+    loop (no timer thread, which would keep a wedged main thread looking
+    alive), as host work between graph replays. The beat-free span is a
+    whole epoch on the device-cached path (its batch callbacks fire once
+    an epoch, or once a chunk), and post-fit work does not beat: the
+    supervisor's ``heartbeat_timeout`` must exceed both."""
+
+    def __init__(self, directory: str, interval: float = 1.0):
+        self.directory = directory
+        self.interval = interval
+        self._last = 0.0
+
+    def _beat(self, force: bool = False):
+        now = time.time()
+        if not force and now - self._last < self.interval:
+            return
+        try:
+            os.makedirs(self.directory, exist_ok=True)
+            path = os.path.join(self.directory, f"rank-{runtime.rank()}")
+            with open(path, "a"):
+                os.utime(path, None)
+        except OSError:
+            # A torn-down heartbeat dir must never kill training itself.
+            return
+        self._last = now
+
+    def on_train_begin(self, logs=None):
+        self._beat(force=True)
+
+    def on_epoch_begin(self, epoch: int, logs=None):
+        self._beat(force=True)
+
+    def on_batch_end(self, batch: int, logs=None):
+        self._beat()
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        self._beat(force=True)
+
+
+def env_callbacks() -> list:
+    """Callbacks the environment asks for — appended by ``fit()`` to the
+    user's list on every path, so launcher-level machinery reaches into
+    training without entry-script changes:
+
+    * ``HVT_HEARTBEAT_DIR`` (set by the supervisor) → `HeartbeatCallback`
+    * ``HVT_FAULT`` (the deterministic chaos knob) →
+      `testing.faults.FaultInjectionCallback`
+    """
+    out: list = []
+    hb_dir = registry.get_str(runtime.ENV_HEARTBEAT_DIR)
+    if hb_dir:
+        out.append(HeartbeatCallback(hb_dir))
+    if registry.get_str("HVT_FAULT"):
+        from horovod_tpu_torch.testing.faults import FaultInjectionCallback
+
+        out.append(FaultInjectionCallback.from_env())
+    return out
 
 
 # Keras-name alias: the reference registers this under TensorBoard.

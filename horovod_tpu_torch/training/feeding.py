@@ -14,7 +14,6 @@ to the runner at a time, and a new shape is captured anew.
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
@@ -22,6 +21,7 @@ import torch
 
 from horovod_tpu_torch import random as random_lib
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data.loader import ArrayDataset, training_pipeline
 from horovod_tpu_torch.data.prefetch import DevicePrefetcher
 from horovod_tpu_torch.parallel import collectives
@@ -116,6 +116,17 @@ def _check_callbacks(callbacks) -> list:
     return list(callbacks)
 
 
+def _with_env_callbacks(callbacks) -> list:
+    """User callbacks + env-requested ones (heartbeat, fault injection —
+    `callbacks.env_callbacks`), appended last so they see the epoch state
+    the user's callbacks produced; applied on every fit path, so
+    supervised launches need no entry-script changes. A beat or a fault
+    is host work between graph replays: nothing of it is captured."""
+    from horovod_tpu_torch.training import callbacks as callbacks_lib
+
+    return _check_callbacks(list(callbacks) + callbacks_lib.env_callbacks())
+
+
 def run_fit(trainer, dataset=None, *, x=None, y=None, batch_size: int = 128,
             epochs: int = 1, initial_epoch: int = 0, initial_step: int = 0,
             steps_per_epoch: int | None = None, callbacks=(),
@@ -125,7 +136,7 @@ def run_fit(trainer, dataset=None, *, x=None, y=None, batch_size: int = 128,
     """`Trainer.fit` (see there)."""
     if verbose is None:
         verbose = 1 if runtime.is_primary() else 0
-    callbacks = _check_callbacks(callbacks)
+    callbacks = _with_env_callbacks(callbacks)
     if isinstance(x, list):
         x = np.asarray(x)
     if cache == "device":
@@ -304,7 +315,7 @@ def fit_device_cached(trainer, x, y, batch_size, epochs, initial_epoch,
     runner = StepRunner(trainer, shuffled_x, shuffled_y,
                         batch_size=batch_size, max_steps=steps, eager=eager)
     trainer._runner = runner
-    chunk = int(os.environ.get("HVT_EPOCH_CHUNK_STEPS") or 0)
+    chunk = registry.get_int("HVT_EPOCH_CHUNK_STEPS")
     for cb in callbacks:
         cb.set_trainer(trainer)
     trainer.stop_training = False

@@ -46,12 +46,12 @@ roots).
 from __future__ import annotations
 
 import functools
-import os
 import typing
 
 import torch
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.parallel.mesh import scale_lr  # noqa: F401 (re-export)
 from horovod_tpu_torch.training import zero1
@@ -172,11 +172,9 @@ class DistributedOptimizer:
         self.ef = bool(error_feedback) and (
             self.quantized
             or collectives.is_quantized_wire(self.ici_wire_dtype))
-        self.bucket_bytes = int(
-            os.environ.get("HVT_BUCKET_BYTES")
-            or collectives.DEFAULT_BUCKET_BYTES
-        )
-        order = os.environ.get("HVT_BUCKET_ORDER") or "reverse"
+        self.bucket_bytes = (registry.get_int("HVT_BUCKET_BYTES")
+                             or collectives.DEFAULT_BUCKET_BYTES)
+        order = registry.get_str("HVT_BUCKET_ORDER")
         if order not in ("reverse", "forward"):
             raise ValueError("HVT_BUCKET_ORDER must be 'reverse' or "
                              f"'forward', got {order!r}")

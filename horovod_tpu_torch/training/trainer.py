@@ -32,12 +32,13 @@ The boundary reduction is the `DistributedOptimizer`'s: its wire
 
 from __future__ import annotations
 
-import os
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.analysis import registry
+from horovod_tpu_torch.data import stream
 from horovod_tpu_torch.parallel import mesh
 from horovod_tpu_torch.runtime import derive_seed, resolve_device
 from horovod_tpu_torch.training import feeding
@@ -118,13 +119,12 @@ class Trainer:
                                  f"'forward', got {bucket_order!r}")
             self.tx.bucket_reverse = bucket_order == "reverse"
         if overlap_reduction is None:
-            overlap_reduction = os.environ.get("HVT_OVERLAP_REDUCTION") in (
-                None, "") or runtime.env_flag("HVT_OVERLAP_REDUCTION")
+            overlap_reduction = registry.get_flag("HVT_OVERLAP_REDUCTION")
         self.tx.overlap = bool(overlap_reduction)
         self.shard_update = bool(shard_update)
         # The two-hop factor: HVT_DCN_FACTOR (checked here: it must divide
         # the world size), else the hosts, asked at the first step.
-        if os.environ.get(mesh.ENV_DCN_FACTOR):
+        if registry.get_raw(mesh.ENV_DCN_FACTOR):
             self.tx.dcn = mesh.dcn_factor()
         self._accum_steps = self.tx.backward_passes_per_step
         self.loss_fn = _resolve_loss(loss)
@@ -166,6 +166,18 @@ class Trainer:
             self.state = TrainState(step=0, model=self.module,
                                     optimizer=self.tx, rng=self.seed)
         return self.state
+
+    def stream_cursor(self, epoch: int, step: int) -> dict | None:
+        """The stream cursor of training position "``step`` optimizer steps
+        into epoch ``epoch``" of the current fit, in the JAX package's
+        record form (`data.stream.CURSOR_FORMAT`); None before a fit set a
+        feed. Checkpoint callbacks stamp it into the progress manifest,
+        where the supervisor reads ``steps_per_epoch``."""
+        if self._stream_geometry is None:
+            return None
+        return {"format": stream.CURSOR_FORMAT, "kind": "fit",
+                "seed": int(self.seed), "epoch": int(epoch),
+                "step": int(step), "position": dict(self._stream_geometry)}
 
     def _tensor(self, a):
         if isinstance(a, torch.Tensor):

@@ -1,9 +1,11 @@
-"""The port stands alone: no JAX, no flax, nothing of `horovod_tpu`.
+"""The port stands alone: no JAX, no flax, nothing of `horovod_tpu`, no
+PyYAML.
 
 `horovod_tpu_torch` and `chip_smoke.py` must run on a machine that has no
-JAX at all, so an AST scan refuses any such import (static or through
-``importlib``), and a fresh interpreter importing every port module must
-not have loaded ``jax``. Entry points default to the card and refuse to
+JAX and no PyYAML at all, so an AST scan refuses any such import (static
+or through ``importlib``), and a fresh interpreter importing every port
+module must not have loaded ``jax`` or ``yaml`` (job specs are read by
+`launch.specfile`). Entry points default to the card and refuse to
 carry on silently on the CPU; ``chip_smoke.py`` prints no result without
 CUDA or without the package beside it.
 """
@@ -24,7 +26,7 @@ import horovod_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "horovod_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu", "yaml")
 
 
 def _port_files():
@@ -322,3 +324,34 @@ def test_reduction_entry_points_refuse_cpu_fallback(no_cuda):
         ht.Trainer(m, tx, loss="module", shard_update=True)
     assert ht.Trainer(m, tx, loss="module", shard_update=True,
                       device="cpu").device.type == "cpu"
+
+
+LAUNCH_LAYER_MODULES = ("analysis", "analysis.registry", "launch.ci_gate",
+                        "launch.specfile", "launch.launcher",
+                        "launch.supervisor", "launch.job", "testing",
+                        "testing.faults", "training.callbacks")
+
+
+@pytest.mark.parametrize("name", LAUNCH_LAYER_MODULES)
+def test_launch_layer_modules_are_scanned(name):
+    """The launch layer's modules are in both scans (imported by the fresh
+    interpreter, parsed for forbidden imports, PyYAML included)."""
+    assert f"horovod_tpu_torch.{name}" in _modules()
+    path = os.path.join(PKG, *name.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
+    assert path in _port_files()
+
+
+def test_no_port_module_imports_yaml():
+    """PyYAML is absent on the card's machine: the scan refuses it."""
+    assert _forbidden("yaml") and _forbidden("yaml.loader")
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module else [])
+            assert not any(n.split(".")[0] == "yaml" for n in names), path
