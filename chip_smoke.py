@@ -58,7 +58,8 @@ Phases (any failed check exits non-zero before the result line):
    intact; images/s, warmup scales and peak memory are printed;
 9. ``mnist_tf1`` — the twin of the TF1 MNIST script (Adadelta(1.0 × size),
    per-epoch validation, final evaluate, save/reload, serving export) at
-   ``--nprocs 1``, 12 epochs on 60k/10k. It fails unless the mean of the
+   ``--nprocs 1``, 12 epochs on 60k/10k unless cut (``MNIST_TF1_CUT``: 3).
+   It fails unless the mean of the
    ``loss`` records in ``metrics.jsonl`` lies in [0, 0.3] (the CI gate); a
    resume from the newest checkpoint restores the script's final training
    state bit for bit (its state digest) and evaluates to the script's test
@@ -100,7 +101,7 @@ Phases (any failed check exits non-zero before the result line):
       (``horovod_tpu_torch.examples.cifar10_resnet``: bf16 ResNet-20 with
       global-batch BatchNorm, Adam(0.001 × size), warmup, rank-0
       checkpoints) at one NCCL rank, 390 steps × 24 epochs at 128 unless
-      cut (``CIFAR_CUT``). The loss must fall, the checkpoints be intact and
+      cut (``CIFAR_CUT``: 6 epochs). The loss must fall, the checkpoints be intact and
       test accuracy reach 0.45 (the synthetic set's ceiling is ~0.5:
       classes c and c + 5 are one distribution); images/s (median, min,
       max), step ms, peak memory, the epoch losses and test accuracy; then
@@ -226,8 +227,25 @@ Phases (any failed check exits non-zero before the result line):
    d. ``pod --hosts 127.0.0.1,localhost`` through a PATH-shimmed ``ssh``
       (``tests/test_launch.py``'s shim), ``HVT_BACKEND=gloo``: a world of
       two ranks sharing the card, their states equal;
-17. the ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+17. MoE and expert parallelism (no new kernel: the JAX MoE layer runs
+   none), each part a ``phase17*`` line with the card:
+   a. the bench LM in bench.py's MoE mode (``MOE_MODEL``: ``moe_every=2``,
+      8 experts, top-2, capacity 1.25, bf16) trains 30 steps at 8 × 1024:
+      the loss falls, ``moe_drop_rate`` in every epoch log in [0, 1), B1-B3
+      launch n_layers × (eager steps + captures) times on tc; step ms,
+      tokens/s, peak memory, the replayed step's device time, one MoE
+      layer's forward and backward as graph replays and its share; then 5
+      steps with ``moe_router="expert_choice"`` (``moe_uncovered_rate``);
+   b. one f32 step of a 2-layer MoE LM on the card against the CPU: loss,
+      aux loss, drop rate and every gradient;
+   c. (a)'s weights at capacity 4.0 in f32: 64 greedy tokens for 8
+      prompts of 128 through the captured decode step, equal to the
+      no-cache recompute but at counted near-ties;
+   d. ``MeshSpec(data=1, expert=2)`` at two gloo ranks on the card against
+      one rank (``MOE_CHILD``), f32, SGD: losses, expert shards,
+      replicated parameters bit-equal, eager steps;
+18. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
 the native batch engine, as the JAX tf1 script does where g++ builds it.
@@ -243,7 +261,12 @@ captured in each rank's step; in 15b the quantized wire's all-to-all and
 all-gathers, ZeRO-1's parameter all-gather, one graph a step). At four
 ranks 15b also runs the two-hop reduction (``HVT_DCN_FACTOR=2``) with the
 int8 ici wire. The ranks must end bit-identical, running statistics
-included, and 12b's replays equal to eager steps on every rank.
+included, and 12b's replays equal to eager steps on every rank. 17e runs
+``MeshSpec(data=2, expert=2)`` at four NCCL ranks (``--ranks 4``; alone
+with ``--moe-only``): the bench MoE LM, captured steps, replicated
+parameters bit-equal and each expert shard equal across its batch group,
+tokens/s a card beside the dense LM's at four data ranks, and the
+checkpoint written there restored at one rank with the full experts.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -317,9 +340,11 @@ N_REQUESTS = 12
 # through the scripts' DRIVE_* knobs only where set here.
 MNIST_BATCH = 128
 # The full tf2 budget took 122 s on the H100 (24 epochs at ~3.2 s and
-# ~45 s of process start, data synthesis and checkpoints); 5 epochs keep
-# phase 8 near a minute. tf1's full budget took 80 s and runs uncut.
-MNIST_TF2_CUT = {"DRIVE_EPOCHS": "5"}
+# ~45 s of process start, data synthesis and checkpoints), tf1's 80 s
+# (val_accuracy 1.0 from its first epoch on the synthetic set). Cut to 2
+# and 3 epochs, so that the whole smoke stays inside its time limit.
+MNIST_TF2_CUT = {"DRIVE_EPOCHS": "2"}
+MNIST_TF1_CUT = {"DRIVE_EPOCHS": "3"}
 MNIST_2RANK_CUT = {"DRIVE_STEPS": "20", "DRIVE_EPOCHS": "3"}
 CI_LOSS_GATE = (0.0, 0.3)  # launch/jobs/mnist-ci.yaml's loss range
 # Phase 11 runs the port's CI job spec through `launch job` (16a).
@@ -344,7 +369,9 @@ MNIST_STEPS_PER_EPOCH = 60000 // MNIST_BATCH
 # Phase 12: BASELINE.json config 4, the CIFAR-10 twin — the reference
 # budget (shard_steps(390) steps × 24 epochs at 128 a rank) unless cut here.
 CIFAR_BATCH = 128
-CIFAR_CUT: dict = {}
+# Cut to 6 of 24 epochs for the smoke's time limit: the training accuracy
+# is ~0.5 (the ceiling) from the first epoch, later epochs overfit.
+CIFAR_CUT = {"DRIVE_EPOCHS": "6"}
 CIFAR_TIMEOUT_S = 900
 # The synthetic CIFAR stand-in makes class c and c + 5 one distribution
 # (the reference's data, copied as it is): test accuracy tops out near 0.5,
@@ -363,7 +390,7 @@ CIFAR_GRAPH_VS_EAGER_STEPS = 10
 # not of the identity.)
 SYNC_BN_BATCH, SYNC_BN_STEPS, SYNC_BN_SIDE, SYNC_BN_ATOL = 4, 4, 16, 2e-6
 # 12d: the ViT branch (ARCH=vit) at the example's width, cut.
-VIT_CUT = {"ARCH": "vit", "DRIVE_STEPS": "100", "DRIVE_EPOCHS": "3"}
+VIT_CUT = {"ARCH": "vit", "DRIVE_STEPS": "100", "DRIVE_EPOCHS": "2"}
 # Phase 15: the sharded and quantized reduction. 15b trains the bench LM
 # (MODEL, bf16, fused-CE head) at REDUCTION_RANKS gloo ranks sharing the
 # card, REDUCTION_ROWS × TRAIN_SEQ rows a microbatch, REDUCTION_K
@@ -1644,11 +1671,11 @@ def check_serving(trainer, bundle, x, device):
     return result
 
 
-def mnist_tf1(torch, nprocs=1):
+def mnist_tf1(torch, nprocs=1, cut=MNIST_TF1_CUT):
     """Phase 9: the tf1 twin at ``nprocs`` NCCL ranks, the reference budget
-    (ceil(12 / nprocs) epochs); its CI loss gate, a resume from its newest
-    checkpoint and its serving export, checked here, in one process, from
-    the script's artifacts."""
+    (ceil(12 / nprocs) epochs) unless ``cut``; its CI loss gate, a resume
+    from its newest checkpoint and its serving export, checked here, in one
+    process, from the script's artifacts."""
     import numpy as np
 
     from horovod_tpu_torch import (DistributedOptimizer, Trainer, adadelta,
@@ -1657,7 +1684,7 @@ def mnist_tf1(torch, nprocs=1):
     from horovod_tpu_torch.models.cnn import MnistCNN
 
     lines, wall, started, model_path = _launch("mnist_tf1", nprocs,
-                                               "tf1_style_mnist", {})
+                                               "tf1_style_mnist", cut)
     world = _world(lines, nprocs, "nccl")
     feed = json.loads(_rank_line(lines, "Feed:"))
     check(feed["path"] == "streamed" and feed["engine"] == "native",
@@ -3910,8 +3937,11 @@ def reduction_phase(torch, card):
                          ["i_f32", "ii_int8", "iii_int8_zero1_overlap",
                           "iii_int8_zero1", "iv_fp8_zero1"], "gloo",
                          with_15a=True)
-    res["twin_1"] = reduction_twin(torch, 1)
-    res["twin_2"] = reduction_twin(torch, 2)
+    # The two twins are checks of the int8 wire and its resume: they share
+    # the card at once (their images/s are not those of a twin alone).
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        twins = [pool.submit(reduction_twin, torch, n) for n in (1, 2)]
+        res["twin_1"], res["twin_2"] = (t.result() for t in twins)
     res["seconds"] = time.perf_counter() - t0
     log(f"reduction phase seconds: {res['seconds']:.1f}")
     return res
@@ -4084,6 +4114,474 @@ def launch_phase(torch, card, ci_job):
     return res
 
 
+# -- phase 17 -------------------------------------------------------------------
+
+# The bench LM in bench.py's MoE mode (bench.py:112-150 with moe=True):
+# every second block's MLP routed over 8 experts, top-2, capacity 1.25.
+MOE_MODEL = dict(MODEL, moe_every=2, n_experts=8, moe_k=2,
+                 capacity_factor=1.25)
+MOE_EC_STEPS = 5  # 17a: steps with moe_router="expert_choice"
+# 17b: one f32 step of a 2-layer MoE LM at the bench width on the card and
+# on the CPU, from the same weights and batch (2 × 512 tokens: one dispatch
+# group). The router's f32 logits differ by rounding only; the loss, the
+# aux loss and each gradient are held as phase 7 holds the dense step (loss
+# 1e-5 abs, each gradient 2e-5 of its tensor's largest), the aux loss to
+# 1e-6 abs.
+MOE_PLAIN_ROWS, MOE_PLAIN_SEQ, MOE_AUX_ATOL = 2, 512, 1e-6
+# 17c: phase 17a's weights at capacity_factor 4.0 (no token dropped, so a
+# decode step routes as the recompute does), f32 compute; greedy decode
+# equals the no-cache recompute token for token, except past a near-tie
+# (top-2 logits of the recompute within this margin), which is counted.
+MOE_DECODE_MARGIN = 1e-3
+# 17d: two gloo ranks sharing the card, MeshSpec(data=1, expert=2), the
+# bench width at 2 layers (one MoE block), f32, MOE_EP_STEPS SGD steps of
+# 8 × 1024 against one rank: losses to 1e-5 relative, rank j's experts to
+# 1e-5 abs of the one-rank experts [4j, 4j + 4) — the expert group sums the
+# combine in another order — replicated parameters bit-equal on the ranks.
+MOE_EP_STEPS, MOE_EP_LR, MOE_EP_RTOL, MOE_EP_ATOL = 3, 0.1, 1e-5, 1e-5
+# 17e (--ranks 4): MeshSpec(data=2, expert=2) on NCCL, the bench MoE LM in
+# bf16 at full depth, MOE_4_STEPS steps (one eager, one capture, replays)
+# at 8 × 1024 a rank, and the dense LM at four data ranks beside it.
+MOE_4_STEPS = 10
+
+MOE_CHILD = r"""
+import functools, json, os, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import callbacks, runtime
+from horovod_tpu_torch.data.datasets import copy_task
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.parallel import mesh as tmesh
+
+ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
+r = ht.rank()
+dev = runtime.device()
+cfg = json.loads(os.environ["SMOKE_MODEL"])
+steps = int(os.environ["SMOKE_STEPS"])
+rows = int(os.environ.get("SMOKE_ROWS") or cs.TRAIN_BATCH)
+seq = int(os.environ.get("SMOKE_SEQ") or cs.TRAIN_SEQ)
+out = os.environ["SMOKE_OUT"]
+mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string(os.environ["SMOKE_MESH"]))
+moe = bool(cfg.get("moe_every"))
+model = ttr.TransformerLM(**cfg, sharding=ttr.ShardingConfig(mesh=mesh),
+                          device=dev, seed=0)
+if os.environ.get("SMOKE_OPT") == "sgd":
+    opt = functools.partial(torch.optim.SGD, lr=float(os.environ["SMOKE_LR"]))
+else:
+    opt = ht.adamw(ht.scale_lr(3e-4, 1))
+trainer = ht.Trainer(model, ht.DistributedOptimizer(opt), loss="module",
+                     seed=0, mesh=mesh,
+                     param_specs=ttr.param_specs if moe else None,
+                     device=dev)
+# Each batch shard draws its own rows; the ranks of an expert group alike.
+x, y = copy_task(4096, seq, cfg["vocab_size"])
+rng = np.random.RandomState(100 + mesh.data_index)
+batches = []
+for _ in range(steps):
+    idx = rng.randint(0, len(x), size=rows)
+    batches.append((x[idx], y[idx]))
+
+
+class Clock(callbacks.Callback):
+    # Each step's wall and metrics (one epoch of all the steps: the
+    # checkpoint, if any, is written once, after the last).
+    def on_train_begin(self, logs=None):
+        self.t, self.logs = [time.perf_counter()], []
+
+    def on_batch_end(self, batch, logs=None):
+        self.logs.append({k: float(v) for k, v in logs.items()})
+        self.t.append(time.perf_counter())
+
+
+clock = Clock()
+cbs = [clock, callbacks.MetricAverageCallback()]
+ckpt = os.environ.get("SMOKE_CKPT")
+if ckpt and r == 0:
+    cbs.append(callbacks.ModelCheckpoint(
+        os.path.join(ckpt, "checkpoint-{epoch}.pt")))
+trainer.build(*batches[0])
+trainer.fit(dataset=batches, epochs=1, steps_per_epoch=steps, callbacks=cbs,
+            verbose=0)
+step_ms = sorted(1e3 * (b - a) for a, b in zip(clock.t[2:], clock.t[3:]))
+runner = trainer._runner
+res = {"rank": r, "coords": mesh.coords,
+       "losses": [e["loss"] for e in clock.logs],
+       "metrics": {k: [e[k] for e in clock.logs]
+                   for k in trainer.metric_names},
+       "eager_steps": runner.eager_steps, "captures": runner.captures,
+       "replays": runner.replays,
+       "step_ms_median": step_ms[len(step_ms) // 2] if step_ms else None,
+       "tokens_per_s_per_card": (rows * seq / (step_ms[len(step_ms) // 2]
+                                               / 1e3)) if step_ms else None,
+       "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                           if dev.type == "cuda" else None)}
+local = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+np.savez(os.path.join(out, f"local{r}.npz"), **local)
+full = trainer.state.full_model_state()
+if r == 0:
+    np.savez(os.path.join(out, "full.npz"),
+             **{n: t.detach().cpu().numpy() for n, t in full.items()})
+print("moe_child", json.dumps(res), flush=True)
+"""
+
+
+def _moe_lines(lines, nprocs):
+    recs = []
+    for r in range(nprocs):
+        text = _rank_line(lines, "moe_child ", r)
+        check(text is not None, f"17: rank {r} printed no result")
+        recs.append(json.loads(text))
+    return recs
+
+
+def moe_child_run(torch, name, nprocs, mesh, model, steps, backend,
+                  opt="adamw", ckpt=False):
+    """One launch of MOE_CHILD: ``nprocs`` ranks, the mesh, the model
+    config, ``steps`` fit steps. Returns (per-rank records, per-rank local
+    parameters, rank 0's whole parameters, the checkpoint dir or None)."""
+    import numpy as np
+
+    out = os.path.join(WORK, name + "_out")
+    os.makedirs(out, exist_ok=True)
+    ck = os.path.join(out, "ckpt") if ckpt else ""
+    knobs = {"SMOKE_MODEL": json.dumps(model), "SMOKE_STEPS": str(steps),
+             "SMOKE_MESH": mesh, "SMOKE_OUT": out, "SMOKE_OPT": opt,
+             "SMOKE_LR": str(MOE_EP_LR), "SMOKE_CKPT": ck,
+             "HVT_BACKEND": backend, "PYTHONUNBUFFERED": "1"}
+    lines, wall, _, _ = _launch(name, nprocs, None, knobs, code=MOE_CHILD,
+                                timeout=600)
+    recs = _moe_lines(lines, nprocs)
+    local = [dict(np.load(os.path.join(out, f"local{r}.npz")))
+             for r in range(nprocs)]
+    full = dict(np.load(os.path.join(out, "full.npz")))
+    return recs, local, full, (ck or None), wall
+
+
+def _replicated_and_shards_equal(local, shape):
+    """Replicated parameters bit-equal on every rank; each expert shard
+    bit-equal across its batch group. Returns the differing names."""
+    import numpy as np
+
+    from horovod_tpu_torch.parallel import mesh as tmesh
+
+    bad = []
+    for n in local[0]:
+        if ".moe.moe_" in n:
+            for g in tmesh.axis_rank_lists(shape, ("data", "fsdp")):
+                bad += [n for r in g[1:]
+                        if not np.array_equal(local[r][n], local[g[0]][n])]
+        else:
+            bad += [n for loc in local[1:]
+                    if not np.array_equal(loc[n], local[0][n])]
+    return sorted(set(bad))
+
+
+def moe_train(torch, card):
+    """17a: the bench MoE LM trains at full width and depth; the launch
+    counts of B1-B3 on the tensor-core route; a profiled breakdown of the
+    MoE layers' device time; then expert-choice steps."""
+    import numpy as np
+
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw, scale_lr
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    x, y = copy_task(4096, TRAIN_SEQ, MODEL["vocab_size"])
+    feed = _draw(x, y, np.random.RandomState(0))
+    model = TransformerLM(**MOE_MODEL, compute_dtype=torch.bfloat16,
+                          fused_head_chunks=8, device=DEVICE, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, DistributedOptimizer(adamw(scale_lr(3e-4))),
+                      loss="module", seed=0, device=DEVICE)
+    # Build with a sample: the eval-mode forward that names the sown
+    # metrics runs before the counts are zeroed.
+    trainer.build(*next(feed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches_tc = fa.launches_bwd_dq_tc = fa.launches_bwd_dkv_tc = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1,
+                       verbose=0)
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd_tc": fa.launches_tc,
+                "flash_bwd_dq_tc": fa.launches_bwd_dq_tc,
+                "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc,
+                "flash_fwd": fa.launches, "flash_bwd_dq": fa.launches_bwd_dq,
+                "flash_bwd_dkv": fa.launches_bwd_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in hist]
+    drops = [e.get("moe_drop_rate") for e in hist]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"17a: the MoE LM's loss is not finite or did not fall: {losses}")
+    check(all(d is not None and 0.0 <= d < 1.0 for d in drops),
+          f"17a: moe_drop_rate missing from an epoch log or outside [0, 1): "
+          f"{drops}")
+    runner = trainer._runner
+    check(runner.captures == 1 and runner.replays == TRAIN_STEPS - 1,
+          f"17a: {runner.captures} captures, {runner.replays} replays")
+    want = MODEL["n_layers"] * (TRAIN_STEPS - runner.replays
+                                + runner.captures)
+    for name, n in launches.items():
+        check(n == want, f"17a: {name} launched {n} times, want n_layers × "
+              f"(eager steps + captures) = {want}, all on the tensor-core "
+              "route")
+    steady = sorted(e["epoch_time_s"] * 1e3 for e in hist[2:])
+    median = steady[len(steady) // 2]
+    # Where the time goes: the replayed step's device time, and one MoE
+    # layer's forward and backward at the same shape, eagerly, by kind.
+    window = 5
+    prof, host_ms = profiled_fit(torch, lambda cbs: trainer.fit(
+        dataset=feed, epochs=2 * window, steps_per_epoch=1, callbacks=cbs,
+        verbose=0), window, window)
+    replay, _ = _per_step(torch, prof, window, host_ms)
+    # One MoE layer's forward and backward at the step's shape, timed on
+    # the device as CUDA-graph replays (a profiler session over the eager
+    # layer saw only part of its kernels in some runs).
+    layer = model.blocks[1].moe
+    xin = torch.randn(TRAIN_BATCH, TRAIN_SEQ, MODEL["d_model"],
+                      device=DEVICE, generator=torch.Generator(
+                          device=DEVICE).manual_seed(1)).to(
+        torch.bfloat16).requires_grad_()
+
+    def layer_step():
+        out = layer(xin, train=True)
+        loss = out.float().square().mean() + layer.sown["losses"][
+            "moe_load_balance"]
+        loss.backward()
+
+    layer_ms = device_ms(torch, layer_step, iters=5)
+    model.zero_grad(set_to_none=True)
+    n_moe = sum(1 for b in model.blocks if b.use_moe)
+    busy = replay["device_busy_ms_per_step"]
+    train = {
+        "model": dict(MOE_MODEL, compute_dtype="bfloat16",
+                      fused_head_chunks=8),
+        "parameters": n_params, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "wall_s": wall, "losses": losses,
+        "moe_drop_rate": drops, "step_ms_median": median,
+        "step_ms_min": steady[0], "step_ms_max": steady[-1],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+        "peak_memory_gib": peak / 2**30, "launches": launches,
+        "graph_replays": runner.replays, "replayed": replay,
+        "moe_layer_fwd_bwd_ms": layer_ms, "moe_layers": n_moe,
+        "moe_share_of_device_time": (n_moe * layer_ms / busy
+                                     if isinstance(busy, float)
+                                     else "not measured"),
+        "card": card,
+    }
+    log("phase17a", json.dumps(train))
+    # Expert choice: the same model, drop-free routing, its coverage metric.
+    ec_model = TransformerLM(**dict(MOE_MODEL, moe_router="expert_choice"),
+                             compute_dtype=torch.bfloat16,
+                             fused_head_chunks=8, device=DEVICE, seed=0)
+    ec = Trainer(ec_model, DistributedOptimizer(adamw(scale_lr(3e-4))),
+                 loss="module", seed=0, device=DEVICE)
+    ec_hist = ec.fit(dataset=feed, epochs=MOE_EC_STEPS, steps_per_epoch=1,
+                     verbose=0)
+    unc = [e.get("moe_uncovered_rate") for e in ec_hist]
+    check(all(u is not None and 0.0 <= u < 1.0 for u in unc)
+          and all(math.isfinite(e["loss"]) for e in ec_hist),
+          f"17a: expert choice: moe_uncovered_rate {unc}")
+    log("phase17a_expert_choice", json.dumps({
+        "steps": MOE_EC_STEPS, "losses": [e["loss"] for e in ec_hist],
+        "moe_uncovered_rate": unc, "card": card}))
+    return model, dict(train, launches=launches)
+
+
+def moe_vs_plain(torch, card):
+    """17b: one f32 step of a 2-layer MoE LM at the bench width on the card
+    and on the CPU, from the same weights and batch: the loss, the aux
+    loss and every gradient (the card's topk/cumsum/einsum path against
+    the CPU's)."""
+    import numpy as np
+
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    cfg = dict(MOE_MODEL, n_layers=2)
+    x, y = copy_task(MOE_PLAIN_ROWS, MOE_PLAIN_SEQ, MODEL["vocab_size"],
+                     seed=3)
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        m = TransformerLM(**cfg, device=dev, seed=2)
+        loss, _ = m(torch.from_numpy(x).to(dev), train=True, dropout_seed=0,
+                    labels=torch.from_numpy(y).to(dev))
+        aux = m.sown_losses()[0]
+        (loss.mean() + aux).backward()
+        got[dev] = (float(loss.detach().mean()), float(aux.detach()),
+                    {n: p.grad.detach().cpu() for n, p in m.named_parameters()},
+                    float(m.sown_metrics()["moe_drop_rate"]))
+    (lg, ag, gg, dg), (lc, ac, gc, dc) = got[DEVICE], got["cpu"]
+    worst = max((float((gg[n] - gc[n]).abs().max())
+                 / max(float(gc[n].abs().max()), 1e-30), n) for n in gc)
+    res = {"loss_card": lg, "loss_cpu": lc, "aux_card": ag, "aux_cpu": ac,
+           "drop_rate_card": dg, "drop_rate_cpu": dc,
+           "grad_worst_share_of_max": worst[0], "grad_worst": worst[1],
+           "card": card}
+    log("phase17b", json.dumps(res))
+    check(abs(lg - lc) <= TRAIN_LOSS_ATOL and abs(ag - ac) <= MOE_AUX_ATOL
+          and dg == dc and worst[0] <= TRAIN_GRAD_REL,
+          f"17b: the MoE step on the card differs from the CPU: {res}")
+    return res
+
+
+def moe_decode(torch, card, model):
+    """17c: phase 17a's weights at capacity_factor 4.0 in f32: 64 greedy
+    tokens for 8 prompts of 128 through the captured decode step, against
+    the no-cache greedy recompute."""
+    from horovod_tpu_torch.models.decoding import make_generate_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    dmodel = model.clone(capacity_factor=4.0, compute_dtype=torch.float32)
+    prompt = _prompt_batch(torch, 17).to(DEVICE)
+    fn = make_generate_fn(dmodel, max_new_tokens=DECODE_NEW,
+                          include_prompt=False)
+    first = fn.steps.counts()
+    fn(prompt)  # warm step + capture
+    fa.launches = 0
+    out, ms = _timed(torch, lambda: fn(prompt))
+    b1 = fa.launches
+    counts = {k: v - first[k] for k, v in fn.steps.counts().items()}
+    tokens = prompt.long()
+    near_ties, first_diff = 0, None
+    with torch.no_grad():
+        for i in range(DECODE_NEW):
+            logits = dmodel(tokens)[:, -1].float()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            nxt = logits.argmax(-1)
+            differ = nxt != out[:, i].long()
+            if bool(differ.any()):
+                margin = float((top2[:, 0] - top2[:, 1])[differ].max())
+                check(margin <= MOE_DECODE_MARGIN,
+                      f"17c: decode token {i} differs from the recompute "
+                      f"without a near-tie (top-2 margin {margin})")
+                near_ties += int(differ.sum())
+                first_diff = i if first_diff is None else first_diff
+                nxt = torch.where(differ, out[:, i].long(), nxt)
+            tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+    res = {"rows": BATCH, "prompt": PROMPT_LEN, "new_tokens": DECODE_NEW,
+           "ms": ms, "tokens_per_s": BATCH * DECODE_NEW / ms * 1e3,
+           "steps": counts, "b1_launches": b1,
+           "near_tie_differences": near_ties, "first_difference": first_diff,
+           "equal_to_recompute": near_ties == 0, "card": card}
+    log("phase17c", json.dumps(res))
+    return res
+
+
+def moe_ep_two_ranks(torch, card):
+    """17d: MeshSpec(data=1, expert=2) at two gloo ranks sharing the card
+    against one rank, f32, SGD, the same weights and batches."""
+    cfg = dict(MOE_MODEL, n_layers=2)
+    # The two launches share the card at once (a check, not a timing).
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        ep = pool.submit(moe_child_run, torch, "moe_ep2", 2,
+                         "data=1,expert=2", cfg, MOE_EP_STEPS, "gloo",
+                         opt="sgd")
+        ref = pool.submit(moe_child_run, torch, "moe_ep1", 1, "data=1",
+                          cfg, MOE_EP_STEPS, "gloo", opt="sgd")
+        recs, local, full, _, wall = ep.result()
+        one, one_local, _, _, _ = ref.result()
+    ref = one_local[0]
+    per = cfg["n_experts"] // 2
+    worst_expert = 0.0
+    for j in range(2):
+        for n in ("blocks.1.moe.moe_up", "blocks.1.moe.moe_down"):
+            want = ref[n][per * j:per * (j + 1)]
+            worst_expert = max(worst_expert,
+                               float(abs(local[j][n] - want).max()))
+    worst_full = max(float(abs(full[n] - ref[n]).max()) for n in ref)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(recs[0]["losses"], one[0]["losses"]))
+    bad = _replicated_and_shards_equal(local, {"data": 1, "fsdp": 1,
+                                               "pipe": 1, "seq": 1,
+                                               "model": 1, "expert": 2})
+    res = {"losses_ep": recs[0]["losses"], "losses_one": one[0]["losses"],
+           "loss_worst_rel": loss_rel, "expert_worst_abs": worst_expert,
+           "params_worst_abs": worst_full,
+           "replicated_unequal": bad,
+           "eager_steps": [r["eager_steps"] for r in recs],
+           "step_ms_median_ep": recs[0]["step_ms_median"],
+           "step_ms_median_one": one[0]["step_ms_median"],
+           "launch_wall_s": wall, "card": card}
+    log("phase17d", json.dumps(res))
+    check(loss_rel <= MOE_EP_RTOL and worst_expert <= MOE_EP_ATOL
+          and worst_full <= MOE_EP_ATOL and not bad
+          and all(r["eager_steps"] == MOE_EP_STEPS for r in recs),
+          f"17d: two-rank EP differs from one rank: {res}")
+    return res
+
+
+def moe_phase(torch, card):
+    """Phase 17: MoE and expert parallelism on the card (17a-d)."""
+    t0 = time.perf_counter()
+    model, train = moe_train(torch, card)
+    res = {"a": train, "b": moe_vs_plain(torch, card),
+           "c": moe_decode(torch, card, model)}
+    del model
+    torch.cuda.empty_cache()
+    res["d"] = moe_ep_two_ranks(torch, card)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase17 seconds: {res['seconds']:.1f}")
+    return res
+
+
+def moe_multi_card(torch, card, ranks):
+    """17e: MeshSpec(data=2, expert=2) at four NCCL ranks, the bench MoE LM
+    in bf16, captured steps; replicated parameters bit-equal on every rank
+    and each expert shard across its batch group; tokens/s a card beside
+    the dense LM at four data ranks; the checkpoint written there restores
+    at one rank with the full experts."""
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    check(ranks == 4, "17e runs at --ranks 4")
+    t0 = time.perf_counter()
+    cfg = dict(MOE_MODEL, compute_dtype="bfloat16", fused_head_chunks=8)
+    recs, local, full, ck, wall = moe_child_run(
+        torch, "moe_ep4", 4, "data=2,expert=2", cfg, MOE_4_STEPS, "nccl",
+        ckpt=True)
+    dense, _, _, _, _ = moe_child_run(
+        torch, "dense_dp4", 4, "data=4",
+        dict(MODEL, compute_dtype="bfloat16", fused_head_chunks=8),
+        MOE_4_STEPS, "nccl")
+    bad = _replicated_and_shards_equal(local, {"data": 2, "fsdp": 1,
+                                               "pipe": 1, "seq": 1,
+                                               "model": 1, "expert": 2})
+    path = checkpoint.latest_checkpoint(ck)
+    check(path is not None, "17e: no checkpoint was written")
+    one = TransformerLM(**cfg, device=DEVICE, seed=7)
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw
+
+    state = Trainer(one, DistributedOptimizer(adamw(3e-4)), loss="module",
+                    device=DEVICE).build()
+    checkpoint.restore(path, state)
+    experts = tuple(one.blocks[1].moe.moe_up.shape)
+    same = all(bool((t.detach().cpu() == torch.from_numpy(full[n])).all())
+               for n, t in one.state_dict().items())
+    res = {"ranks": ranks, "losses": recs[0]["losses"],
+           "moe_drop_rate": recs[0]["metrics"].get("moe_drop_rate"),
+           "captures": [r["captures"] for r in recs],
+           "replays": [r["replays"] for r in recs],
+           "step_ms_median": [r["step_ms_median"] for r in recs],
+           "tokens_per_s_per_card": recs[0]["tokens_per_s_per_card"],
+           "dense_tokens_per_s_per_card": dense[0]["tokens_per_s_per_card"],
+           "dense_step_ms_median": dense[0]["step_ms_median"],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in recs],
+           "replicated_or_shards_unequal": bad,
+           "restored_at_one_rank": {"moe_up": experts, "equal": same},
+           "seconds": time.perf_counter() - t0, "card": card}
+    log("phase17e", json.dumps(res))
+    check(not bad and same and experts[0] == MOE_MODEL["n_experts"]
+          and all(math.isfinite(v) for v in recs[0]["losses"])
+          and all(r["captures"] == 1 for r in recs),
+          f"17e: {res}")
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -4133,22 +4631,27 @@ def reduction_multi_card(torch, card, ranks: int):
     return res
 
 
-def multi_card(torch, ranks: int, reduction_only: bool = False) -> int:
+def multi_card(torch, ranks: int, reduction_only: bool = False,
+               moe_only: bool = False) -> int:
     """``--ranks N``: only the MNIST twins and the CIFAR ResNet-20 twin
-    with its breakdown and graph-against-eager check, and phase 15b's runs,
-    at N NCCL ranks, one card each (the multi-rank NCCL path one card
-    cannot host: the gradient all-reduce and, in the ResNet, the BN
-    all-reduces inside each rank's captured step), then the result line.
-    ``reduction_only``: phase 15b's runs alone."""
+    with its breakdown and graph-against-eager check, phase 15b's runs and
+    phase 17e, at N NCCL ranks, one card each (the multi-rank NCCL path one
+    card cannot host: the gradient all-reduce and, in the ResNet, the BN
+    all-reduces inside each rank's captured step; the expert group's sums
+    inside the MoE step), then the result line. ``reduction_only``: phase
+    15b's runs alone; ``moe_only``: phase 17e alone."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
               f"--ranks {ranks} needs {ranks} cards, this host has "
               f"{torch.cuda.device_count()}")
         card = toolchain(torch)
-        if not reduction_only:
+        if moe_only:
+            build_kernels()
+            moe_multi_card(torch, card, ranks)
+        elif not reduction_only:
             mnist_tf2(torch, ranks, cut={})
-            mnist_tf1(torch, ranks)
+            mnist_tf1(torch, ranks, cut={})
             mnist_ci_cached(torch, ranks)
             cifar_resnet(torch, ranks)
             log("breakdown_cifar", json.dumps(dict(
@@ -4156,7 +4659,10 @@ def multi_card(torch, ranks: int, reduction_only: bool = False) -> int:
             cifar_graph_vs_eager(torch, ranks)
             log("phase16", json.dumps(dict(
                 pod_twin(["127.0.0.1"], ranks, "nccl"), card=card)))
-        reduction_multi_card(torch, card, ranks)
+        if not moe_only:
+            reduction_multi_card(torch, card, ranks)
+        if not (reduction_only or moe_only):
+            moe_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4180,6 +4686,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--reduction-only", action="store_true",
         help="with --ranks N: only phase 15b's runs at N NCCL ranks")
+    parser.add_argument(
+        "--moe-only", action="store_true",
+        help="with --ranks 4: only phase 17e (expert parallelism on NCCL)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -4194,38 +4703,61 @@ def main(argv=None) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     if args.ranks > 1:
-        return multi_card(torch, args.ranks, args.reduction_only)
+        return multi_card(torch, args.ranks, args.reduction_only,
+                          args.moe_only)
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous lap, kept for the phase_seconds line."""
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     try:
         card = toolchain(torch)
         build_kernels()
+        lap("1-2 build")
         errs, timings = kernel_cases(torch)
         bwd_errs = backward_cases(torch)
         train_timings = training_shape_timings(torch)
         drop = dropout_cases(torch)
+        lap("3-4 kernels")
         serve_launches = main_path(torch)
         main_vs_plain(torch)
+        lap("5 serve")
         train_launches = train_path(torch)
         f32_step = train_vs_plain(torch)
+        lap("6-7 train")
         mnist_tf2(torch)
         mnist_tf1(torch)
         mnist_2rank(torch)
         log("breakdown_mnist", json.dumps(mnist_breakdown(torch)))
+        lap("8-10 mnist")
         ci, ci_path = mnist_ci_cached(torch)
         cached = cached_in_process(torch, ci_path)
         log("breakdown_mnist_cached", json.dumps(dict(
             cached["breakdown_mnist_cached"], card=card,
             peak_memory_bytes_ci_run=ci["peak_memory_bytes"])))
+        lap("11 ci")
         cifar_resnet(torch)
         log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch),
                                                card=card)))
+        lap("12a cifar")
         cifar_graph_vs_eager(torch)
         sync_bn_on_card(torch)
         cifar_vit(torch)
+        lap("12b-d cifar")
         decode = decode_phase(torch)
+        lap("13 decode")
         tier = serve_tier(torch, card)
+        lap("14 serve tier")
         reduction = reduction_phase(torch, card)
+        lap("15 reduction")
         launch_phase(torch, card, ci["ci_job"])
+        lap("16 launch")
+        moe = moe_phase(torch, card)
+        lap("17 moe")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4312,10 +4844,14 @@ def main(argv=None) -> int:
             entry["launches_reduction"] = {
                 run: rec["launches"][key]
                 for run, rec in reduction["runs"].items()}
+            # Phase 17a: the bench MoE LM's fit, n_layers × (eager steps +
+            # captures), all on the tensor-core route.
+            entry["launches_moe"] = moe["a"]["launches"][key]
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]
         lines.append(entry)
+    log("phase_seconds", json.dumps(laps))
     log(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,14 @@ KNOBS: dict[str, Knob] = _decl([
          "Process-group backend, `nccl` or `gloo`; unset = NCCL on CUDA, "
          "gloo on the CPU. `gloo` lets ranks share cards.", port=_PORT_ONLY),
     # --- parallel ----------------------------------------------------------
+    Knob("HVT_MESH", "spec", None, "parallel",
+         "Mesh axis sizes, `axis=size` pairs (`data=2,seq=4`); "
+         "unset/empty = pure data parallelism (`MeshSpec.from_string`)."),
+    Knob("HVT_MESH_ORDER", "str", "auto", "parallel",
+         "Rank layout of the mesh: `auto` or `flat`. Checked as in the JAX "
+         "package; the port always lays the ranks out flat (row-major), "
+         "since each rank is one process and there is no device torus to "
+         "map."),
     Knob("HVT_DCN_FACTOR", "int", None, "parallel",
          "Override the derived multi-host factor of the ranks — the "
          "fake-topology knob for the two-hop reduction; must divide the "

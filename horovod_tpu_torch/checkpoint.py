@@ -119,8 +119,12 @@ def _read_verified(path: str) -> bytes:
 
 
 def _payload(state) -> dict:
-    """The state as CPU tensors and plain values."""
-    model = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    """The state as CPU tensors and plain values; a sharded model's placed
+    parameters whole (gathered over the mesh, or the epoch-end
+    snapshot), as the JAX package's host-gathered checkpoint holds
+    them."""
+    model = {k: v.detach().cpu()
+             for k, v in state.full_model_state().items()}
     leaves, treedef = collectives.tree_flatten(state.optimizer.state_dict())
     optimizer = collectives.tree_unflatten(treedef, [
         v.detach().cpu() if isinstance(v, torch.Tensor) else v
@@ -130,7 +134,7 @@ def _payload(state) -> dict:
 
 
 def _adopt(state, payload: dict):
-    state.model.load_state_dict(payload["model"])
+    state.load_full_model_state(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     state.rng = int(payload["rng"])
@@ -249,12 +253,20 @@ def _per_rank_state(optimizer) -> bool:
 
 
 def _broadcast_model(state, root_rank: int) -> None:
-    """Every rank adopts the root's parameters and buffers, in place."""
+    """Every rank adopts the root's parameters and buffers, in place. A
+    sharded model's placed parameters come from the first rank of each
+    batch group instead (its data coordinate 0), the one holding the same
+    part."""
     sd = state.model.state_dict()
-    synced = collectives.broadcast_pytree(dict(sd), root=root_rank)
+    placed = set(state.placements)
+    synced = collectives.broadcast_pytree(
+        {k: v for k, v in sd.items() if k not in placed}, root=root_rank)
+    group = state.mesh.batch_group if placed else None
     with torch.no_grad():
         for k, v in sd.items():
-            v.copy_(synced[k])
+            v.copy_(collectives.broadcast_in_group(v.detach(), group)
+                    if k in placed else synced[k])
+    state.model_changed()
 
 
 def broadcast_parameters(state, root_rank: int = 0):
@@ -269,6 +281,19 @@ def broadcast_parameters(state, root_rank: int = 0):
         return state
     _broadcast_model(state, root_rank)
     opt = state.optimizer
+    if state.model_is_sharded:
+        # The optimizer's state gathered whole (a collective), the root's
+        # sent, and each rank's part cut from it: rank (d, e) takes what
+        # (0, e) of the root's batch coordinate holds.
+        full = opt.state_dict()
+        root = runtime.rank() == root_rank
+        extra = collectives.broadcast_object(
+            (full, int(state.step), int(state.rng)) if root else None,
+            root=root_rank)
+        if not root:
+            opt.load_state_dict(extra[0])
+            state.step, state.rng = extra[1], extra[2]
+        return state
     per_rank = _per_rank_state(opt)
     root = runtime.rank() == root_rank
     extra = collectives.broadcast_object(
@@ -321,6 +346,12 @@ def restore_latest_and_broadcast(directory: str, template, *,
     if epoch == 0 and step == 0:
         return ret(template, 0, 0)
     opt = template.optimizer
+    if template.model_is_sharded:
+        # Every rank takes the root's whole payload and cuts its parts
+        # (the model's placed parameters, their optimizer state).
+        payload = _load_payload(path) if primary else None
+        payload = collectives.broadcast_object(payload, root=0)
+        return ret(_adopt(template, payload), epoch, step)
     if _per_rank_state(opt):
         # The root loads the model and cuts every rank's part of the
         # optimizer state (its shards and residual row); each rank gets

@@ -12,7 +12,15 @@ side:
   [d, H_kv, 2D]`` (k = ``[..., :D]``, v = ``[..., D:]``) under GQA;
 * ``Block_i/attn_out/kernel [H, D, d]``, ``mlp_up [d, 4d]``,
   ``mlp_down [4d, d]``, ``lm_head/kernel [d, vocab]``,
-  ``Embed_0/embedding [vocab, d]``, ``LayerNorm_*/scale [d]``.
+  ``Embed_0/embedding [vocab, d]``, ``LayerNorm_*/scale [d]``;
+* an MoE block's ``Block_i/moe/{router/kernel [d, E], moe_up [E, d, 4d],
+  moe_down [E, 4d, d]}`` in place of ``mlp_up``/``mlp_down`` — the port's
+  ``blocks.i.moe.router.weight [E, d]`` (transposed) and ``moe_up``/
+  ``moe_down`` as they are.
+
+`shard_state_dict` cuts a full state dict to one rank's placements
+(`models.transformer.param_specs` on a `parallel.mesh.Mesh`) and
+`gather_state_dict` gathers them back.
 
 The torch side keeps `nn.Linear`'s ``[out, in]`` weights. `params_to_flax`
 is the exact inverse (pure reshapes and transposes). `ema_from_flax`
@@ -74,6 +82,13 @@ def _lm_from_flax(tree, _t) -> dict:
         )
         sd[pre + "ln_attn.scale"] = _t(blk["LayerNorm_0"]["scale"])
         sd[pre + "ln_mlp.scale"] = _t(blk["LayerNorm_1"]["scale"])
+        if "moe" in blk:
+            moe = blk["moe"]
+            sd[pre + "moe.router.weight"] = _t(
+                np.asarray(moe["router"]["kernel"]).T)
+            sd[pre + "moe.moe_up"] = _t(moe["moe_up"])
+            sd[pre + "moe.moe_down"] = _t(moe["moe_down"])
+            continue
         sd[pre + "mlp_up.weight"] = _t(np.asarray(blk["mlp_up"]["kernel"]).T)
         sd[pre + "mlp_down.weight"] = _t(
             np.asarray(blk["mlp_down"]["kernel"]).T
@@ -156,12 +171,57 @@ def params_to_flax(state_dict, *, n_heads: int) -> dict:
         )}
         blk["LayerNorm_0"] = {"scale": sd[pre + "ln_attn.scale"]}
         blk["LayerNorm_1"] = {"scale": sd[pre + "ln_mlp.scale"]}
-        blk["mlp_up"] = {"kernel": np.ascontiguousarray(sd[pre + "mlp_up.weight"].T)}
-        blk["mlp_down"] = {
-            "kernel": np.ascontiguousarray(sd[pre + "mlp_down.weight"].T)
-        }
+        if pre + "moe.moe_up" in sd:
+            blk["moe"] = {
+                "router": {"kernel": np.ascontiguousarray(
+                    sd[pre + "moe.router.weight"].T)},
+                "moe_up": sd[pre + "moe.moe_up"],
+                "moe_down": sd[pre + "moe.moe_down"],
+            }
+        else:
+            blk["mlp_up"] = {
+                "kernel": np.ascontiguousarray(sd[pre + "mlp_up.weight"].T)}
+            blk["mlp_down"] = {
+                "kernel": np.ascontiguousarray(sd[pre + "mlp_down.weight"].T)
+            }
         tree[f"Block_{i}"] = blk
     return tree
+
+
+def _live(mesh, specs) -> dict:
+    return {name: {d: ax for d, ax in spec.items() if mesh.shape[ax] > 1}
+            for name, spec in specs.items()}
+
+
+def shard_state_dict(state_dict, mesh, specs) -> dict:
+    """This rank's part of a full state dict: each tensor cut along every
+    placement of ``specs`` (`models.transformer.param_specs`) on a live
+    axis of ``mesh``, at this rank's coordinate there; the rest as it
+    is."""
+    out = {}
+    for name, t in state_dict.items():
+        for dim, ax in _live(mesh, specs).get(name, {}).items():
+            per = t.shape[dim] // mesh.shape[ax]
+            t = t.narrow(dim, per * mesh.coords[ax], per)
+        out[name] = t
+    return out
+
+
+def gather_state_dict(state_dict, mesh, specs) -> dict:
+    """Inverse of `shard_state_dict`: every sharded tensor all-gathered
+    over its axis's subgroup (a collective of that group; every rank of
+    the mesh calls it at one point)."""
+    from horovod_tpu_torch.parallel import collectives
+
+    out = {}
+    for name, t in state_dict.items():
+        for dim, ax in sorted(_live(mesh, specs).get(name, {}).items(),
+                              reverse=True):
+            parts = collectives.all_gather_tensor(t.detach(),
+                                                  mesh.group(ax))
+            t = torch.cat(list(parts), dim=dim)
+        out[name] = t
+    return out
 
 
 # -- MnistCNN -----------------------------------------------------------------

@@ -71,6 +71,16 @@ def _grouped(name: str, w, n_heads: int):
     return w
 
 
+def refuse_moe_int8_compute() -> None:
+    """The JAX model's refusal of ``int8_compute`` on an MoE model."""
+    raise ValueError(
+        "int8_compute does not cover MoE expert matmuls (the "
+        "routed einsums bypass the Dense dot_general injection) — "
+        "an MoE model would silently keep its dominant FLOPs in "
+        "bf16; use a dense model or int8_compute=False"
+    )
+
+
 def quantize_params(model, *, min_size: int = 4096) -> dict:
     """A `TransformerLM`'s parameters as the JAX package's quantized tree:
     ``{name: {"int8_q": int8 [weight's shape], "scale": f32}}`` for every
@@ -84,6 +94,12 @@ def quantize_params(model, *, min_size: int = 4096) -> dict:
         if p.dim() < 2 or p.numel() < min_size:
             out[name] = p
             continue
+        if name.endswith((".moe_up", ".moe_down")):
+            # Expert weights keep flax's layout: reduced over axis 0 (the
+            # experts), a [1, in, out] scale.
+            q, scale = _quantize_sym(p, dim=0)
+            out[name] = {_Q: q, "scale": scale}
+            continue
         g = _grouped(name, p, n_heads)
         q, scale = _quantize_sym(g, dim=1)
         if name == "embed.weight":
@@ -95,7 +111,8 @@ def quantize_params(model, *, min_size: int = 4096) -> dict:
 
 def _dequantize_leaf(leaf, dtype):
     q, scale = leaf[_Q], leaf["scale"]
-    if scale.dim() == 3:  # attn_out: [d, 1, D] over [d, H, D]
+    if scale.dim() == 3:  # attn_out [d, 1, D] over [d, H, D]; experts
+        # [1, in, out] over [E, in, out]
         g = q.view(q.shape[0], -1, scale.shape[-1])
         return (g.to(dtype) * scale.to(dtype)).view(q.shape)
     return q.to(dtype) * scale.to(dtype)

@@ -121,6 +121,15 @@ def make_speculative_fn(model, *, max_new_tokens: int, gamma: int = 4,
     sampled = temperature != 0.0
     if draft_fn is not None and draft_model is not None:
         raise ValueError("pass draft_fn OR draft_model, not both")
+    for m, role in ((model, "target"), (draft_model, "draft")):
+        if m is not None and getattr(m, "moe_every", 0):
+            raise ValueError(
+                f"speculative decoding requires a dense model ({role}): MoE "
+                "expert capacity binds per call group, so a chunked verify "
+                "forward can legitimately route (and decode) differently "
+                "than the per-token steps it replaces — the exact-output "
+                "contract cannot hold; use decoding.generate for MoE models"
+            )
     draft = draft_fn or (None if draft_model is not None
                          else ngram_draft_fn())
     unpack = quant.make_unpack(quantized)

@@ -41,13 +41,24 @@ max_decode_len)`` slots with per-slot absolute positions ``pos`` ``[B, L]``
 at a lockstep index only). `TransformerLM.clone` returns a model of another
 configuration that shares the parameter tensors (flax's ``Module.clone``).
 
-Not in this slice — each raises `NotImplementedError` naming its ROADMAP
-item: MoE blocks and sequence/tensor parallelism.
+MoE blocks, as in the JAX model: ``moe_every=k`` makes block i's MLP a
+`models.moe.MoEMlp` (``n_experts``, ``moe_k``, ``capacity_factor``,
+``moe_aux_coef``, ``moe_router``) when ``(i + 1) % k == 0``; its
+auxiliary loss and drop-rate metric are sown (`sown_losses`,
+`sown_metrics`). ``sharding=ShardingConfig(mesh, attn)`` places the model
+on a `parallel.mesh.Mesh`: the MoE layers shard their experts over the
+mesh's ``expert`` axis, and attention is the flash path (or the dense one,
+``attn="dense"``). `param_specs` gives each parameter's placement by the
+JAX model's rules. Not in this slice — each raises naming its ROADMAP
+item: a live ``seq`` axis (sequence parallelism, queue A item 12.2) and a
+live ``model``, ``fsdp`` or ``pipe`` axis (sharded layouts and the
+pipeline, item 12.4).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 
 import torch
@@ -56,11 +67,49 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.models import quant
-from horovod_tpu_torch.ops.attention import _BIG_NEG
+from horovod_tpu_torch.models.moe import MoEMlp, lecun_normal_
+from horovod_tpu_torch.ops.attention import _BIG_NEG, dense_attention
 from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+from horovod_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+)
 from horovod_tpu_torch.runtime import resolve_device
+from horovod_tpu_torch.training import train_state
+
+# Live mesh axes this slice does not carry, with the ROADMAP item of each.
+_AXIS_ITEMS = {
+    SEQ_AXIS: "queue A item 12.2 (sequence parallelism)",
+    MODEL_AXIS: "queue A item 12.4 (sharded layouts: tensor parallelism)",
+    FSDP_AXIS: "queue A item 12.4 (sharded layouts: FSDP)",
+    PIPE_AXIS: "queue A item 12.4 (the pipeline)",
+}
+
+
+def refuse_unported_axes(mesh, what: str) -> None:
+    """Raise `NotImplementedError` naming the ROADMAP item of the first
+    live axis of ``mesh`` that the port does not carry yet."""
+    for ax, item in _AXIS_ITEMS.items():
+        if mesh is not None and mesh.shape.get(ax, 1) > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh with a live {ax!r} axis "
+                f"({mesh.shape[ax]}) is not ported yet — ROADMAP {item}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """How the model meets the mesh (the JAX model's config). ``attn``:
+    ``"dense"`` takes `ops.attention.dense_attention` (the numerics
+    reference); ``"ring"`` (default), ``"ring_dense"`` and ``"ulysses"``
+    are sequence-parallel forms, which on a mesh without a live ``seq``
+    axis take the local flash path, as in the JAX model. A live ``seq``,
+    ``model``, ``fsdp`` or ``pipe`` axis raises naming its ROADMAP
+    item."""
+
+    mesh: object = None
+    attn: str = "ring"
 
 
 def _dtype(x) -> torch.dtype:
@@ -126,7 +175,11 @@ class Block(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, dropout: float,
                  compute_dtype: torch.dtype, *, n_kv_heads: int | None = None,
-                 window: int | None = None, attention_sinks: int = 0):
+                 window: int | None = None, attention_sinks: int = 0,
+                 sharding: ShardingConfig | None = None,
+                 use_moe: bool = False, n_experts: int = 8, moe_k: int = 2,
+                 capacity_factor: float = 1.25, moe_aux_coef: float = 1e-2,
+                 moe_router: str = "top_k"):
         super().__init__()
         h_kv = n_kv_heads or n_heads
         if n_heads % h_kv != 0:
@@ -157,8 +210,17 @@ class Block(nn.Module):
             self.kv_proj = nn.Linear(d_model, 2 * h_kv * hd, bias=False)
         self.attn_out = nn.Linear(n_heads * hd, d_model, bias=False)
         self.ln_mlp = LayerNorm(d_model, compute_dtype)
-        self.mlp_up = nn.Linear(d_model, 4 * d_model, bias=False)
-        self.mlp_down = nn.Linear(4 * d_model, d_model, bias=False)
+        self.sharding = sharding or ShardingConfig()
+        self.use_moe = use_moe
+        if use_moe:
+            self.moe = MoEMlp(d_model, n_experts=n_experts, k=moe_k,
+                              capacity_factor=capacity_factor,
+                              aux_loss_coef=moe_aux_coef, router=moe_router,
+                              compute_dtype=compute_dtype,
+                              sharding=self.sharding)
+        else:
+            self.mlp_up = nn.Linear(d_model, 4 * d_model, bias=False)
+            self.mlp_down = nn.Linear(4 * d_model, d_model, bias=False)
 
     def _dense(self, layer: nn.Linear, x):
         cd = self.compute_dtype
@@ -195,6 +257,15 @@ class Block(nn.Module):
         q, k = rope(q, positions), rope(k, positions)
         if cache is not None:
             out = self._decode_attention(q, k, v, cache, decode_index, fresh)
+        elif self.sharding.attn == "dense":
+            rep = self.n_heads // self.h_kv
+            if rep > 1:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out = dense_attention(
+                q, k, v, causal=True, window=self.window, sinks=self.sinks,
+                q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            ).to(q.dtype)
         else:
             out = flash_attention(
                 q, k, v, causal=True, window=self.window, sinks=self.sinks,
@@ -204,11 +275,24 @@ class Block(nn.Module):
         if drop:
             out = dropout(out, self.dropout, dropout_seed, dropout_site)
         x = x + out
-        h = self._dense(self.mlp_up, self.ln_mlp(x))
-        h = self._dense(self.mlp_down, F.gelu(h, approximate="tanh"))
+        h = self._mlp(self.ln_mlp(x), train=train, decode=cache is not None)
         if drop:
             h = dropout(h, self.dropout, dropout_seed, dropout_site + 1)
         return x + h
+
+    def _mlp(self, h, *, train: bool, decode: bool):
+        if self.use_moe:
+            if decode and self.moe.router_kind == "expert_choice":
+                raise ValueError(
+                    "expert_choice routing is training-only: expert "
+                    "selection ranks tokens across the whole group, which "
+                    "a per-token decode step cannot reproduce (the known "
+                    "EC train/inference asymmetry) — decode with "
+                    "moe_router='top_k'"
+                )
+            return self.moe(h, train=train, whole_batch=decode)
+        h = self._dense(self.mlp_up, h)
+        return self._dense(self.mlp_down, F.gelu(h, approximate="tanh"))
 
     def _decode_attention(self, q, k, v, cache, idx, fresh):
         b, t, h, d = q.shape
@@ -394,18 +478,12 @@ class LMHead(nn.Module):
         )
 
 
-# Options of the JAX model that this slice does not carry, with the
-# ROADMAP item that ports each.
-_NOT_PORTED = {
-    "moe_every": "queue A item 12 (remaining models: MoE)",
-    "sharding": "queue A item 12 (sequence/tensor parallelism)",
-}
-
 # The knobs `TransformerLM.clone` may change: the rest fix the parameter
 # shapes the clone shares.
 _CLONE_KNOBS = ("window", "dropout", "compute_dtype", "logits_dtype",
                 "attention_sinks", "remat", "fused_head_chunks",
-                "int8_compute", "quantized_cache", "sliding_cache")
+                "int8_compute", "quantized_cache", "sliding_cache",
+                "capacity_factor", "moe_aux_coef", "moe_router")
 
 
 class TransformerLM(nn.Module):
@@ -423,17 +501,17 @@ class TransformerLM(nn.Module):
                  logits_dtype=torch.float32, attention_sinks: int = 0,
                  remat: bool = False, fused_head_chunks: int = 0,
                  int8_compute: bool = False, quantized_cache: bool = False,
-                 sliding_cache: bool = False, *,
-                 device="cuda", seed: int = 0, **not_ported):
+                 sliding_cache: bool = False, moe_every: int = 0,
+                 n_experts: int = 8, moe_k: int = 2,
+                 capacity_factor: float = 1.25, moe_aux_coef: float = 1e-2,
+                 moe_router: str = "top_k",
+                 sharding: ShardingConfig | None = None, *,
+                 device="cuda", seed: int = 0):
         super().__init__()
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"TransformerLM({name}=...) is not ported yet — "
-                    f"ROADMAP {_NOT_PORTED[name]}"
-                )
+        sharding = sharding or ShardingConfig()
+        refuse_unported_axes(sharding.mesh, "TransformerLM(sharding=...)")
+        if int8_compute and moe_every:
+            quant.refuse_moe_int8_compute()
         dev = resolve_device(device)
         self.vocab_size, self.d_model, self.n_heads = vocab_size, d_model, n_heads
         self.n_kv_heads, self.window, self.n_layers = n_kv_heads, window, n_layers
@@ -446,12 +524,21 @@ class TransformerLM(nn.Module):
         self.int8_compute = bool(int8_compute)
         self.quantized_cache = bool(quantized_cache)
         self.sliding_cache = bool(sliding_cache)
+        self.moe_every, self.n_experts = int(moe_every), int(n_experts)
+        self.moe_k, self.capacity_factor = int(moe_k), float(capacity_factor)
+        self.moe_aux_coef, self.moe_router = float(moe_aux_coef), moe_router
+        self.sharding = sharding
         self.embed = nn.Embedding(vocab_size, d_model)
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, dropout, self.compute_dtype,
                   n_kv_heads=n_kv_heads, window=window,
-                  attention_sinks=attention_sinks)
-            for _ in range(n_layers)
+                  attention_sinks=attention_sinks, sharding=sharding,
+                  use_moe=self.moe_every > 0
+                  and (i + 1) % self.moe_every == 0,
+                  n_experts=n_experts, moe_k=moe_k,
+                  capacity_factor=capacity_factor, moe_aux_coef=moe_aux_coef,
+                  moe_router=moe_router)
+            for i in range(n_layers)
         )
         self.ln_f = LayerNorm(d_model, self.compute_dtype)
         self.lm_head = LMHead(
@@ -470,6 +557,12 @@ class TransformerLM(nn.Module):
             blk.window, blk.sinks = self.window, self.attention_sinks
             blk.dropout = self.dropout
             blk.int8_compute = self.int8_compute
+            if blk.use_moe:
+                moe = blk.moe
+                moe.compute_dtype = cd
+                moe.capacity_factor = self.capacity_factor
+                moe.aux_loss_coef = self.moe_aux_coef
+                moe.set_router(self.moe_router)
         self.ln_f.dtype = self.lm_head.compute_dtype = cd
         self.lm_head.logits_dtype = self.logits_dtype
         self.lm_head.int8_compute = self.int8_compute
@@ -486,12 +579,17 @@ class TransformerLM(nn.Module):
                 f"clone cannot change {bad}: the clone shares the "
                 f"parameters; it may change {list(_CLONE_KNOBS)}"
             )
+        # What the layers sowed belongs to the last forward (it may hold
+        # tensors of an autograd graph, which do not copy).
+        train_state.clear_sown(self)
         memo = {id(t): t for t in (*self.parameters(), *self.buffers())}
         new = copy.deepcopy(self, memo)
         for name, value in overrides.items():
             if name in ("compute_dtype", "logits_dtype"):
                 value = _dtype(value)
             setattr(new, name, value)
+        if new.int8_compute and new.moe_every:
+            quant.refuse_moe_int8_compute()
         if new.attention_sinks < 0:
             raise ValueError("attention_sinks must be >= 0")
         if new.attention_sinks and new.window is None:
@@ -522,7 +620,21 @@ class TransformerLM(nn.Module):
             "int8_compute": self.int8_compute,
             "quantized_cache": self.quantized_cache,
             "sliding_cache": self.sliding_cache,
+            "moe_every": self.moe_every, "n_experts": self.n_experts,
+            "moe_k": self.moe_k, "capacity_factor": self.capacity_factor,
+            "moe_aux_coef": self.moe_aux_coef,
+            "moe_router": self.moe_router,
         }
+
+    def sown_losses(self) -> list:
+        """The auxiliary losses its layers sowed in the last forward (the
+        JAX model's ``losses`` collection; MoE load balance, train only)."""
+        return train_state.sown_losses(self)
+
+    def sown_metrics(self) -> dict:
+        """The metrics its layers sowed in the last forward, averaged over
+        the layers by name (``moe_drop_rate``, ``moe_uncovered_rate``)."""
+        return train_state.sown_metrics(self)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
@@ -535,11 +647,16 @@ class TransformerLM(nn.Module):
                 p.fill_(1.0)
             elif name == "embed.weight":
                 p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1]))
+            elif ".moe." in name:
+                # The full E experts are drawn (their fan-in is dim 1 with
+                # the expert axis a batch axis), and this rank's kept.
+                owner, leaf = name.split(".moe.")
+                moe = self.get_submodule(owner + ".moe")
+                w = torch.empty(moe.full_shape(leaf))
+                lecun_normal_(w, g, w.shape[1])
+                p.copy_(moe.local_part(leaf, w))
             else:
-                std = 1.0 / math.sqrt(p.shape[1]) / 0.87962566103423978
-                w = torch.empty(p.shape)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
-                p.copy_(w)
+                lecun_normal_(p, g, p.shape[1])
 
     def _embed(self, tokens):
         return self.embed(tokens.long()).to(self.compute_dtype)
@@ -559,6 +676,8 @@ class TransformerLM(nn.Module):
                 "through estimator) — clone the model with "
                 "int8_compute=False for training"
             )
+        if self.int8_compute and self.moe_every:
+            quant.refuse_moe_int8_compute()
         b, t = tokens.shape
         if segment_ids is None:
             positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -659,3 +778,81 @@ class TransformerLM(nn.Module):
             )
         new_cache = {**cache, "index": idx + t}
         return self.lm_head(self.ln_f(x)), new_cache
+
+
+# Megatron placements by layer name (the JAX `param_specs` tables), as dims
+# of the port's own tensors: an `nn.Linear` weight is [out, in], so the
+# JAX table's column-parallel kernels (features on flax dim 1) place dim 0
+# here and its row-parallel ones (flax dim 0) dim 1; the LM head's
+# [vocab, d] places the vocab, dim 0. Expert weights keep flax's layout.
+_TP_DIM = {"qkv": 0, "q_proj": 0, "kv_proj": 0, "attn_out": 1,
+           "mlp_up": 0, "mlp_down": 1, "lm_head": 0}
+_MOE_DIMS = {"moe_up": {0: EXPERT_AXIS, 2: MODEL_AXIS},
+             "moe_down": {0: EXPERT_AXIS, 1: MODEL_AXIS}}
+
+
+def _full_shapes(module_or_state_dict) -> dict:
+    """Parameter name → unsharded shape: a state dict's as they are; a
+    module's with each MoE layer's experts counted whole."""
+    if not isinstance(module_or_state_dict, nn.Module):
+        return {k: tuple(v.shape) for k, v in module_or_state_dict.items()}
+    shapes = {}
+    for name, p in module_or_state_dict.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        mod = module_or_state_dict.get_submodule(owner) if owner else None
+        shapes[name] = (mod.full_shape(leaf) if isinstance(mod, MoEMlp)
+                        else tuple(p.shape))
+    return shapes
+
+
+def param_specs(module_or_state_dict, mesh) -> dict:
+    """Per parameter name, its placement ``{dim: axis}`` ({} = replicated)
+    by the JAX model's rules: expert weights ``moe_up`` {0: expert, 2:
+    model} and ``moe_down`` {0: expert, 1: model} (a dim not divisible by
+    its axis raises JAX's error), the Megatron table (`_TP_DIM`) on
+    ``model``, and with a live ``fsdp`` axis each ≥2-D weight's first
+    free divisible dim on ``fsdp``. Placements on axes of size 1 are
+    no-ops. ``module_or_state_dict`` is a `TransformerLM` (its MoE layers
+    counted at their full E) or a full state dict."""
+    fsdp = mesh.shape.get(FSDP_AXIS, 1)
+    specs = {}
+    # By name, as JAX walks its tree: the same leaf fails first.
+    for name, shape in sorted(_full_shapes(module_or_state_dict).items()):
+        parts = name.split(".")
+        spec: dict = {}
+        moe = next((n for n in parts if n in _MOE_DIMS), None)
+        if moe is not None:
+            for dim, axis in _MOE_DIMS[moe].items():
+                if shape[dim] % mesh.shape[axis] != 0:
+                    raise ValueError(
+                        f"{moe} dim {dim} ({shape[dim]}) is not divisible "
+                        f"by mesh axis {axis!r} ({mesh.shape[axis]})"
+                    )
+                spec[dim] = axis
+        else:
+            layer = next((n for n in parts if n in _TP_DIM), None)
+            if layer is not None and len(shape) >= 2:
+                spec[_TP_DIM[layer]] = MODEL_AXIS
+        if fsdp > 1 and len(shape) >= 2:
+            for dim in range(len(shape)):
+                if dim not in spec and shape[dim] % fsdp == 0:
+                    spec[dim] = FSDP_AXIS
+                    break
+        specs[name] = dict(sorted(spec.items()))
+    return specs
+
+
+def live_placements(specs: dict, mesh) -> dict:
+    """``specs`` restricted to the placements on axes larger than 1,
+    refusing those this slice does not carry (any but ``expert``)."""
+    live = {}
+    for name, spec in specs.items():
+        on = {d: ax for d, ax in spec.items() if mesh.shape.get(ax, 1) > 1}
+        for ax in on.values():
+            if ax != EXPERT_AXIS:
+                raise NotImplementedError(
+                    f"the placement of {name!r} on the live {ax!r} axis is "
+                    f"not ported yet — ROADMAP {_AXIS_ITEMS[ax]}")
+        if on:
+            live[name] = on
+    return live

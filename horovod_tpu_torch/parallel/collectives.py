@@ -310,6 +310,17 @@ def dense_bucket_pieces(spec, bucket_bytes: int) -> list:
 # uint8 bytes: the two collectives that move them do no arithmetic.
 
 
+class _Self:
+    """The group of this rank alone (a mesh axis of size 1): every
+    collective over it is the identity, with no call made."""
+
+    def __repr__(self) -> str:
+        return "SELF"
+
+
+SELF = _Self()
+
+
 #: Bytes this rank handed to the group collectives below (the larger of
 #: each call's operand and result) and their count; read where the
 #: collectives run eagerly (under gloo every step; under NCCL the warm-up).
@@ -323,14 +334,14 @@ def _count(t: torch.Tensor) -> None:
 
 def group_size(group=None) -> int:
     """Ranks in ``group`` (None: the world); 1 without a process group."""
-    if not runtime.is_distributed():
+    if group is SELF or not runtime.is_distributed():
         return 1
     return torch.distributed.get_world_size(group)
 
 
 def group_rank(group=None) -> int:
     """This rank's position in ``group`` (None: the world)."""
-    if not runtime.is_distributed():
+    if group is SELF or not runtime.is_distributed():
         return 0
     return torch.distributed.get_group_rank(
         group or torch.distributed.group.WORLD, runtime.rank())
@@ -340,7 +351,7 @@ def _trivial(group) -> bool:
     """No process group, or a subgroup of one rank: nothing to exchange. (A
     world of one with a process group still runs its collectives, as the
     replicated reduction always has.)"""
-    return not runtime.is_distributed() or (
+    return group is SELF or not runtime.is_distributed() or (
         group is not None and torch.distributed.get_world_size(group) == 1)
 
 
@@ -396,16 +407,18 @@ def reduce_scatter_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @torch.no_grad()
-def allreduce_sum_(t: torch.Tensor, async_op: bool = False):
-    """Sum ``t`` over the world in place (`allreduce_` without the
-    division). Returns a function that waits for the sum to be in ``t``:
-    with ``async_op`` the collective is only issued here."""
-    if not runtime.is_distributed():
+def allreduce_sum_(t: torch.Tensor, async_op: bool = False, group=None):
+    """Sum ``t`` over the world (or ``group``) in place (`allreduce_`
+    without the division). Returns a function that waits for the sum to be
+    in ``t``: with ``async_op`` the collective is only issued here. A
+    world of one with a process group still makes the call."""
+    if group is SELF or not runtime.is_distributed():
         return lambda: None
     staged = (t if t.device == _comm_device() and t.is_contiguous()
               else _to_comm(t))
     _count(staged)
-    work = torch.distributed.all_reduce(staged, async_op=async_op)
+    work = torch.distributed.all_reduce(staged, group=group,
+                                        async_op=async_op)
 
     def wait() -> None:
         if work is not None:
@@ -427,6 +440,62 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     _count(src)
     torch.distributed.all_reduce(src, group=group)
     return src.to(t.device)
+
+
+def broadcast_in_group(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` from the first member of ``group`` (its lowest rank) on every
+    member, out of place; the world's rank 0 for None."""
+    if _trivial(group):
+        return t.clone()
+    src = _to_comm(t)
+    root = 0 if group is None else torch.distributed.get_global_rank(
+        group, 0)
+    torch.distributed.broadcast(src, src=root, group=group)
+    return src.to(t.device)
+
+
+# --- Entering and leaving a sharded region --------------------------------------
+#
+# The Megatron pair around compute that each member of a group does on its
+# own part (an MoE layer's local experts): the region's inputs are the same
+# on every member, and its output is the sum of the members' parts. Without
+# `enter_group` the inputs' gradients would be each member's partial
+# gradient only.
+
+
+class _EnterGroup(torch.autograd.Function):
+    """Identity forward; sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous(), ctx.group), None
+
+
+class _LeaveGroup(torch.autograd.Function):
+    """Sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def enter_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient is summed over ``group``."""
+    return x if _trivial(group) else _EnterGroup.apply(x, group)
+
+
+def leave_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; its gradient passes unchanged."""
+    return x if _trivial(group) else _LeaveGroup.apply(x, group)
 
 
 # --- The sharded weight-update layout -----------------------------------------
@@ -903,12 +972,16 @@ def _hierarchical_psum_err(x, dcn: int, *, wire_dtype=None,
 
 
 def reduce_dense_bucket(b, residual=None, *, dcn: int = 1, wire_dtype=None,
-                        ici_wire_dtype=None):
+                        ici_wire_dtype=None, group=None):
     """One dense bucket summed over the world: two-hop when ``dcn > 1``,
     else a quantized `quantized_group_sum` for an int8/fp8 wire or a sum
     cast to the 16-bit wire. Returns ``(sum, error)`` (error None without
-    ``residual``; zeros where no quantized hop ran)."""
+    ``residual``; zeros where no quantized hop ran). ``group`` (a mesh's
+    batch group) takes the exact and 16-bit single-hop sums only."""
     orig = b.dtype
+    if group is not None and (dcn > 1 or is_quantized_wire(wire_dtype)):
+        raise ValueError("a reduction over a subgroup is single-hop and "
+                         "exact or 16-bit")
     if dcn > 1:
         return _hierarchical_psum_err(b, dcn, wire_dtype=wire_dtype,
                                       ici_wire_dtype=ici_wire_dtype,
@@ -923,7 +996,7 @@ def reduce_dense_bucket(b, residual=None, *, dcn: int = 1, wire_dtype=None,
         b = b.float() + residual
     if _compress16(orig, wire_dtype):
         b = b.to(wire_dtype)
-    out = all_reduce_sum(b).to(orig)
+    out = all_reduce_sum(b, group).to(orig)
     return out, (None if residual is None
                  else torch.zeros(residual.shape, dtype=torch.float32,
                                   device=residual.device))
@@ -1067,11 +1140,16 @@ class Reduction:
 
     ``residuals`` (error feedback, f32 leaves shaped like ``leaves``) are
     added before quantization; `unpack` then also returns the new
-    residual."""
+    residual. ``group`` reduces over a subgroup instead of the world (a
+    mesh's batch group; dense, single-hop, exact or 16-bit wires)."""
 
     def __init__(self, plan: BucketPlan, leaves, residuals=None, *, device,
                  dcn: int = 1, wire_dtype=None, ici_wire_dtype=None,
-                 donate: bool = False):
+                 donate: bool = False, group=None):
+        if group is not None and (plan.scatter or plan.cut
+                                  or residuals is not None):
+            raise ValueError("a reduction over a subgroup is dense, without "
+                             "ZeRO-1 or error feedback")
         if residuals is not None:
             if (tuple(tuple(r.shape) for r in residuals) != plan.shapes
                     or any(r.dtype != d for r, d in zip(residuals,
@@ -1091,6 +1169,7 @@ class Reduction:
         self.residuals = residuals
         self.dcn, self.wire_dtype = int(dcn), wire_dtype
         self.ici_wire_dtype = ici_wire_dtype
+        self.group = group
         self.device = device
         self.in_place = (donate and not plan.scatter and self.dcn <= 1
                          and residuals is None
@@ -1142,10 +1221,12 @@ class Reduction:
         self.done[k] = True
         kw = dict(dcn=self.dcn, wire_dtype=self.wire_dtype,
                   ici_wire_dtype=self.ici_wire_dtype)
+        if self.group is not None:
+            kw["group"] = self.group
         if self.in_place:
             w = (b.to(self.wire_dtype) if _compress16(b.dtype, self.wire_dtype)
                  else b)
-            wait = allreduce_sum_(w, async_op=overlapped)
+            wait = allreduce_sum_(w, async_op=overlapped, group=self.group)
 
             def finish() -> None:
                 wait()

@@ -159,6 +159,8 @@ def save_state(filepath_template: str, epoch: int, state, *,
 
     if step and getattr(state.optimizer, "state_is_collective", False):
         state.optimizer.snapshot()
+    if step and state.model_is_sharded:
+        state.snapshot_model()
     if not runtime.is_primary():
         return None
     completed = epoch + 1 if step == 0 else epoch

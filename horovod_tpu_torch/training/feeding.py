@@ -53,18 +53,19 @@ def normalize_resume(initial_epoch: int, initial_step: int,
 
 
 def stage_sharded(trainer, arr, per_shard: int) -> torch.Tensor:
-    """This rank's shard of a host array on the card: rows ``[r·per_shard,
-    (r+1)·per_shard)`` (the JAX layout's shard r)."""
-    r = runtime.rank()
+    """This rank's batch shard r of a host array on the card: rows
+    ``[r·per_shard, (r+1)·per_shard)`` (the JAX layout's shard r)."""
+    r = trainer.data_index
     part = np.ascontiguousarray(np.asarray(arr)[r * per_shard:
                                                 (r + 1) * per_shard])
     return torch.from_numpy(part).to(trainer.device)
 
 
 def stage_device_dataset(trainer, x, y):
-    """Stage ``(x, y)`` on the card, truncated to a multiple of the world
-    size; rank r holds shard r. Returns ``((x_r, y_r), per_shard)``."""
-    n_shards = runtime.size()
+    """Stage ``(x, y)`` on the card, truncated to a multiple of the batch
+    shards; the ranks of shard r hold it. Returns ``((x_r, y_r),
+    per_shard)``."""
+    n_shards = trainer.dp
     n = (len(x) // n_shards) * n_shards
     if n == 0:
         raise ValueError(f"need at least {n_shards} examples")
@@ -82,12 +83,16 @@ def finish_epoch(trainer, epoch, epochs, means, t0, callbacks,
     fetched once), validation, callbacks, history."""
     logs = dict(means)
     logs["epoch_time_s"] = time.perf_counter() - t0
-    if trainer.tx.state_is_collective and agree_any(
-            any(cb.saves_state for cb in callbacks)):
+    state = trainer.state
+    if (trainer.tx.state_is_collective or state.model_is_sharded) \
+            and agree_any(any(cb.saves_state for cb in callbacks)):
         # A checkpoint callback runs on some rank (often the primary
-        # alone): every rank gathers the optimizer state here, so that
-        # callback reads it without a collective.
+        # alone): every rank gathers the optimizer state (and a sharded
+        # model's parts) here, so that callback reads them without a
+        # collective.
         trainer.tx.snapshot()
+        if state.model_is_sharded:
+            state.snapshot_model()
     if validation_data is not None:
         val = run_evaluate(trainer, validation_data[0], validation_data[1],
                            batch_size=batch_size, cache=val_cache)
@@ -157,7 +162,7 @@ def run_fit(trainer, dataset=None, *, x=None, y=None, batch_size: int = 128,
     if dataset is None:
         if x is None or y is None:
             raise ValueError("pass either dataset= or x=/y=")
-        ds = ArrayDataset((x, y)).shard(runtime.rank(), runtime.size())
+        ds = ArrayDataset((x, y)).shard(trainer.data_index, trainer.dp)
         if steps_per_epoch is None:
             steps_per_epoch = max(1, ds.num_examples // (batch_size * K))
         initial_epoch, initial_step = normalize_resume(
@@ -306,7 +311,7 @@ def fit_device_cached(trainer, x, y, batch_size, epochs, initial_epoch,
     trainer._stream_geometry = {"path": "device", "accum": K,
                                 "steps_per_epoch": steps,
                                 "batch_size": batch_size}
-    trainer.build(np.asarray(x[:1]), np.asarray(y[:1]))
+    trainer.build(np.asarray(x[:batch_size]), np.asarray(y[:batch_size]))
     rows = batch_size * K
     shuffled_x = torch.empty((steps * rows,) + tuple(data_x.shape[1:]),
                              dtype=data_x.dtype, device=trainer.device)
@@ -329,8 +334,9 @@ def fit_device_cached(trainer, x, y, batch_size, epochs, initial_epoch,
             t0 = time.perf_counter()
             start = initial_step if epoch == initial_epoch else 0
             order = random_lib.epoch_order(
-                trainer.seed, epoch, (runtime.size(), per_shard))
-            window = _host(order[runtime.rank(), start * rows:steps * rows],
+                trainer.seed, epoch, (trainer.dp, per_shard))
+            window = _host(order[trainer.data_index,
+                                 start * rows:steps * rows],
                            trainer.device.type == "cuda").to(
                 trainer.device, non_blocking=True)
             n_rows = len(window)
@@ -372,8 +378,13 @@ def _eval_batch_sums(trainer, xb, yb, mask, sums) -> None:
     sums[2] += w.sum()
 
 
-def _reduce_sums(sums) -> dict:
-    if runtime.size() > 1:
+def _reduce_sums(trainer, sums) -> dict:
+    """The global means from this shard's sums: reduced over the batch
+    shards (the world on a pure-data mesh)."""
+    group = trainer.batch_group
+    if group is not None:
+        sums = collectives.all_reduce_sum(sums, group)
+    elif runtime.size() > 1:
         sums = collectives.allreduce(sums.clone(), average=False)
     loss_sum, correct_sum, count = sums.tolist()
     return {"loss": loss_sum / count, "accuracy": correct_sum / count}
@@ -389,7 +400,7 @@ def evaluate_device_cached(trainer, x, y, batch_size: int) -> dict:
     key = (id(x), id(y), batch_size)
     cache = trainer._eval_cache
     if key not in cache:
-        n, n_shards = len(x), runtime.size()
+        n, n_shards = len(x), trainer.dp
         per = -(-n // (n_shards * batch_size)) * batch_size
         pad_n = per * n_shards
         mask = np.zeros(pad_n, np.float32)
@@ -415,7 +426,7 @@ def evaluate_device_cached(trainer, x, y, batch_size: int) -> dict:
             _eval_batch_sums(trainer, xs[lo:lo + batch_size],
                              ys[lo:lo + batch_size], ms[lo:lo + batch_size],
                              sums)
-    return _reduce_sums(sums)
+    return _reduce_sums(trainer, sums)
 
 
 def run_evaluate(trainer, x, y, batch_size: int = 128, verbose: int = 0,
@@ -434,7 +445,7 @@ def run_evaluate(trainer, x, y, batch_size: int = 128, verbose: int = 0,
     elif cache is not None:
         raise ValueError(f"unknown cache mode {cache!r}")
     else:
-        r, n = runtime.rank(), runtime.size()
+        r, n = trainer.data_index, trainer.dp
         xs, ys = x[r::n], y[r::n]
         sums = torch.zeros(3, dtype=torch.float64, device=trainer.device)
         with torch.inference_mode():
@@ -446,7 +457,7 @@ def run_evaluate(trainer, x, y, batch_size: int = 128, verbose: int = 0,
                 sums[0] += loss_vec.double().sum()
                 sums[1] += correct.double().sum()
                 sums[2] += loss_vec.numel()
-        result = _reduce_sums(sums)
+        result = _reduce_sums(trainer, sums)
     if verbose and runtime.is_primary():
         print(f"eval - {({k: round(v, 4) for k, v in result.items()})}")
     return result

@@ -15,9 +15,10 @@ never change while the graph lives:
   micro])`` computed on the host for the chunk's steps and uploaded once
   per chunk; the model folds and hashes them on the device
   (`ops.dropout`, a CUDA kernel on the card);
-* the metric sums (JAX's ``metric_acc``: loss and accuracy, f32), read
-  once per epoch, and the last step's metrics, which `last_metrics`
-  clones (the next replay overwrites them).
+* the metric sums (JAX's ``metric_acc``: loss, accuracy and the module's
+  sown metrics in their discovered order, f32), read once per epoch, and
+  the last step's metrics, which `last_metrics` clones (the next replay
+  overwrites them).
 
 The optimizer runs in its capturable form with a device learning rate
 (`DistributedOptimizer.set_scale` fills it outside the graph, once per
@@ -33,7 +34,8 @@ graph copies the eagerly all-gathered shards into the parameters. Every
 buffer the eager stages read or write (buckets, residuals, reduced
 buckets, gathered shards) was allocated by a graph, at a fixed address.
 A module whose forward itself reduces over the ranks (the global-batch
-BatchNorm) steps eagerly there (`eager_steps` counts it). The backend and
+BatchNorm, an MoE layer's expert-group sums) steps eagerly there
+(`eager_steps` counts it). The backend and
 the module decide, never a failure. Buffers a step updates (BN's running
 statistics) are written in place, so their addresses hold.
 
@@ -67,8 +69,9 @@ from horovod_tpu_torch import runtime
 def forward_communicates_over_host(module) -> bool:
     """Whether a train-mode forward of ``module`` makes collective calls
     that go through host memory: a layer that reduces over the ranks (a
-    global-batch `models.resnet.BatchNorm`, ``reduces_over_ranks``) in a
-    world of more than one rank under gloo. Its all-reduces sit inside the
+    global-batch `models.resnet.BatchNorm`, an MoE layer on a live expert
+    axis; ``reduces_over_ranks``) in a world of more than one rank under
+    gloo. Its all-reduces sit inside the
     forward and the backward, where no graph split can leave them out, so
     such a step runs eagerly; under NCCL they are captured with it."""
     return (runtime.size() > 1 and runtime.backend() == "gloo"
@@ -103,7 +106,7 @@ class StepRunner:
         self.seeds = torch.zeros((self.max_steps, self.accum),
                                  dtype=torch.int64, device=dev)
         self._set_batch_size(batch_size)
-        self.metric_sums = torch.zeros(2, dtype=torch.float32, device=dev)
+        self._size_metrics()
         self.last = None
         self.capture_guard = contextlib.nullcontext
         self.captures = 0
@@ -116,6 +119,11 @@ class StepRunner:
         self._layout = None
         self._warm = False  # a step ran eagerly since the layout was set
         self._stream = torch.cuda.Stream(dev) if self.graphs else None
+
+    def _size_metrics(self) -> None:
+        names = self.trainer._metric_names or ()
+        self.metric_sums = torch.zeros(2 + len(names), dtype=torch.float32,
+                                       device=self.device)
 
     def _set_batch_size(self, batch_size: int) -> None:
         self.batch_size = int(batch_size)
@@ -172,10 +180,11 @@ class StepRunner:
         self.src_x = self.src_y = self.seeds = None
 
     def metric_means(self, steps: int) -> dict:
-        """The epoch's mean loss and accuracy over ``steps`` steps: the one
-        fetch from the device."""
-        loss, acc = self.metric_sums.tolist()
-        return {"loss": loss / steps, "accuracy": acc / steps}
+        """The epoch's mean loss, accuracy and sown metrics over ``steps``
+        steps: the one fetch from the device."""
+        names = self.trainer.metric_names
+        return {k: v / steps for k, v in zip(names,
+                                              self.metric_sums.tolist())}
 
     def last_metrics(self) -> dict:
         """Copies of the last step's metrics (0-d device tensors)."""
@@ -199,10 +208,17 @@ class StepRunner:
         ``trainer.state.step`` advances by ``n``."""
         if n <= 0:
             return
+        tr = self.trainer
+        if tr._metric_names is None:
+            # Before any step: one eval-mode forward of the first rows
+            # names the module's sown metrics (JAX's build-time init).
+            b = self.batch_size
+            tr.discover_metrics(self.src_x[:b], self.src_y[:b])
+            self._size_metrics()
         self._upload_seeds(n)
         self._t_host += n
-        tr = self.trainer
         tr.tx.state_changed()
+        tr.state.model_changed()
         if self.graphs and self._stale():
             if not self._warm:
                 self._warm_up()
@@ -225,25 +241,30 @@ class StepRunner:
         tr.tx.zero_grad()
         B, K = self.batch_size, self.accum
         seeds = self.seeds.index_select(0, self.t.view(1)).view(-1)
-        losses, accs = [], []
+        rows = []
         for k in range(K):
             idx = (self.t * K + k) * B + self.rows
             x = self.src_x.index_select(0, idx)
             y = self.src_y.index_select(0, idx)
             loss_vec, correct = tr._loss_and_correct(x, y, train=True,
                                                      seed=seeds[k])
+            # JAX's forward_loss: the mean loss plus every sown loss.
+            aux, sown = tr.sown_step_terms()
             loss = loss_vec.mean()
+            if aux is not None:
+                loss = loss + aux
             if k == K - 1 and self._overlap_here():
                 tr.tx.arm_overlap()
             loss.backward()
-            losses.append(loss.detach())
-            accs.append(correct.mean().detach())
+            rows.append([loss.detach(), correct.mean().detach()]
+                        + [sown[n].detach() for n in tr._metric_names])
         if K == 1:
-            loss, acc = losses[0], accs[0]
+            values = torch.stack(rows[0])
         else:
-            loss, acc = torch.stack(losses).mean(), torch.stack(accs).mean()
-        self.metric_sums.add_(torch.stack([loss, acc]))
-        self.last = {"loss": loss, "accuracy": acc}
+            values = torch.stack([torch.stack(col).mean()
+                                  for col in zip(*rows)])
+        self.metric_sums.add_(values)
+        self.last = dict(zip(tr.metric_names, values.unbind()))
         self.t.add_(1)
 
     def _overlap_here(self) -> bool:

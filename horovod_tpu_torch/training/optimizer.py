@@ -107,6 +107,24 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     )
 
 
+def _placed(v, p, spec: dict, gather: bool):
+    """One state value of placed parameter ``p`` (its local part shaped
+    like ``p``, or whole): gathered along each placed dim over its group,
+    or cut to this rank's part there; a value of another shape (a step
+    count) as it is."""
+    if not isinstance(v, torch.Tensor) or v.dim() != p.dim():
+        return v
+    for dim, group in sorted(spec.items(), reverse=gather):
+        n = collectives.group_size(group)
+        if gather and v.shape[dim] == p.shape[dim]:
+            v = torch.cat(list(collectives.all_gather_tensor(v, group)),
+                          dim=dim)
+        elif not gather and v.shape[dim] == p.shape[dim] * n:
+            v = v.narrow(dim, p.shape[dim] * collectives.group_rank(group),
+                         p.shape[dim]).clone()
+    return v
+
+
 class _Step(typing.NamedTuple):
     """One step's reduction: the parameters whose gradients it reduces (in
     its leaf order) and the staged `collectives.Reduction`."""
@@ -181,6 +199,13 @@ class DistributedOptimizer:
         self.bucket_reverse = order == "reverse"
         self.overlap = False
         self.dcn = None  # the two-hop factor; mesh.dcn_factor() at first use
+        # The mesh's batch group the gradients reduce over (None: the
+        # world), its size (None: the world's), and the parameters placed
+        # on live mesh axes, {param: {dim: group}} (the `Trainer` sets all
+        # three on a mesh).
+        self.group = None
+        self.dp = None
+        self.placements: dict = {}
         self.zero1 = None
         self.residual = None  # per bound parameter, this rank's f32 remainder
         self._model_params: list = []
@@ -282,7 +307,8 @@ class DistributedOptimizer:
         """Whether `state_dict` gathers over the ranks: ZeRO-1 shards or
         per-rank residuals in a world of more than one. Every rank must
         then call it at the same point, or read a `snapshot`."""
-        return runtime.size() > 1 and (self.zero1 is not None or self.ef)
+        return runtime.size() > 1 and (self.zero1 is not None or self.ef
+                                       or bool(self.placements))
 
     def state_dict(self) -> dict:
         """The optimizer's state dict in the replicated optimizer's format,
@@ -297,6 +323,8 @@ class DistributedOptimizer:
         sd = self.optimizer.state_dict()
         if self.zero1 is not None:
             sd = self.zero1.gather_state(sd)
+        if self.placements:
+            sd = self._placed_state(sd, gather=True)
         for group, base in zip(sd["param_groups"], self._base_lrs):
             group["lr"] = base
         if self.residual is not None:
@@ -366,7 +394,26 @@ class DistributedOptimizer:
                  if k not in (EF_KEY, RANK_KEY)}
         if self.zero1 is not None and cut is None:
             state = self.zero1.cut_state(state)
+        if self.placements:
+            state = self._placed_state(state, gather=False)
         self._load_inner(state)
+
+    def _placed_state(self, sd: dict, *, gather: bool) -> dict:
+        """``sd`` (the inner optimizer's state-dict format) with the state
+        of every placed parameter gathered whole over its groups
+        (``gather``, a collective) or cut to this rank's part: the tensors
+        shaped like their parameter (Adam's moments), the rest as they
+        are."""
+        params = list(self._params())
+        out = dict(sd)
+        out["state"] = {}
+        for i, st in sd["state"].items():
+            p = params[int(i)]
+            spec = self.placements.get(p)
+            if spec:
+                st = {k: _placed(v, p, spec, gather) for k, v in st.items()}
+            out["state"][i] = st
+        return out
 
     def _load_inner(self, state: dict) -> None:
         params = list(self._params())
@@ -479,7 +526,7 @@ class DistributedOptimizer:
         red = collectives.Reduction(
             self._plan_for(params), grads, residuals, dcn=self.dcn,
             wire_dtype=self.wire_dtype, ici_wire_dtype=self.ici_wire_dtype,
-            donate=True, device=params[0].device)
+            donate=True, device=params[0].device, group=self.group)
         return _Step(params, {id(p): i for i, p in enumerate(params)}, red)
 
     def arm_overlap(self) -> None:
@@ -491,7 +538,8 @@ class DistributedOptimizer:
         those first). The arithmetic is the serialized reduction's, bit for
         bit."""
         self._armed = None
-        if not self.overlap or runtime.size() == 1:
+        if (not self.overlap or runtime.size() == 1
+                or self.group is collectives.SELF):
             return
         params = [p for p in self._model_params if p.requires_grad]
         if not params:
@@ -517,7 +565,8 @@ class DistributedOptimizer:
         to round, divide or quantize, or no gradients)."""
         self.state_changed()
         armed, self._armed = self._armed, None
-        if not runtime.is_distributed() and self._exact_and_plain():
+        if ((not runtime.is_distributed() or self.group is collectives.SELF)
+                and self._exact_and_plain()):
             return None
         params = [p for p in self._model_params if p.grad is not None]
         if not params:
@@ -567,7 +616,8 @@ class DistributedOptimizer:
                 for p in self._model_params]
 
     def _divisor(self) -> int:
-        return (runtime.size() if self.average else 1) * (
+        dp = runtime.size() if self.dp is None else self.dp
+        return (dp if self.average else 1) * (
             self.backward_passes_per_step
             if self.average_aggregated_gradients else 1)
 

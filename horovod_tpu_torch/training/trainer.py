@@ -17,11 +17,30 @@ logits, ``seed`` an int or a 0-d int64 tensor; with ``loss="module"`` it
 also takes ``labels=y`` and returns ``(per_token_loss,
 per_token_correct)``, as the port's `TransformerLM` does.
 
-``fit(x=, y=)`` feeds ``ArrayDataset((x, y)).shard(rank, size)`` through
+``fit(x=, y=)`` feeds ``ArrayDataset((x, y)).shard(i, dp)`` through
 `training_pipeline` (the native engine where it builds, as in JAX) seeded
 with ``seed``, epoch-anchored, so its batches are byte-identical to the
-JAX trainer's. Options not ported raise `NotImplementedError` naming their
-ROADMAP item.
+JAX trainer's; ``i`` is this rank's batch shard and ``dp`` the number of
+shards (the rank and the world size on a pure-data mesh). Options not
+ported raise `NotImplementedError` naming their ROADMAP item.
+
+The objective is the JAX Trainer's ``forward_loss``: the mean loss plus
+every loss the module sowed (`train_state.sow`; an MoE layer's load
+balance), and the step's metrics are ``{loss, accuracy}`` plus the sown
+metrics averaged by name (``moe_drop_rate``), whose names are discovered
+once by an eval-mode forward of a sample (at `build` with one, else
+before the first step) — reserved names and sows gated on ``train`` raise
+JAX's errors.
+
+``mesh=`` (a `parallel.mesh.Mesh`) and ``param_specs=`` (a function
+``(module, mesh) -> {name: {dim: axis}}`` such as
+`models.transformer.param_specs`, or such a dict) place the model: this
+slice carries live ``data`` and ``expert`` axes. The batch is sharded over
+``(data, fsdp)`` — JAX's default layout ``P(('data', 'fsdp'), 'seq')`` on
+a mesh without ``seq`` — so every rank of an expert group feeds, seeds
+its dropout with and reduces over its batch shard alike, and gradients
+(expert shards and replicated parameters alike) reduce over the mesh's
+batch group divided by ``dp``.
 
 The boundary reduction is the `DistributedOptimizer`'s: its wire
 (``compression``, ``compression_ici``, error feedback), the two-hop factor
@@ -39,9 +58,12 @@ import torch
 from horovod_tpu_torch import runtime
 from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import stream
-from horovod_tpu_torch.parallel import mesh
+from horovod_tpu_torch.models.transformer import (
+    _full_shapes, live_placements, refuse_unported_axes,
+)
+from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.runtime import derive_seed, resolve_device
-from horovod_tpu_torch.training import feeding
+from horovod_tpu_torch.training import feeding, train_state
 from horovod_tpu_torch.training.graphs import StepRunner
 from horovod_tpu_torch.training.optimizer import DistributedOptimizer
 from horovod_tpu_torch.training.train_state import (
@@ -51,10 +73,9 @@ from horovod_tpu_torch.training.train_state import (
 # Trainer options of the JAX package not carried here, with the ROADMAP
 # item that ports each.
 _NOT_PORTED = {
-    "mesh": "queue A item 12 (device meshes; the port runs one device per "
-            "rank)",
-    "param_specs": "queue A item 12 (sharded layouts)",
-    "batch_specs": "queue A item 12 (sharded layouts)",
+    "batch_specs": "queue A item 12.2 (custom batch layouts; the port's "
+                   "batch layout is P(('data', 'fsdp'), 'seq') on a mesh "
+                   "without a live 'seq' axis)",
 }
 
 
@@ -91,6 +112,12 @@ class Trainer:
       bucket_order: ``"reverse"`` (default ``HVT_BUCKET_ORDER``, else
         reverse: the leaves last-first, the order the backward finishes
         them) or ``"forward"``.
+      mesh: a `parallel.mesh.Mesh` (default: every rank on ``data``). A
+        live ``seq`` axis raises naming ROADMAP queue A item 12.2, a live
+        ``model``, ``fsdp`` or ``pipe`` axis item 12.4.
+      param_specs: the placements of the parameters on ``mesh``; only
+        ``expert`` placements may be live (others raise naming item 12.4).
+        A module whose MoE layers hold expert shards needs them.
     """
 
     def __init__(self, module, optimizer,
@@ -98,7 +125,8 @@ class Trainer:
                  device="cuda", bucket_bytes: int | None = None,
                  steps_per_execution: int = 1, shard_update: bool = False,
                  overlap_reduction: bool | None = None,
-                 bucket_order: str | None = None, **not_ported):
+                 bucket_order: str | None = None, mesh=None,
+                 param_specs=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -107,10 +135,19 @@ class Trainer:
                     f"Trainer({name}=...) is not ported yet — ROADMAP "
                     f"{_NOT_PORTED[name]}"
                 )
+        if mesh is not None:
+            refuse_unported_axes(mesh, "Trainer(mesh=...)")
+            if mesh.layout_only:
+                raise ValueError(f"Trainer(mesh={mesh!r}): the mesh was "
+                                 "built for another world than this one")
+        self.mesh = mesh
+        self.param_specs = param_specs
+        self.placements: dict = {}  # parameter name -> live {dim: axis}
         self.device = resolve_device(device)
         self.module = module
         self.tx = (optimizer if isinstance(optimizer, DistributedOptimizer)
                    else DistributedOptimizer(optimizer))
+        self._refuse_with_placements(shard_update)
         if bucket_bytes:
             self.tx.bucket_bytes = int(bucket_bytes)
         if bucket_order is not None:  # else the optimizer's HVT_BUCKET_ORDER
@@ -123,9 +160,13 @@ class Trainer:
         self.tx.overlap = bool(overlap_reduction)
         self.shard_update = bool(shard_update)
         # The two-hop factor: HVT_DCN_FACTOR (checked here: it must divide
-        # the world size), else the hosts, asked at the first step.
-        if registry.get_raw(mesh.ENV_DCN_FACTOR):
-            self.tx.dcn = mesh.dcn_factor()
+        # the world size), else the hosts, asked at the first step. A
+        # reduction over a subgroup is single-hop.
+        if self.batch_group is not None:
+            self.tx.group, self.tx.dp, self.tx.dcn = (
+                self.batch_group, self.dp, 1)
+        elif registry.get_raw(mesh_lib.ENV_DCN_FACTOR):
+            self.tx.dcn = mesh_lib.dcn_factor()
         self._accum_steps = self.tx.backward_passes_per_step
         self.loss_fn = _resolve_loss(loss)
         self._module_loss = loss == "module"
@@ -150,21 +191,168 @@ class Trainer:
         # the one `train_step` steps eagerly.
         self._runner = None
         self._step_runner = None
+        # Names of the module's sown metrics, discovered once (None until
+        # then), and whether any of its layers sows at all.
+        self._metric_names: tuple | None = None
+        self._sows = train_state.sows(module)
+
+    @property
+    def metric_names(self) -> tuple:
+        """Every per-step metric key: loss, accuracy and the module's sown
+        metrics (known once discovered)."""
+        return ("loss", "accuracy") + (self._metric_names or ())
+
+    # -- the mesh --------------------------------------------------------------
+
+    @property
+    def dp(self) -> int:
+        """The number of batch shards (the world size without a mesh)."""
+        return mesh_lib.dp_size(self.mesh)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's batch shard (its rank without a mesh)."""
+        return (self.mesh.data_index if self.mesh is not None
+                else runtime.rank())
+
+    @property
+    def batch_group(self):
+        """The ranks that share this one's parameters and differ in batch
+        shard: None (the world) on a pure-data mesh."""
+        return self.mesh.batch_group if self.mesh is not None else None
+
+    def _refuse_with_placements(self, shard_update: bool) -> None:
+        """JAX's refusals of options that assume replicated parameters, and
+        the port's of the reductions it runs over the world only."""
+        tx = self.tx
+        compressed = (tx.wire_dtype is not None
+                      or tx.ici_wire_dtype is not None)
+        if self.param_specs is not None:
+            if compressed:
+                raise ValueError(
+                    "DistributedOptimizer(compression=/compression_ici=...) "
+                    "requires replicated parameters (param_specs=None); "
+                    "sharded-parameter layouts keep XLA's implicit f32 "
+                    "gradient reduction"
+                )
+            if tx.backward_passes_per_step > 1:
+                raise ValueError(
+                    "DistributedOptimizer(backward_passes_per_step=K) "
+                    "requires replicated parameters (param_specs=None): "
+                    "the accumulating step's explicit boundary reduction "
+                    "assumes the pure-DP gradient layout"
+                )
+            if shard_update:
+                raise ValueError(
+                    "shard_update (ZeRO-1) targets the replicated-parameter "
+                    "layout; with param_specs the optimizer mirrors already "
+                    "follow the fsdp/tp sharding — compose via the fsdp axis "
+                    "instead"
+                )
+        if self.batch_group is not None and (compressed or shard_update
+                                             or registry.get_raw(
+                                                 mesh_lib.ENV_DCN_FACTOR)):
+            raise NotImplementedError(
+                "the quantized and 16-bit wires, the two-hop reduction and "
+                "ZeRO-1 reduce over the whole world; on a mesh with live "
+                "non-data axes they are not ported yet — ROADMAP queue A "
+                "item 12.4")
+
+    def _place(self) -> None:
+        """The parameters' placements on the mesh: each live one must be
+        what the module holds (its MoE layers shard their experts at
+        construction, from the model's own mesh)."""
+        mesh = self.mesh
+        sharded = [m for m in self.module.modules()
+                   if getattr(m, "ep", 1) > 1]
+        for m in sharded:
+            if mesh is None or m.mesh.shape != mesh.shape:
+                raise ValueError(
+                    f"{type(m).__name__} holds its experts sharded over the "
+                    f"mesh {m.mesh!r}: pass that mesh as Trainer(mesh=...)")
+        if self.param_specs is None:
+            if sharded:
+                raise ValueError(
+                    "the module's MoE layers hold expert shards: pass "
+                    "param_specs= (models.transformer.param_specs)")
+        elif mesh is not None:  # on the pure-data mesh nothing is live
+            specs = (self.param_specs(self.module, mesh)
+                     if callable(self.param_specs) else self.param_specs)
+            self.placements = live_placements(specs, mesh)
+            params = dict(self.module.named_parameters())
+            full = _full_shapes(self.module)
+            for name, spec in self.placements.items():
+                for dim, ax in spec.items():
+                    want = full[name][dim] // mesh.shape[ax]
+                    if params[name].shape[dim] != want:
+                        raise ValueError(
+                            f"{name} holds {params[name].shape[dim]} along "
+                            f"dim {dim}, its {ax!r} placement wants {want}: "
+                            "build the model with sharding="
+                            "ShardingConfig(mesh=...)")
+        for m in self.module.modules():
+            if hasattr(m, "data_shards"):
+                m.data_shards = self.dp
+        if self.placements:
+            self.tx.placements = {
+                p: {d: mesh.group(ax)
+                    for d, ax in self.placements[name].items()}
+                for name, p in self.module.named_parameters()
+                if name in self.placements}
+
+    def discover_metrics(self, sample_x, sample_y=None) -> tuple:
+        """The names of the module's sown metrics, from an eval-mode
+        forward of a sample (the JAX trainer's build-time init; without
+        ``sample_y`` a module computing its own loss gets
+        ``zeros_like(sample_x)`` as labels, the LM contract)."""
+        if self._metric_names is None:
+            names = ()
+            if self._sows:
+                x = self._tensor(sample_x)
+                train_state.clear_sown(self.module)
+                with torch.no_grad():
+                    if self._module_loss:
+                        y = (self._tensor(sample_y) if sample_y is not None
+                             else torch.zeros_like(x))
+                        self.module(x, train=False, labels=y)
+                    else:
+                        self.module(x, train=False)
+                names = train_state.sown_metrics(self.module)
+            self._metric_names = train_state.check_metric_names(names)
+        return self._metric_names
+
+    def sown_step_terms(self):
+        """After a training forward: ``(aux, metrics)`` — the sum of the
+        sown losses (None without any) and the sown metrics, whose names
+        must be those discovered."""
+        if not self._sows:
+            return None, {}
+        aux = None
+        for v in train_state.sown_losses(self.module):
+            aux = v.float() if aux is None else aux + v.float()
+        sown = train_state.sown_metrics(self.module)
+        train_state.check_train_metric_names(sown, self._metric_names)
+        return aux, sown
 
     # -- state ---------------------------------------------------------------
 
     def build(self, sample_x=None, sample_y=None) -> TrainState:
-        """Place the module on the device and bind the optimizer to its
-        parameters. The module's parameters exist already (torch builds
-        them at construction, from its own seed), so the samples are not
-        needed; they are accepted for the JAX call shape."""
-        del sample_x, sample_y
+        """Place the module on the device, check its parameters'
+        placements on the mesh and bind the optimizer to its parameters.
+        The module's parameters exist already (torch builds them at
+        construction, from its own seed); a sample, where given, discovers
+        the names of its sown metrics (`discover_metrics`)."""
         if self.state is None:
             self.module.to(self.device)
+            self._place()
             self.tx.bind(self.module.parameters(),
                          shard_update=self.shard_update)
             self.state = TrainState(step=0, model=self.module,
-                                    optimizer=self.tx, rng=self.seed)
+                                    optimizer=self.tx, rng=self.seed,
+                                    mesh=self.mesh,
+                                    placements=self.placements)
+        if sample_x is not None:
+            self.discover_metrics(sample_x, sample_y)
         return self.state
 
     def stream_cursor(self, epoch: int, step: int) -> dict | None:
@@ -185,7 +373,10 @@ class Trainer:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     def _loss_and_correct(self, x, y, *, train: bool, seed=None):
-        """(per-example/per-token loss, per-example/per-token correct)."""
+        """(per-example/per-token loss, per-example/per-token correct); the
+        sown values of the forward are left in the module."""
+        if self._sows:
+            train_state.clear_sown(self.module)
         if self._module_loss:
             return self.module(x, train=train, labels=y, dropout_seed=seed)
         logits = self.module(x, train=train, dropout_seed=seed)
@@ -193,11 +384,12 @@ class Trainer:
 
     def _dropout_seed(self, micro: int, step: int | None = None) -> int:
         """The seed of optimizer step ``step`` (default: the next one) —
-        JAX's ``fold_in(rng, step)`` — made distinct per rank and, when
-        accumulating, per microbatch."""
+        JAX's ``fold_in(rng, step)`` — made distinct per batch shard (the
+        ranks of an expert group draw alike) and, when accumulating, per
+        microbatch."""
         seed = self.state.step_seed(step)
-        if runtime.size() > 1:
-            seed = derive_seed(seed, runtime.rank())
+        if self.dp > 1:
+            seed = derive_seed(seed, self.data_index)
         if self._accum_steps > 1:
             seed = derive_seed(seed, micro)
         return seed

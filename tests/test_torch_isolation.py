@@ -355,3 +355,33 @@ def test_no_port_module_imports_yaml():
                      [node.module] if isinstance(node, ast.ImportFrom)
                      and node.module else [])
             assert not any(n.split(".")[0] == "yaml" for n in names), path
+
+
+MOE_SLICE_MODULES = ("models.moe", "models.transformer", "parallel.mesh",
+                     "models.convert", "training.train_state")
+
+
+@pytest.mark.parametrize("name", MOE_SLICE_MODULES)
+def test_moe_slice_modules_are_scanned(name):
+    """The mesh and MoE slice's modules are in both scans."""
+    assert f"horovod_tpu_torch.{name}" in _modules()
+    assert os.path.join(PKG, *name.split(".")) + ".py" in _port_files()
+
+
+def test_moe_entry_points_refuse_cpu_fallback(no_cuda):
+    """An MoE model and a mesh Trainer default to the card and raise
+    without CUDA; they run on the CPU only when named."""
+    import horovod_tpu_torch as ht
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel import mesh
+
+    kw = dict(vocab_size=16, d_model=8, n_heads=2, n_layers=2, moe_every=2,
+              n_experts=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerLM(**kw)
+    m = TransformerLM(**kw, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Trainer(m, ht.adamw(1e-3), loss="module",
+                   mesh=mesh.build_mesh())
+    assert ht.Trainer(m, ht.adamw(1e-3), loss="module",
+                      mesh=mesh.build_mesh(), device="cpu").dp == 1

@@ -26,6 +26,7 @@ from horovod_tpu_torch.data import datasets as tdata
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.models.convert import params_from_flax, params_to_flax
 from horovod_tpu_torch.ops import flash_attention as tfa
+from horovod_tpu_torch.parallel import mesh as tmesh
 
 VOCAB, D_MODEL, HEADS, LAYERS, T = 64, 32, 4, 2, 128
 # Loss: a 2-layer f32 model and a 64-way logsumexp, summed in other orders
@@ -407,15 +408,25 @@ def test_trainer_paths_on_cpu():
     assert trainer.state.step == 13
 
 
+def _layout_mesh(**axes):
+    n = int(np.prod(list(axes.values())))
+    return tmesh.build_mesh(tmesh.MeshSpec(**axes), n_ranks=n, rank=0)
+
+
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "item 12"),
-    ({"param_specs": {}}, "item 12"),
-    ({"batch_specs": {}}, "item 12"),
+    (lambda: {"mesh": _layout_mesh(data=1, seq=2)}, "item 12.2"),
+    (lambda: {"mesh": _layout_mesh(data=1, model=2),
+              "param_specs": ttr.param_specs}, "item 12.4"),
+    (lambda: {"batch_specs": {}}, "item 12"),
 ], ids=["mesh", "param_specs", "batch_specs"])
 def test_trainer_unported_options_raise_naming_roadmap(kw, match):
+    """What the slice does not carry raises naming its ROADMAP item: a live
+    ``seq`` axis (12.2), a live ``model`` placement (12.4), custom batch
+    layouts (12.2). Meshes and expert placements: tests/test_torch_mesh.py
+    and tests/test_torch_expert_parallel.py."""
     tm = ttr.TransformerLM(**_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        ht.Trainer(tm, ht.adamw(1e-3), device="cpu", **kw)
+        ht.Trainer(tm, ht.adamw(1e-3), device="cpu", **kw())
 
 
 def test_trainer_callbacks_raise_naming_roadmap():

@@ -203,15 +203,18 @@ def test_seeded_init_is_reproducible_and_flax_scaled():
 @pytest.mark.parametrize("name", ["moe_every", "int8_compute",
                                   "quantized_cache", "sliding_cache"])
 def test_unported_options_raise_naming_roadmap(name):
-    """An option the port does not carry (MoE) raises naming its ROADMAP
-    item; the decode knobs, ported since, construct and round-trip through
-    ``config()`` (their behaviour: tests/test_torch_quant.py and
-    tests/test_torch_kv_caches.py)."""
+    """Options once refused, ported since, construct and round-trip through
+    ``config()``: the decode knobs (their behaviour: tests/test_torch_quant.py
+    and tests/test_torch_kv_caches.py) and ``moe_every`` (its behaviour:
+    tests/test_torch_moe_lm.py)."""
     kw = dict(vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_layers=1,
               device="cpu")
     if name == "moe_every":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.TransformerLM(**kw, **{name: 2})
+        m = ttr.TransformerLM(**kw, moe_every=1, n_experts=4)
+        assert m.config()["moe_every"] == 1 and m.blocks[0].use_moe
+        back = ttr.TransformerLM(**m.config(), device="cpu")
+        assert back.config() == m.config()
+        assert sorted(back.state_dict()) == sorted(m.state_dict())
         return
     m = ttr.TransformerLM(**kw, **{name: True})
     assert m.config()[name] is True
