@@ -120,7 +120,8 @@ Phases (any failed check exits non-zero before the result line):
       running statistics within its 2e-6; the ranks' runners step eagerly
       (counted), since a gloo BN all-reduce cannot sit inside a graph;
    d. ``cifar_vit`` — ``ARCH=vit`` (patch 4, d 256, 8 heads, 6 layers,
-      bf16), 3 × 100 steps: images/s and the loss falling;
+      bf16), 2 × 100 steps: images/s and the loss falling;
+   (b and c, checks with no timing read, share the card at once);
 13. the decode family of ``examples/lm_generate.py`` at the bench LM's
    width (bf16, seeded random weights, batch 8 × prompt 128):
    a. greedy and sampled ``make_generate_fn``, 64 new tokens: the captured
@@ -226,7 +227,8 @@ Phases (any failed check exits non-zero before the result line):
       ``hang`` restart, the same resume and state, the detection latency;
    d. ``pod --hosts 127.0.0.1,localhost`` through a PATH-shimmed ``ssh``
       (``tests/test_launch.py``'s shim), ``HVT_BACKEND=gloo``: a world of
-      two ranks sharing the card, their states equal;
+      two ranks sharing the card, their states equal (run beside the
+      clean reference run of b and c);
 17. MoE and expert parallelism (no new kernel: the JAX MoE layer runs
    none), each part a ``phase17*`` line with the card:
    a. the bench LM in bench.py's MoE mode (``MOE_MODEL``: ``moe_every=2``,
@@ -244,7 +246,25 @@ Phases (any failed check exits non-zero before the result line):
    d. ``MeshSpec(data=1, expert=2)`` at two gloo ranks on the card against
       one rank (``MOE_CHILD``), f32, SGD: losses, expert shards,
       replicated parameters bit-equal, eager steps;
-18. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
+18. sequence parallelism and packed pretraining (no new kernel: the ring,
+   Ulysses and packing are collectives and plain ops around B1-B3), each
+   part a ``phase18*`` line with the card:
+   a. the ring's hops at the twin's full-width shard [8, 1024, 4, 128]
+      bf16 (tc): B1 on the causal diagonal, on a past block non-causal and
+      at ``q_offset`` = 1024 under a window of 1536; B2/B3 with the lse
+      cotangent the merge of two hops produces; each against its plain
+      version at phase 3's tolerances, and timed beside its bound and SDPA
+      with the same mask;
+   b. the twin of ``examples/lm_packed_pretraining.py`` at the bench LM's
+      width (vocab 8192, d_model 512, 8 layers, 4 heads of 128, seq 2048,
+      bf16) on ``HVT_MESH="data=1,seq=2"``, two gloo ranks sharing the
+      card: the masked loss falls (``LEARNING``), the ranks' parameters
+      are equal, B1-B3 launch n_layers × the hops a rank runs a step, all
+      on tc; step ms, tokens/s, the ring's bytes a step, peak memory;
+   c. a 2-layer f32 model at seq = 2 (two gloo ranks) against one rank on
+      the card: logits, loss and every gradient for the flash ring,
+      Ulysses and the ring with window + sinks, at phase 7's tolerances;
+19. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
@@ -267,6 +287,11 @@ with ``--moe-only``): the bench MoE LM, captured steps, replicated
 parameters bit-equal and each expert shard equal across its batch group,
 tokens/s a card beside the dense LM's at four data ranks, and the
 checkpoint written there restored at one rank with the full experts.
+18d runs the twin at ``data=2,seq=2`` on four NCCL ranks (``--ranks 4``,
+after 17e, whose dense LM at four data ranks it stands beside): each
+step after the first a replay of one captured graph holding the ring's
+sends and receives, the parameters bit-equal on every rank, tokens/s a
+card.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -528,7 +553,7 @@ WORK_OF = {"flash_fwd": (2, 2, 1, 2), "flash_bwd_dq": (3, 2, 2, 3),
 
 
 def attention_bound_ms(b, tq, tk, h, hkv, d, dtype_name, *, causal,
-                       q_offset=None, kernel="flash_fwd"):
+                       q_offset=None, kernel="flash_fwd", window=None):
     """Least time for ``kernel``'s work on this card: the larger of (each
     input read once + each output written once) over HBM bandwidth and the
     products the masks keep over the peak rate of the dtype."""
@@ -538,7 +563,9 @@ def attention_bound_ms(b, tq, tk, h, hkv, d, dtype_name, *, causal,
         + n_stat * b * tq * h * 4
     if causal:
         off = tk - tq if q_offset is None else q_offset
-        visible = sum(max(0, min(tk, r + off + 1)) for r in range(tq))
+        lo = (lambda r: 0) if window is None else (
+            lambda r: max(0, r + off - window + 1))
+        visible = sum(max(0, min(tk, r + off + 1) - lo(r)) for r in range(tq))
     else:
         visible = tq * tk
     flops = 2.0 * n_prod * b * h * d * visible
@@ -4094,8 +4121,14 @@ def launch_phase(torch, card, ci_job):
     two gloo ranks sharing the card."""
     t0 = time.perf_counter()
     log("phase16", json.dumps(dict(ci_job, card=card)))
-    lines, wall, _, _ = _launch("launch_clean", 1, "tf2_style_mnist",
-                                LAUNCH_CUT)
+    # The clean reference run and (d) share the card at once (checks, not
+    # timings); (b) and (c), whose fault timings are read, run alone.
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        clean_run = pool.submit(_launch, "launch_clean", 1,
+                                "tf2_style_mnist", LAUNCH_CUT)
+        pod = pool.submit(pod_twin, ["127.0.0.1", "localhost"], 1, "gloo")
+        lines, wall, _, _ = clean_run.result()
+        pod = pod.result()
     clean = _digests(lines)
     res = {"clean_wall_s": wall}
     res["b"] = dict(_supervised_twin("launch_crash", "0:1:exit1", [],
@@ -4106,8 +4139,7 @@ def launch_phase(torch, card, ci_job):
         ["--heartbeat-timeout", str(HANG_TIMEOUT_S)], clean),
         part="c_hang", heartbeat_timeout_s=HANG_TIMEOUT_S, card=card)
     log("phase16", json.dumps(res["c"]))
-    res["d"] = dict(pod_twin(["127.0.0.1", "localhost"], 1, "gloo"),
-                    card=card)
+    res["d"] = dict(pod, card=card)
     log("phase16", json.dumps(res["d"]))
     res["seconds"] = time.perf_counter() - t0
     log(f"launch phase seconds: {res['seconds']:.1f}")
@@ -4582,6 +4614,423 @@ def moe_multi_card(torch, card, ranks):
     return res
 
 
+# Phase 18: sequence parallelism and packed pretraining (no new kernel: the
+# ring, Ulysses and packing are collectives and plain ops around B1-B3).
+# 18a: the ring's hops at the twin's full-width shard [B, T/n, H, D] — 8 rows
+# of 2048 tokens over seq = 2, d_model 512 in 4 heads — bf16 (the tc route):
+# the causal diagonal, a past block non-causal, and a past block at
+# q_offset = T/n under a window of SEQ_HOP_WINDOW; B2/B3 with the lse
+# cotangent the merge of two hops produces. Phase 3's tolerances.
+SEQ_HOP_SHAPE, SEQ_HOP_WINDOW = (8, 1024, 4, 128), 1536
+# 18b: the twin of examples/lm_packed_pretraining.py at the bench LM's width
+# (vocab 8192, d_model 512, 8 layers; the twin's 4 heads, so D = 128), two
+# gloo ranks sharing the card on HVT_MESH "data=1,seq=2": 8 × 1024 tokens a
+# rank a step, attention the flash ring. DRIVE_EPOCHS × DRIVE_STEPS steps;
+# step ms is the median of the epochs after the first, a step.
+SEQ_TWIN = {"VOCAB": "8192", "DMODEL": "512", "NLAYERS": "8",
+            "SEQ_LEN": "2048", "HVT_MESH": "data=1,seq=2",
+            "DRIVE_EPOCHS": "4", "DRIVE_STEPS": "4"}
+# 18c: a 2-layer f32 model at the bench width (8 heads) at seq = 2 against
+# one rank on the card, SEQ_PLAIN_ROWS × SEQ_PLAIN_T tokens: logits, loss
+# and every gradient, held to phase 7's TRAIN_LOSS_ATOL and TRAIN_GRAD_REL
+# (logits to LOGITS_ATOL). The window variant's past hop runs at q_offset
+# = T/n = 512 and its sink block on the hop that holds block 0.
+SEQ_PLAIN_ROWS, SEQ_PLAIN_T = 2, 1024
+SEQ_PLAIN_VARIANTS = {"ring": ({}, "ring"), "ulysses": ({}, "ulysses"),
+                      "ring_window_sinks": (dict(window=700,
+                                                 attention_sinks=4), "ring")}
+
+SEQ_TWIN_CHILD = r"""
+import hashlib, json, os
+import torch
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import runtime
+from horovod_tpu_torch.examples import lm_packed_pretraining as twin
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import collectives
+
+trainers = []
+fit = hvt.Trainer.fit
+
+
+def recorded_fit(self, *args, **kwargs):
+    trainers.append(self)
+    return fit(self, *args, **kwargs)
+
+
+hvt.Trainer.fit = recorded_fit
+history = twin.main()
+runner = trainers[0]._runner
+digest = hashlib.sha256()
+for p in trainers[0].module.parameters():
+    digest.update(p.detach().cpu().numpy().tobytes())
+steps = len(history) * int(os.environ["DRIVE_STEPS"])
+# The shifts are counted where the step's Python runs (eager steps and the
+# capture); a replay repeats the captured step's shifts.
+ran = runner.eager_steps + runner.captures
+per_step = sorted(e["epoch_time_s"] * 1e3 / int(os.environ["DRIVE_STEPS"])
+                  for e in history[1:])
+res = {"rank": runtime.rank(), "steps": steps,
+       "losses": [e["loss"] for e in history],
+       "step_ms_median": per_step[len(per_step) // 2],
+       "launches": {"flash_fwd": fa.launches, "flash_fwd_tc": fa.launches_tc,
+                    "flash_bwd_dq": fa.launches_bwd_dq,
+                    "flash_bwd_dq_tc": fa.launches_bwd_dq_tc,
+                    "flash_bwd_dkv": fa.launches_bwd_dkv,
+                    "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc},
+       "eager_steps": runner.eager_steps, "captures": runner.captures,
+       "replays": runner.replays, "params_sha256": digest.hexdigest(),
+       "ring_bytes_per_step": collectives.shift_traffic["bytes"] / ran,
+       "ring_shifts_per_step": collectives.shift_traffic["calls"] / ran,
+       "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                           if runtime.device().type == "cuda" else None)}
+print("seq_twin", json.dumps(res), flush=True)
+"""
+
+SEQ_PLAIN_CHILD = r"""
+import json, os
+import numpy as np
+import torch
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import runtime
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.parallel import collectives as c
+from horovod_tpu_torch.parallel import mesh as tmesh
+
+ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
+dev = runtime.device()
+cfg = json.loads(os.environ["SMOKE_MODEL"])
+variants = json.loads(os.environ["SMOKE_VARIANTS"])
+mesh = tmesh.build_mesh(tmesh.MeshSpec(data=1, seq=2))
+data = np.load(os.environ["SMOKE_DATA"])
+t = data["x"].shape[1] // 2
+cols = slice(mesh.seq_index * t, (mesh.seq_index + 1) * t)
+x, y = (torch.from_numpy(np.ascontiguousarray(data[k][:, cols])).to(dev)
+        for k in ("x", "y"))
+res = {}
+for name, (kw, attn) in variants.items():
+    m = ttr.TransformerLM(**cfg, **kw, seed=4,
+                          device=dev, sharding=ttr.ShardingConfig(
+                              mesh=mesh, attn=attn))
+    with torch.no_grad():
+        res[name + ".logits"] = m(x).cpu().numpy()
+    loss, _ = m(x, labels=y, train=True, dropout_seed=0)
+    c.all_gather_tiled(loss, mesh.group("seq"), 1).mean().backward()
+    for pn, p in m.named_parameters():
+        res[f"{name}.g.{pn}"] = c.all_reduce_sum(
+            p.grad, mesh.grad_group).cpu().numpy()
+    res[name + ".loss"] = loss.detach().cpu().numpy()
+np.savez(os.path.join(os.environ["SMOKE_OUT"], f"rank{runtime.rank()}.npz"),
+         **res)
+print("seq_plain", json.dumps({"rank": runtime.rank()}), flush=True)
+"""
+
+
+def _ring_merge_cotangents(torch, hops, dout):
+    """The cotangents the ring's merge hands each hop: the hops' ``(out,
+    lse)`` merged by `ops.attention._merge_lse` as the ring merges them,
+    the result's backward taken with ``dout``. Returns per hop ``(dO,
+    dlse)``."""
+    from horovod_tpu_torch.ops import attention as att
+
+    # Clones: the hops' outputs may be inference tensors.
+    outs = [o.clone().requires_grad_() for o, _ in hops]
+    lses = [lse.clone().requires_grad_() for _, lse in hops]
+    with torch.enable_grad():
+        o, m, l = att._ring_init(outs[0])
+        for o_j, lse_j in zip(outs, lses):
+            o, m, l = att._merge_lse(o, m, l, o_j, lse_j)
+        torch.autograd.backward((o / l[..., None]).to(dout.dtype), dout)
+    return [(a.grad, b.grad) for a, b in zip(outs, lses)]
+
+
+def ring_hops(torch, card):
+    """18a: B1 at the ring's hops and B2/B3 with the merge's lse cotangent,
+    each against its plain version on the same inputs, at the twin's
+    full-width shard; the q_offset and non-causal hops timed beside their
+    bound and SDPA with the same mask."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = SEQ_HOP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k0, v0, k1, v1, dout = (rand(b, t, h, d) for _ in range(6))
+    none = dict(window=None, sinks=0, q_offset=None)
+    # name: (k, v, masks); "diagonal" is hop 0 (its own block), the others
+    # hop 1 (the block born one rank back, keys T/n before the queries).
+    hops = {"diagonal": (k0, v0, dict(none, causal=True)),
+            "past_full": (k1, v1, dict(none, causal=False)),
+            "past_window": (k1, v1, dict(none, causal=True,
+                                         window=SEQ_HOP_WINDOW, q_offset=t))}
+    tol, gtol = TOL["bfloat16"], GRAD_TOL["bfloat16"]
+    res, outs = {}, {}
+    with torch.inference_mode():
+        for name, (k, v, masks) in hops.items():
+            tc0 = fa.launches_tc
+            out, lse = fa._launch(q, k, v, None, None, **masks)
+            torch.cuda.synchronize()
+            check(fa.launches_tc == tc0 + 1, f"18a {name}: B1 not on tc")
+            ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
+            o_err = (out.float() - ref_o.float()).abs()
+            check(bool((o_err <= tol["o_atol"] + tol["o_rtol"]
+                        * ref_o.float().abs()).all()),
+                  f"18a {name}: O differs from the plain version (max abs "
+                  f"{float(o_err.max()):.3g})")
+            lse_err = float((lse - ref_lse).abs().max())
+            check(lse_err <= tol["lse"], f"18a {name}: lse err {lse_err:.3g}")
+            outs[name] = (out, lse)
+            res[name] = {"o_max_abs_err": float(o_err.max()),
+                         "lse_max_abs_err": lse_err}
+    # The merges of the ring without and with the window: (diagonal, past).
+    merge_cot = {}
+    for ring, past in (("full", "past_full"), ("window", "past_window")):
+        cots = _ring_merge_cotangents(
+            torch, [outs["diagonal"], outs[past]], dout)
+        merge_cot[past] = cots[1]
+        for hop, (do, dlse) in zip(("diagonal", past), cots):
+            check(float(dlse.abs().max()) > 0,
+                  f"18a {ring}/{hop}: the merge gave no lse cotangent")
+            k, v, masks = hops[hop]
+            out, lse = outs[hop]
+            with torch.inference_mode():
+                delta = fa._delta(out, do, dlse)
+                tc0 = (fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
+                got = (fa._launch_dq(q, k, v, do, lse, delta, None, None,
+                                     masks),
+                       *fa._launch_dkv(q, k, v, do, lse, delta, None, None,
+                                       masks))
+                torch.cuda.synchronize()
+                check((fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
+                      == (tc0[0] + 1, tc0[1] + 1),
+                      f"18a {ring}/{hop}: B2/B3 not on tc")
+                want = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  **masks),
+                        *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    **masks))
+            errs = {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                w = w.float()
+                err = (g.float() - w).abs()
+                atol = gtol["atol_of_max"] * float(w.abs().max())
+                check(bool((err <= atol + gtol["rtol"] * w.abs()).all()),
+                      f"18a {ring}/{hop}: {gname} differs from the plain "
+                      f"version (max abs {float(err.max()):.3g})")
+                errs[gname] = float(err.max())
+            errs["dlse_max_abs"] = float(dlse.abs().max())
+            res[f"bwd_{ring}_{hop}"] = errs
+    # Times: B1 at each hop, B2/B3 at the past hops with their merge's
+    # cotangents (the q_offset + dlse cases); SDPA with the same mask.
+    qh = q.transpose(1, 2).contiguous()
+    timings = {}
+    for name, (k, v, masks) in hops.items():
+        kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+        mask = None
+        if masks["window"] is not None:
+            rows = torch.arange(t, device="cuda")[:, None] + masks["q_offset"]
+            cols = torch.arange(t, device="cuda")[None, :]
+            mask = (cols <= rows) & (cols > rows - masks["window"])
+        sdpa = dict(attn_mask=mask, is_causal=name == "diagonal")
+        out, lse = outs[name]
+        with torch.inference_mode():
+            entry = {"shape": [b, t, h, d], "masks": {
+                k_: v_ for k_, v_ in masks.items() if v_}}
+            bound, by = attention_bound_ms(
+                b, t, t, h, h, d, "bfloat16", causal=masks["causal"],
+                q_offset=masks["q_offset"], window=masks["window"])
+            entry["flash_fwd_sm90"] = {
+                "ms": device_ms(torch, lambda: fa._launch(
+                    q, k, v, None, None, **masks), 20),
+                "plain_ms": device_ms(
+                    torch, lambda: fa.flash_attention_reference(
+                        q, k, v, **masks), 3),
+                "library_ms": device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, **sdpa), 20),
+                "bound_ms": bound, "bound_by": by}
+        if name != "diagonal":
+            do, dlse = merge_cot[name]
+            with torch.inference_mode():
+                delta = fa._delta(out, do, dlse)
+            qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+            gh = do.transpose(1, 2).contiguous()
+
+            def fwd_bwd():
+                o = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
+                torch.autograd.grad(o, (qg, kg, vg), gh)
+
+            lib_bwd = (device_ms(torch, fwd_bwd, 10)
+                       - entry["flash_fwd_sm90"]["library_ms"])
+            with torch.inference_mode():
+                for kname, launch, plain, work in (
+                        ("flash_bwd_dq_sm90", fa._launch_dq,
+                         fa.flash_bwd_dq_reference, "flash_bwd_dq"),
+                        ("flash_bwd_dkv_sm90", fa._launch_dkv,
+                         fa.flash_bwd_dkv_reference, "flash_bwd_dkv")):
+                    bound, by = attention_bound_ms(
+                        b, t, t, h, h, d, "bfloat16", causal=masks["causal"],
+                        q_offset=masks["q_offset"], window=masks["window"],
+                        kernel=work)
+                    entry[kname] = {
+                        "ms": device_ms(torch, lambda: launch(
+                            q, k, v, do, lse, delta, None, None, masks), 20),
+                        "plain_ms": device_ms(torch, lambda: plain(
+                            q, k, v, do, lse, delta, **masks), 3),
+                        "library_ms": lib_bwd, "bound_ms": bound,
+                        "bound_by": by}
+        timings[name] = entry
+        log(f"time ring hop {name} B{b} T{t} H{h} D{d} bf16 [tc]: "
+            + ", ".join(f"{k_} {v_['ms']:.5f} ms (plain {v_['plain_ms']:.5f}, "
+                        f"sdpa {v_['library_ms']:.5f}, bound "
+                        f"{v_['bound_ms']:.5f} {v_['bound_by']})"
+                        for k_, v_ in entry.items() if isinstance(v_, dict)
+                        and "ms" in v_))
+    log("phase18a", json.dumps({"checks": res, "card": card}))
+    return {"checks": res, "timings": timings}
+
+
+def seq_twin(torch, card, nprocs=2, mesh="data=1,seq=2", backend="gloo",
+             name="seq_twin", timeout=600):
+    """18b (and 18d): the twin at the bench LM's width on ``mesh``: the
+    masked loss falls (LEARNING), every rank ends with the same parameters
+    bit for bit, and B1, B2 and B3 launch n_layers × (the ring's hops the
+    rank runs) a step that runs its wrappers (eager steps and captures),
+    all on the tensor-core route (the causal ring's rank at seq coordinate
+    c runs hops 0..c; a future block is skipped)."""
+    from horovod_tpu_torch.parallel import mesh as tmesh
+
+    knobs = dict(SEQ_TWIN, HVT_MESH=mesh, HVT_BACKEND=backend,
+                 PYTHONUNBUFFERED="1")
+    lines, wall, _, _ = _launch(name, nprocs, None, knobs,
+                                code=SEQ_TWIN_CHILD, timeout=timeout)
+    recs = [json.loads(_rank_line(lines, "seq_twin ", r))
+            for r in range(nprocs)]
+    check(any("[rank 0] packed pretraining: LEARNING" in ln for ln in lines),
+          f"{name}: the twin did not print LEARNING: "
+          + str([ln for ln in lines if "masked loss" in ln]))
+    check(len({r["params_sha256"] for r in recs}) == 1,
+          f"{name}: the ranks' parameters differ after the fit")
+    spec = tmesh.MeshSpec.from_string(mesh)
+    layers = int(SEQ_TWIN["NLAYERS"])
+    for rec in recs:
+        hops = tmesh.build_mesh(spec, n_ranks=nprocs,
+                                rank=rec["rank"]).coords["seq"] + 1
+        want = (rec["eager_steps"] + rec["captures"]) * layers * hops
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            got, tc = rec["launches"][kname], rec["launches"][kname + "_tc"]
+            check(got == tc == want,
+                  f"{name} rank {rec['rank']}: {kname} launched {got} times "
+                  f"({tc} on tc), want (eager steps + captures) × n_layers "
+                  f"× hops = {want}")
+    step = max(r["step_ms_median"] for r in recs)
+    tokens = 8 * spec.resolve(nprocs)["data"] * int(SEQ_TWIN["SEQ_LEN"])
+    res = {"mesh": mesh, "backend": backend, "losses": recs[0]["losses"],
+           "steps": recs[0]["steps"],
+           "step_ms_median": [r["step_ms_median"] for r in recs],
+           "tokens_per_s": tokens / (step / 1e3),
+           "tokens_per_s_per_card": (tokens / (step / 1e3)
+                                     / (nprocs if backend == "nccl" else 1)),
+           "ring_bytes_per_step": [r["ring_bytes_per_step"] for r in recs],
+           "ring_shifts_per_step": [r["ring_shifts_per_step"] for r in recs],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in recs],
+           "eager_steps": [r["eager_steps"] for r in recs],
+           "captures": [r["captures"] for r in recs],
+           "replays": [r["replays"] for r in recs],
+           "launches": [r["launches"] for r in recs],
+           "launch_wall_s": wall, "card": card}
+    log("phase18b" if name == "seq_twin" else "phase18d", json.dumps(res))
+    return res
+
+
+def seq_vs_one_rank(torch, card):
+    """18c: a 2-layer f32 model at seq = 2 (two gloo ranks on the card)
+    against one rank on the card — logits, loss, every gradient — for the
+    flash ring, Ulysses, and the ring with window + sinks."""
+    import numpy as np
+
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models import transformer as ttr
+
+    out = os.path.join(WORK, "seq_plain_out")
+    os.makedirs(out, exist_ok=True)
+    x, y = copy_task(SEQ_PLAIN_ROWS, SEQ_PLAIN_T, MODEL["vocab_size"], seed=5)
+    np.savez(os.path.join(out, "data.npz"), x=x, y=y)
+    cfg = dict(MODEL, n_layers=2)
+    knobs = {"SMOKE_DATA": os.path.join(out, "data.npz"), "SMOKE_OUT": out,
+             "SMOKE_MODEL": json.dumps(cfg),
+             "SMOKE_VARIANTS": json.dumps(SEQ_PLAIN_VARIANTS),
+             "HVT_BACKEND": "gloo", "PYTHONUNBUFFERED": "1"}
+    _, wall, _, _ = _launch("seq_plain", 2, None, knobs,
+                            code=SEQ_PLAIN_CHILD, timeout=600)
+    ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+             for r in range(2)]
+    t = SEQ_PLAIN_T // 2
+    res = {}
+    for name, (kw, _) in SEQ_PLAIN_VARIANTS.items():
+        m = ttr.TransformerLM(**cfg, **kw, seed=4, device=DEVICE)
+        xt, yt = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
+        with torch.no_grad():
+            logits = m(xt).cpu().numpy()
+        loss, _ = m(xt, labels=yt, train=True, dropout_seed=0)
+        loss.mean().backward()
+        loss = loss.detach().cpu().numpy()
+        worst = {"logits": 0.0, "loss": 0.0, "grad_share_of_max": 0.0}
+        for r, got in enumerate(ranks):
+            cols = slice(r * t, (r + 1) * t)
+            worst["logits"] = max(worst["logits"], float(np.abs(
+                got[name + ".logits"] - logits[:, cols]).max()))
+            worst["loss"] = max(worst["loss"], float(np.abs(
+                got[name + ".loss"] - loss[:, cols]).max()))
+            for pn, p in m.named_parameters():
+                g = p.grad.cpu().numpy()
+                worst["grad_share_of_max"] = max(
+                    worst["grad_share_of_max"],
+                    float(np.abs(got[f"{name}.g.{pn}"] - g).max())
+                    / max(float(np.abs(g).max()), 1e-30))
+        res[name] = worst
+        check(worst["logits"] <= LOGITS_ATOL
+              and worst["loss"] <= TRAIN_LOSS_ATOL
+              and worst["grad_share_of_max"] <= TRAIN_GRAD_REL,
+              f"18c {name}: seq = 2 differs from one rank: {worst}")
+    log("phase18c", json.dumps(dict(res, launch_wall_s=wall, card=card)))
+    return res
+
+
+def seq_multi_card(torch, card, ranks, dense):
+    """18d (``--ranks 4``): the twin at ``data=2,seq=2`` on four NCCL ranks,
+    each step after the first a replay of one captured graph (the ring's
+    sends and receives, the loss's gather and the gradient all-reduce in
+    it); every rank's parameters bit-equal; tokens/s a card beside the
+    dense LM at four data ranks (17e's run, ``dense``)."""
+    check(ranks == 4, "18d runs at --ranks 4")
+    res = seq_twin(torch, card, nprocs=ranks, mesh="data=2,seq=2",
+                   backend="nccl", name="seq_4card", timeout=300)
+    check(all(c == 1 for c in res["captures"])
+          and all(e == 1 for e in res["eager_steps"]),
+          f"18d: want one eager step and one capture a rank: {res}")
+    log("phase18d_dense", json.dumps({
+        "seq_tokens_per_s_per_card": res["tokens_per_s_per_card"],
+        "dense_tokens_per_s_per_card": dense, "card": card}))
+    return dict(res, dense_tokens_per_s_per_card=dense)
+
+
+def seq_phase(torch, card):
+    """Phase 18: sequence parallelism and packed pretraining (18a-c)."""
+    t0 = time.perf_counter()
+    res = {"a": ring_hops(torch, card)}
+    torch.cuda.empty_cache()
+    res["c"] = seq_vs_one_rank(torch, card)
+    res["b"] = seq_twin(torch, card)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase18 seconds: {res['seconds']:.1f}")
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -4662,7 +5111,10 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
         if not moe_only:
             reduction_multi_card(torch, card, ranks)
         if not (reduction_only or moe_only):
-            moe_multi_card(torch, card, ranks)
+            moe = moe_multi_card(torch, card, ranks)
+            if ranks == 4:
+                seq_multi_card(torch, card, ranks,
+                               moe["dense_tokens_per_s_per_card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4744,8 +5196,11 @@ def main(argv=None) -> int:
         log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch),
                                                card=card)))
         lap("12a cifar")
-        cifar_graph_vs_eager(torch)
-        sync_bn_on_card(torch)
+        # 12b and 12c (checks, not timings) share the card at once.
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(cifar_graph_vs_eager, torch),
+                        pool.submit(sync_bn_on_card, torch)]:
+                fut.result()
         cifar_vit(torch)
         lap("12b-d cifar")
         decode = decode_phase(torch)
@@ -4758,6 +5213,8 @@ def main(argv=None) -> int:
         lap("16 launch")
         moe = moe_phase(torch, card)
         lap("17 moe")
+        seq = seq_phase(torch, card)
+        lap("18 seq")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4847,6 +5304,14 @@ def main(argv=None) -> int:
             # Phase 17a: the bench MoE LM's fit, n_layers × (eager steps +
             # captures), all on the tensor-core route.
             entry["launches_moe"] = moe["a"]["launches"][key]
+            # Phase 18b: the twin's flash ring at two seq ranks, n_layers ×
+            # (the hops a rank runs) a step, all on the tensor-core route;
+            # 18a: this kernel at the ring's hops (the q_offset hop, the
+            # merge's lse cotangent).
+            entry["launches_ring"] = [r[key] for r in seq["b"]["launches"]]
+            entry["ring_hops"] = {
+                hop: t_[name] for hop, t_ in seq["a"]["timings"].items()
+                if name in t_}
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]

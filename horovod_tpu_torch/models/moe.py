@@ -41,7 +41,10 @@ layer sees one shard. The two agree exactly when this shard's token count
 is a multiple of the global group length; where it is not, the layer
 raises at its first forward rather than group differently (ROADMAP queue A
 item 12.5). ``data_shards`` (the `Trainer` sets it to its data-parallel
-size; else the mesh's) says how many shards the global batch has.
+size; else the mesh's) says how many shards the global batch has. On a
+live ``seq`` axis each rank holds a column block of every row, so the JAX
+layer's groups, cut from the global ``[B, T]`` token order, span the
+sequence shards: the layer raises there at its first forward (item 12.5).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.parallel import collectives
-from horovod_tpu_torch.parallel.mesh import EXPERT_AXIS, dp_size
+from horovod_tpu_torch.parallel.mesh import EXPERT_AXIS, SEQ_AXIS, dp_size
 from horovod_tpu_torch.training.train_state import sow
 
 
@@ -117,6 +120,7 @@ class MoEMlp(nn.Module):
         self.expert_lo = per * (mesh.coords[EXPERT_AXIS] if ep > 1 else 0)
         self.expert_hi = self.expert_lo + per
         self.data_shards = dp_size(mesh) if mesh is not None else 1
+        self.seq_shards = mesh.shape[SEQ_AXIS] if mesh is not None else 1
         # The forward's all-reduces over the expert group: a gloo step with
         # them runs eagerly (`training.graphs`).
         self.reduces_over_ranks = ep > 1
@@ -166,7 +170,16 @@ class MoEMlp(nn.Module):
 
     def check_grouping(self, g: int) -> None:
         """Refuse a shard whose ``g`` tokens would be grouped otherwise
-        than the JAX layer groups the global batch (module docstring)."""
+        than the JAX layer groups the global batch (module docstring):
+        the tokens of the batch's ``data_shards × seq_shards`` shards."""
+        if self.seq_shards > 1:
+            raise ValueError(
+                f"MoEMlp on a live 'seq' axis ({self.seq_shards} sequence "
+                "shards): the JAX layer cuts its dispatch groups from the "
+                "global [B, T] token order, so a group spans the sequence "
+                "shards, which the port's layer does not see together "
+                "(ROADMAP queue A item 12.5, MoE grouping across shards)"
+            )
         dp = self.data_shards
         if dp <= 1:
             return

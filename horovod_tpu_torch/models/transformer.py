@@ -49,10 +49,22 @@ auxiliary loss and drop-rate metric are sown (`sown_losses`,
 on a `parallel.mesh.Mesh`: the MoE layers shard their experts over the
 mesh's ``expert`` axis, and attention is the flash path (or the dense one,
 ``attn="dense"``). `param_specs` gives each parameter's placement by the
-JAX model's rules. Not in this slice — each raises naming its ROADMAP
-item: a live ``seq`` axis (sequence parallelism, queue A item 12.2) and a
-live ``model``, ``fsdp`` or ``pipe`` axis (sharded layouts and the
-pipeline, item 12.4).
+JAX model's rules. A live ``model``, ``fsdp`` or ``pipe`` axis raises
+naming its ROADMAP item (sharded layouts and the pipeline, queue A item
+12.4).
+
+Sequence parallelism, as in the JAX model: on a mesh with a live ``seq``
+axis of n ranks, the model takes this rank's ``[B, T/n]`` shard of the
+tokens (and of ``segment_ids``, ``labels``) and returns its shard of the
+output. Positions are global: shard c holds positions ``c·T/n +
+arange(T/n)``, and packed positions are computed on the ids all-gathered
+over the ``seq`` group, so a document that crosses a shard boundary keeps
+counting. Attention runs over the ``seq`` group (`ShardingConfig.attn`):
+``"ring"`` the flash ring (`ops.attention.ring_flash_attention`, the
+flash kernels at every hop), ``"ring_dense"`` the dense-score ring,
+``"ulysses"`` the head-swapping all-to-all; ``"dense"`` raises JAX's
+error. Decoding (prefill and steps) does not shard over ``seq``, as in the
+JAX model: every rank of a ``seq`` group decodes the whole prompt.
 """
 
 from __future__ import annotations
@@ -68,10 +80,14 @@ from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.models import quant
 from horovod_tpu_torch.models.moe import MoEMlp, lecun_normal_
-from horovod_tpu_torch.ops.attention import _BIG_NEG, dense_attention
+from horovod_tpu_torch.ops.attention import (
+    _BIG_NEG, dense_attention, ring_attention, ring_flash_attention,
+    ulysses_attention,
+)
 from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.parallel.mesh import (
     EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
 )
@@ -80,7 +96,6 @@ from horovod_tpu_torch.training import train_state
 
 # Live mesh axes this slice does not carry, with the ROADMAP item of each.
 _AXIS_ITEMS = {
-    SEQ_AXIS: "queue A item 12.2 (sequence parallelism)",
     MODEL_AXIS: "queue A item 12.4 (sharded layouts: tensor parallelism)",
     FSDP_AXIS: "queue A item 12.4 (sharded layouts: FSDP)",
     PIPE_AXIS: "queue A item 12.4 (the pipeline)",
@@ -101,15 +116,27 @@ def refuse_unported_axes(mesh, what: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
     """How the model meets the mesh (the JAX model's config). ``attn``:
+    ``"ring"`` (default: the flash ring), ``"ring_dense"`` (the ring with
+    dense per-hop scores), ``"ulysses"`` (all-to-all head swap) on a live
+    ``seq`` axis, where ``"dense"`` raises; on a mesh without one,
     ``"dense"`` takes `ops.attention.dense_attention` (the numerics
-    reference); ``"ring"`` (default), ``"ring_dense"`` and ``"ulysses"``
-    are sequence-parallel forms, which on a mesh without a live ``seq``
-    axis take the local flash path, as in the JAX model. A live ``seq``,
-    ``model``, ``fsdp`` or ``pipe`` axis raises naming its ROADMAP
+    reference) and the others the local flash path, as in the JAX model.
+    A live ``model``, ``fsdp`` or ``pipe`` axis raises naming its ROADMAP
     item."""
 
     mesh: object = None
     attn: str = "ring"
+
+    @property
+    def seq_parallel(self) -> bool:
+        return self.mesh is not None and self.mesh.shape.get(SEQ_AXIS, 1) > 1
+
+    @property
+    def seq_group(self):
+        """The ranks sharing this one's batch rows, one sequence shard
+        each (`collectives.SELF` without a live ``seq`` axis)."""
+        return (self.mesh.group(SEQ_AXIS) if self.seq_parallel
+                else collectives.SELF)
 
 
 def _dtype(x) -> torch.dtype:
@@ -257,6 +284,8 @@ class Block(nn.Module):
         q, k = rope(q, positions), rope(k, positions)
         if cache is not None:
             out = self._decode_attention(q, k, v, cache, decode_index, fresh)
+        elif self.sharding.seq_parallel:
+            out = self._seq_attention(q, k, v, segment_ids)
         elif self.sharding.attn == "dense":
             rep = self.n_heads // self.h_kv
             if rep > 1:
@@ -279,6 +308,40 @@ class Block(nn.Module):
         if drop:
             h = dropout(h, self.dropout, dropout_seed, dropout_site + 1)
         return x + h
+
+    def _seq_attention(self, q, k, v, segment_ids):
+        """Attention over the ``seq`` group (the JAX model's shard_map
+        region), with JAX's refusals."""
+        cfg = self.sharding
+        if self.sinks and cfg.attn == "ring_dense":
+            raise ValueError(
+                "sinks need attn='ring' or 'ulysses' — the dense-block "
+                "ring is sink-unaware"
+            )
+        impls = {"ring": ring_flash_attention, "ring_dense": ring_attention,
+                 "ulysses": ulysses_attention}
+        if cfg.attn not in impls:
+            raise ValueError(
+                f"sequence-parallel attention needs attn in {sorted(impls)}, "
+                f"got {cfg.attn!r}"
+            )
+        if segment_ids is not None and cfg.attn == "ring_dense":
+            raise ValueError(
+                "packed sequences (segment_ids) need attn='ring' or "
+                "'ulysses' — the dense-block ring is segment-unaware"
+            )
+        rep = self.n_heads // self.h_kv
+        if rep > 1 and cfg.attn != "ring":
+            # The flash ring reads GQA heads in place; the others take K/V
+            # at q's heads, as the JAX model repeats them.
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        kw = dict(group=cfg.seq_group, causal=True, window=self.window)
+        if self.sinks:
+            kw["sinks"] = self.sinks
+        if segment_ids is not None:
+            kw["segment_ids"] = segment_ids
+        return impls[cfg.attn](q, k, v, **kw)
 
     def _mlp(self, h, *, train: bool, decode: bool):
         if self.use_moe:
@@ -658,6 +721,22 @@ class TransformerLM(nn.Module):
             else:
                 lecun_normal_(p, g, p.shape[1])
 
+    def _positions(self, tokens, segment_ids):
+        """``[B, T]`` RoPE positions of this rank's tokens: global ones on
+        a live ``seq`` axis (shard c starts at c·T/n; packed positions are
+        computed on the ids gathered over the ``seq`` group, then cut)."""
+        b, t = tokens.shape
+        dev = tokens.device
+        cfg = self.sharding
+        c = cfg.mesh.coords[SEQ_AXIS] if cfg.seq_parallel else 0
+        if segment_ids is None:
+            return (c * t + torch.arange(t, device=dev)).expand(b, t)
+        if not cfg.seq_parallel:
+            return packed_positions(segment_ids)
+        with torch.no_grad():
+            full = collectives.all_gather_tiled(segment_ids, cfg.seq_group, 1)
+        return packed_positions(full)[:, c * t:(c + 1) * t]
+
     def _embed(self, tokens):
         return self.embed(tokens.long()).to(self.compute_dtype)
 
@@ -679,15 +758,12 @@ class TransformerLM(nn.Module):
         if self.int8_compute and self.moe_every:
             quant.refuse_moe_int8_compute()
         b, t = tokens.shape
-        if segment_ids is None:
-            positions = torch.arange(t, device=tokens.device).expand(b, t)
-        else:
-            if tuple(segment_ids.shape) != (b, t):
-                raise ValueError(
-                    f"segment_ids must be [B, T] = {(b, t)}, got "
-                    f"{tuple(segment_ids.shape)}"
-                )
-            positions = packed_positions(segment_ids)
+        if segment_ids is not None and tuple(segment_ids.shape) != (b, t):
+            raise ValueError(
+                f"segment_ids must be [B, T] = {(b, t)}, got "
+                f"{tuple(segment_ids.shape)}"
+            )
+        positions = self._positions(tokens, segment_ids)
         x = self._embed(tokens)
         for i, blk in enumerate(self.blocks):
             kw = dict(train=train, segment_ids=segment_ids,

@@ -327,6 +327,11 @@ SELF = _Self()
 traffic = {"bytes": 0, "calls": 0}
 
 
+#: Bytes this rank sent in ring shifts (`ring_shift`, both directions) and
+#: the shifts' count; also counted in `traffic`.
+shift_traffic = {"bytes": 0, "calls": 0}
+
+
 def _count(t: torch.Tensor) -> None:
     traffic["bytes"] += t.numel() * t.element_size()
     traffic["calls"] += 1
@@ -452,6 +457,144 @@ def broadcast_in_group(t: torch.Tensor, group) -> torch.Tensor:
         group, 0)
     torch.distributed.broadcast(src, src=root, group=group)
     return src.to(t.device)
+
+
+# --- Sequence-parallel collectives -----------------------------------------------
+#
+# What the JAX package's ring and Ulysses attention take from `lax` —
+# ``ppermute`` around the ring, ``all_to_all`` and ``all_gather`` tiled — as
+# differentiable ops over a group (a mesh's ``seq`` subgroup). Under NCCL a
+# CUDA tensor moves on the card; under gloo it stages through the host, as
+# every op above does.
+
+
+def _peer(group, position: int) -> int:
+    """The global rank of ``group``'s member at ``position``."""
+    if group is None:
+        return position
+    return torch.distributed.get_global_rank(group, position)
+
+
+@torch.no_grad()
+def _shift(tensors, group, step: int) -> list:
+    """Each of ``tensors`` sent to the member ``step`` places on in
+    ``group`` (cyclically) and replaced by the one the member ``step``
+    places back sent; all in one batch of sends and receives."""
+    g, me = group_size(group), group_rank(group)
+    dst = _peer(group, (me + step) % g)
+    src = _peer(group, (me - step) % g)
+    dist = torch.distributed
+    on_card = runtime.backend() == "nccl"
+    sends = [t.contiguous() if on_card and t.is_cuda else _to_comm(t)
+             for t in tensors]
+    recvs = [torch.empty_like(s) for s in sends]
+    for s in sends:
+        _count(s)
+        shift_traffic["bytes"] += s.numel() * s.element_size()
+    shift_traffic["calls"] += 1
+    if on_card:
+        ops = [dist.P2POp(dist.isend, s, dst, group) for s in sends]
+        ops += [dist.P2POp(dist.irecv, r, src, group) for r in recvs]
+        works = dist.batch_isend_irecv(ops)
+    else:
+        works = [dist.isend(s, dst, group=group, tag=i)
+                 for i, s in enumerate(sends)]
+        works += [dist.irecv(r, src, group=group, tag=i)
+                  for i, r in enumerate(recvs)]
+    for w in works:
+        w.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+
+class _RingShift(torch.autograd.Function):
+    """The tensors from member r − 1 on member r, forward; the gradients
+    back from member r + 1, backward. Integer tensors ride along without a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        ctx.floats = [t.is_floating_point() for t in tensors]
+        ctx.shapes = [(t.shape, t.dtype, t.device) for t in tensors]
+        out = _shift(tensors, group, 1)
+        ctx.mark_non_differentiable(
+            *[o for o, f in zip(out, ctx.floats) if not f])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = [g if g is not None else torch.zeros(s, dtype=dt, device=dev)
+                for g, f, (s, dt, dev) in zip(grads, ctx.floats, ctx.shapes)
+                if f]
+        moved = iter(_shift(back, ctx.group, -1))
+        return (None, *[next(moved) if f else None for f in ctx.floats])
+
+
+def ring_shift(*tensors, group=None):
+    """``lax.ppermute`` with ``perm = r → r + 1`` over ``group``: each
+    tensor (None passes through) comes from the member before this one.
+    The tensors of one hop move as ONE autograd node, so the backward's
+    shifts come in one order on every member whatever else the members'
+    graphs hold; the backward is the shift the other way."""
+    present = [t for t in tensors if t is not None]
+    if _trivial(group) or not present:
+        return tensors
+    moved = iter(_RingShift.apply(group, *present))
+    return tuple(next(moved) if t is not None else None for t in tensors)
+
+
+def _swap_axes(x, group, split: int, concat: int):
+    blocks = torch.stack(x.chunk(group_size(group), dim=split))
+    return torch.cat(all_to_all(blocks, group).unbind(0), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _swap_axes(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_swap_axes(grad, ctx.group, ctx.concat, ctx.split), None,
+                None, None)
+
+
+def all_to_all_tiled(x, group, split_axis: int, concat_axis: int):
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+    over ``group``: ``x`` cut into one block per member along
+    ``split_axis``, block j sent to member j, the blocks received joined
+    along ``concat_axis`` in member order. The backward is the inverse
+    swap."""
+    if _trivial(group):
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _GatherKeepSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.position = group_rank(group)
+        return torch.cat(all_gather_tensor(x.contiguous(), group).unbind(0),
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.position * ctx.size, ctx.size),
+                None, None)
+
+
+def all_gather_tiled(x, group, dim: int = 1):
+    """The members' ``x`` joined along ``dim`` in member order
+    (``lax.all_gather(axis=dim, tiled=True)``). Its backward keeps this
+    member's slice of the cotangent and adds nothing from the others: it
+    serves a value every member computes alike from the gathered tensor
+    (a sequence-parallel loss), whose gradient each member owes for its
+    own slice only."""
+    if _trivial(group):
+        return x
+    return _GatherKeepSlice.apply(x, group, dim)
 
 
 # --- Entering and leaving a sharded region --------------------------------------

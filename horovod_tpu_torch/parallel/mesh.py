@@ -8,9 +8,13 @@ factoring of the ranks. `build_mesh` lays the ranks out row-major over
 one host — and gives each rank its coordinate on every axis and one
 `torch.distributed` subgroup per live axis (the ranks that differ from it
 only on that axis), plus the **batch group**: the ranks that differ only on
-``data``/``fsdp``, over which gradients and metrics reduce. On a pure-data
-mesh the batch group is the world itself (None to the collectives), so
-every data-parallel path keeps its arithmetic. The data axis's (dcn outer,
+``data``/``fsdp``, over which metrics reduce and the feeding and dropout
+seeds are cut, and the **gradient group**: the ranks that differ on
+``data``, ``fsdp`` or ``seq``, over which a replicated parameter's gradient
+sums when tokens are sharded on ``seq``. On a pure-data mesh both are the
+world itself (None to the collectives), so every data-parallel path keeps
+its arithmetic. `P` is the JAX ``PartitionSpec`` form of a batch layout
+(``Trainer(batch_specs=...)``). The data axis's (dcn outer,
 ici inner) factoring for the two-hop reduction is `hier_groups`.
 
 Axis names, as in the JAX package:
@@ -107,6 +111,24 @@ class MeshSpec:
         return sizes
 
 
+class P(tuple):
+    """A partition spec in the JAX form, one entry per array dim: an axis
+    name, a tuple of axis names, or None (unsharded) —
+    ``P(("data", "fsdp"), "seq", None)`` shards dim 0 over the batch axes
+    and dim 1 over ``seq``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return "P" + super().__repr__()
+
+
+#: The axes a gradient sums over when a replicated parameter meets tokens
+#: sharded on them.
+GRAD_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+
+
 def axis_rank_lists(shape: dict, axes) -> list[list[int]]:
     """The rank lists of the groups along ``axes`` (one axis, or several
     taken together): the ranks that share every other coordinate, in the
@@ -172,6 +194,29 @@ class Mesh:
         return self._group("batch", self.data_shards)
 
     @property
+    def grad_group(self):
+        """The ranks that differ from this one on ``data``, ``fsdp`` or
+        ``seq``: what a replicated parameter's gradient sums over. None
+        (the world) where those axes span the mesh, `collectives.SELF`
+        when they are all 1; the batch group without a live ``seq``."""
+        if self.shape[SEQ_AXIS] == 1:
+            return self.batch_group
+        n = self.data_shards * self.shape[SEQ_AXIS]
+        if n == self.size and self._groups is not None:
+            return None
+        return self._group("grad", n)
+
+    @property
+    def seq_shards(self) -> int:
+        """The size of the ``seq`` axis."""
+        return self.shape[SEQ_AXIS]
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's sequence shard: its coordinate on ``seq``."""
+        return self.coords[SEQ_AXIS]
+
+    @property
     def data_shards(self) -> int:
         """The number of batch shards, ``data × fsdp`` (`dp_size`)."""
         return self.shape[DATA_AXIS] * self.shape[FSDP_AXIS]
@@ -194,6 +239,9 @@ def _make_groups(shape: dict, rank: int) -> dict:
         dp = shape[DATA_AXIS] * shape[FSDP_AXIS]
         if 1 < dp < math.prod(shape.values()):
             plan.append(("batch", (DATA_AXIS, FSDP_AXIS)))
+        grad = dp * shape[SEQ_AXIS]
+        if shape[SEQ_AXIS] > 1 and 1 < grad < math.prod(shape.values()):
+            plan.append(("grad", GRAD_AXES))
         for name, axes in plan:
             for ranks in axis_rank_lists(shape, axes):
                 g = torch.distributed.new_group(ranks)

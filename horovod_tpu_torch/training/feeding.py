@@ -10,6 +10,14 @@ it is a replay of one captured step. ``fit(dataset=)`` takes any iterable,
 whose batches may change shape from one to the next (a last partial
 batch, packed rows of another length): a run of steps of one shape is fed
 to the runner at a time, and a new shape is captured anew.
+
+On a live ``seq`` axis every rank of a data shard reads the same rows and
+keeps its columns of each part its layout shards on ``seq``
+(`Trainer.cut`): the streamed fit and `run_evaluate` cut each batch. The
+device-cached paths stage dim 0 only, so there (with ``batch_specs``, which
+a live ``seq`` axis needs) the fit refuses and the evaluation takes the
+streamed path, as in JAX. Evaluation's sums are over the joined per-token
+losses, counted in tokens.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data.loader import ArrayDataset, training_pipeline
 from horovod_tpu_torch.data.prefetch import DevicePrefetcher
 from horovod_tpu_torch.parallel import collectives
+from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.training.callbacks import agree_any
 from horovod_tpu_torch.training.graphs import StepRunner, _host
 from horovod_tpu_torch.training.train_state import (
@@ -151,6 +160,11 @@ def run_fit(trainer, dataset=None, *, x=None, y=None, batch_size: int = 128,
             raise ValueError(
                 "cache='device' stages a single input array; pytree "
                 "(dict/tuple) inputs use the streamed fit path")
+        if trainer.batch_specs is not None and trainer.mesh is not None \
+                and mesh_lib.has_live_model_axes(trainer.mesh):
+            raise ValueError(
+                "cache='device' supports data-sharded batches only; "
+                "use the streamed fit path with batch_specs meshes")
         return fit_device_cached(
             trainer, x, y, batch_size, epochs, initial_epoch,
             steps_per_epoch, callbacks, validation_data, verbose,
@@ -195,6 +209,8 @@ def run_fit(trainer, dataset=None, *, x=None, y=None, batch_size: int = 128,
             it = iter(dataset)
             for _ in range(skip):
                 next(it)
+    if trainer.seq_shards > 1:
+        it = map(trainer.cut_batch, it)
     trainer._resume_epoch, trainer._resume_step = initial_epoch, initial_step
     trainer.build()
     runner = StepRunner(trainer, batch_size=batch_size,
@@ -436,6 +452,12 @@ def run_evaluate(trainer, x, y, batch_size: int = 128, verbose: int = 0,
         raise RuntimeError("call fit() or build() first")
     if isinstance(x, list):
         x = np.asarray(x)
+    if (cache == "device" and trainer.batch_specs is not None
+            and trainer.mesh is not None
+            and mesh_lib.has_live_model_axes(trainer.mesh)):
+        # The cached path stages the default layout; custom layouts over
+        # live non-data axes take the streamed path (as in JAX).
+        cache = None
     if cache == "device":
         if isinstance(x, (dict, tuple)):
             raise ValueError(
@@ -450,8 +472,8 @@ def run_evaluate(trainer, x, y, batch_size: int = 128, verbose: int = 0,
         sums = torch.zeros(3, dtype=torch.float64, device=trainer.device)
         with torch.inference_mode():
             for lo in range(0, len(xs), batch_size):
-                xb = trainer._tensor(xs[lo:lo + batch_size])
-                yb = trainer._tensor(ys[lo:lo + batch_size])
+                xb = trainer._tensor(trainer.cut(xs[lo:lo + batch_size], 0))
+                yb = trainer._tensor(trainer.cut(ys[lo:lo + batch_size], 1))
                 loss_vec, correct = trainer._loss_and_correct(xb, yb,
                                                               train=False)
                 sums[0] += loss_vec.double().sum()

@@ -42,7 +42,9 @@ statistics) are written in place, so their addresses hold.
 ``overlap_reduction`` issues each bucket's reduction from the backward of
 the last microbatch (`DistributedOptimizer.arm_overlap`) in eager steps
 and in one-graph captures; where the collectives sit between graphs
-(gloo) it changes nothing.
+(gloo), and on a live ``seq`` axis (`StepRunner._overlap_here`), it
+changes nothing. Under gloo a step on a live ``seq`` axis runs eagerly:
+its attention and its loss communicate through the host.
 
 Before a runner captures for the first time, and again after `feed`
 brought rows of another shape, one step runs eagerly on the capture
@@ -99,8 +101,12 @@ class StepRunner:
         self.accum = trainer._accum_steps
         self.max_steps = max(1, int(max_steps))
         dev = self.device = trainer.device
+        # On a live seq axis the attention and the loss's join communicate
+        # inside the step, whatever the module.
         self.graphs = (dev.type == "cuda" and not eager
-                       and not forward_communicates_over_host(trainer.module))
+                       and not forward_communicates_over_host(trainer.module)
+                       and not (trainer.seq_shards > 1
+                                and runtime.backend() == "gloo"))
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
         self._t_host = 0
         self.seeds = torch.zeros((self.max_steps, self.accum),
@@ -269,7 +275,12 @@ class StepRunner:
 
     def _overlap_here(self) -> bool:
         """Whether a bucket's reduction may issue inside the backward: in
-        eager steps, and in captures that hold the collectives."""
+        eager steps, and in captures that hold the collectives — never on
+        a live ``seq`` axis, where the ring's backward shifts would
+        interleave with the bucket sums in an order that can differ by
+        rank (on one NCCL stream that order is a deadlock)."""
+        if self.trainer.seq_shards > 1:
+            return False
         return not self.graphs or runtime.backend() != "gloo"
 
     def _step(self) -> None:

@@ -34,13 +34,36 @@ JAX's errors.
 
 ``mesh=`` (a `parallel.mesh.Mesh`) and ``param_specs=`` (a function
 ``(module, mesh) -> {name: {dim: axis}}`` such as
-`models.transformer.param_specs`, or such a dict) place the model: this
-slice carries live ``data`` and ``expert`` axes. The batch is sharded over
-``(data, fsdp)`` — JAX's default layout ``P(('data', 'fsdp'), 'seq')`` on
-a mesh without ``seq`` — so every rank of an expert group feeds, seeds
-its dropout with and reduces over its batch shard alike, and gradients
-(expert shards and replicated parameters alike) reduce over the mesh's
-batch group divided by ``dp``.
+`models.transformer.param_specs`, or such a dict) place the model: the
+port carries live ``data``, ``seq`` and ``expert`` axes. The batch is
+sharded over ``(data, fsdp)``, so every rank of an expert or ``seq`` group
+feeds the same rows, and gradients (expert shards and replicated
+parameters alike) sum over the mesh's gradient group (the ranks that
+differ on ``data``, ``fsdp`` or ``seq``) divided by ``dp``.
+
+Sequence parallelism (a live ``seq`` axis of n ranks): ``batch_specs=``
+gives each batch part's layout in the JAX form, ``P(("data", "fsdp"),
+"seq", None)`` (`parallel.mesh.P`) — the layout of JAX's tests and
+examples, and the only one the port carries there: every part of two or
+more dims must shard dim 1 over ``seq``. JAX's default (``batch_specs``
+None: dim 0 over the data axes, the rest replicated) and any other
+layout raise naming ROADMAP item 12.4, since the model takes this rank's
+columns of its token input. A part sharded on ``seq`` keeps columns
+``[c·T/n, (c+1)·T/n)`` on the rank at seq coordinate c, on every feeding
+path. The loss is JAX's global one,
+``loss_fn(out, y).mean()`` over the global ``[B, T]`` arrays: a named
+loss's and ``loss="module"``'s per-token losses are local and are joined
+over the ``seq`` group before their mean; a callable loss (not
+necessarily token-separable, such as a per-row ratio of sums) sees the
+group's full ``out`` and ``y``. Either join is
+`collectives.all_gather_tiled`, whose backward keeps this rank's slice:
+every rank of the group computes the same loss, and owes the gradient of
+its own tokens. Accuracy is joined alike. Dropout seeds are derived from
+the batch shard and the seq coordinate, so two sequence shards never draw
+the same mask. On a live ``seq`` axis the bucket reductions run after the
+backward, never inside it (``overlap_reduction`` is inert there): the
+ring's backward shifts would otherwise interleave with them in an order
+that differs by rank.
 
 The boundary reduction is the `DistributedOptimizer`'s: its wire
 (``compression``, ``compression_ici``, error feedback), the two-hop factor
@@ -61,6 +84,7 @@ from horovod_tpu_torch.data import stream
 from horovod_tpu_torch.models.transformer import (
     _full_shapes, live_placements, refuse_unported_axes,
 )
+from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 from horovod_tpu_torch.runtime import derive_seed, resolve_device
 from horovod_tpu_torch.training import feeding, train_state
@@ -70,13 +94,31 @@ from horovod_tpu_torch.training.train_state import (
     TrainState, _correct, _resolve_loss,
 )
 
-# Trainer options of the JAX package not carried here, with the ROADMAP
-# item that ports each.
-_NOT_PORTED = {
-    "batch_specs": "queue A item 12.2 (custom batch layouts; the port's "
-                   "batch layout is P(('data', 'fsdp'), 'seq') on a mesh "
-                   "without a live 'seq' axis)",
-}
+# The batch layout the port carries (`Trainer(batch_specs=...)`): dim 0
+# over the batch axes, dim 1 over `seq` or unsharded, the rest unsharded.
+_BATCH_AXES = (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS)
+
+
+def _seq_parts(batch_specs) -> tuple:
+    """For each batch part's spec, whether it shards dim 1 over ``seq``;
+    any layout but ``P(("data", "fsdp"), "seq" or None, None, ...)``
+    raises naming its ROADMAP item."""
+    if batch_specs is None:
+        return ()
+    parts = []
+    for spec in batch_specs:
+        spec = tuple(spec)
+        if (not spec or tuple(np.atleast_1d(spec[0])) != _BATCH_AXES
+                or (len(spec) > 1 and spec[1] not in (None,
+                                                      mesh_lib.SEQ_AXIS))
+                or any(a is not None for a in spec[2:])):
+            raise NotImplementedError(
+                f"Trainer(batch_specs=...): the layout {spec!r} is not "
+                "ported yet — the port carries P(('data', 'fsdp'), 'seq' "
+                "or None, None, ...); ROADMAP queue A item 12.4 (sharded "
+                "layouts)")
+        parts.append(len(spec) > 1 and spec[1] == mesh_lib.SEQ_AXIS)
+    return tuple(parts)
 
 
 class Trainer:
@@ -113,11 +155,13 @@ class Trainer:
         reverse: the leaves last-first, the order the backward finishes
         them) or ``"forward"``.
       mesh: a `parallel.mesh.Mesh` (default: every rank on ``data``). A
-        live ``seq`` axis raises naming ROADMAP queue A item 12.2, a live
-        ``model``, ``fsdp`` or ``pipe`` axis item 12.4.
+        live ``model``, ``fsdp`` or ``pipe`` axis raises naming ROADMAP
+        queue A item 12.4.
       param_specs: the placements of the parameters on ``mesh``; only
         ``expert`` placements may be live (others raise naming item 12.4).
         A module whose MoE layers hold expert shards needs them.
+      batch_specs: one layout a batch part, ``(x_spec, y_spec)``, in the
+        JAX form (module docstring); required on a live ``seq`` axis.
     """
 
     def __init__(self, module, optimizer,
@@ -126,17 +170,18 @@ class Trainer:
                  steps_per_execution: int = 1, shard_update: bool = False,
                  overlap_reduction: bool | None = None,
                  bucket_order: str | None = None, mesh=None,
-                 param_specs=None, **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet — ROADMAP "
-                    f"{_NOT_PORTED[name]}"
-                )
+                 param_specs=None, batch_specs=None):
+        self._seq_parts = _seq_parts(batch_specs)
+        self.batch_specs = batch_specs
         if mesh is not None:
             refuse_unported_axes(mesh, "Trainer(mesh=...)")
+            if mesh.seq_shards > 1 and batch_specs is None:
+                raise NotImplementedError(
+                    "Trainer(mesh=...) on a live 'seq' axis needs "
+                    "batch_specs= with dim 1 over 'seq', P(('data', "
+                    "'fsdp'), 'seq', None); the default layout (the rest "
+                    "replicated) is not ported yet — ROADMAP queue A item "
+                    "12.4 (sharded layouts)")
             if mesh.layout_only:
                 raise ValueError(f"Trainer(mesh={mesh!r}): the mesh was "
                                  "built for another world than this one")
@@ -164,12 +209,14 @@ class Trainer:
         # reduction over a subgroup is single-hop.
         if self.batch_group is not None:
             self.tx.group, self.tx.dp, self.tx.dcn = (
-                self.batch_group, self.dp, 1)
+                self.mesh.grad_group, self.dp, 1)
         elif registry.get_raw(mesh_lib.ENV_DCN_FACTOR):
             self.tx.dcn = mesh_lib.dcn_factor()
         self._accum_steps = self.tx.backward_passes_per_step
         self.loss_fn = _resolve_loss(loss)
         self._module_loss = loss == "module"
+        # A named loss is per token: on a live seq axis its values join.
+        self._token_loss = isinstance(loss, str)
         self.seed = int(seed)
         self.steps_per_execution = max(1, int(steps_per_execution))
         self.state: TrainState | None = None
@@ -221,6 +268,48 @@ class Trainer:
         shard: None (the world) on a pure-data mesh."""
         return self.mesh.batch_group if self.mesh is not None else None
 
+    @property
+    def seq_shards(self) -> int:
+        """The size of the mesh's ``seq`` axis (1 without a mesh)."""
+        return self.mesh.seq_shards if self.mesh is not None else 1
+
+    @property
+    def seq_group(self):
+        return self.mesh.group(mesh_lib.SEQ_AXIS) if self.mesh is not None \
+            else None
+
+    def cut(self, a, part: int):
+        """This rank's columns of batch part ``part`` (0: x, 1: y) on a
+        live ``seq`` axis: ``[c·T/n, (c+1)·T/n)`` of dim 1 where the part's
+        layout shards it (`_seq_sharded`), else the whole part."""
+        if not self._seq_sharded(a, part):
+            return a
+        n, t = self.seq_shards, a.shape[1]
+        if t % n:
+            raise ValueError(
+                f"dim 1 of a batch part sharded over 'seq' ({t}) must be a "
+                f"multiple of the seq axis ({n})")
+        c = self.mesh.seq_index
+        return a[:, c * t // n:(c + 1) * t // n]
+
+    def _seq_sharded(self, a, part: int) -> bool:
+        """Whether batch part ``part`` is cut over ``seq``: on a live seq
+        axis a part of two or more dims must be, and one whose layout
+        leaves dim 1 whole raises naming its ROADMAP item."""
+        if self.seq_shards == 1 or np.ndim(a) < 2:
+            return False
+        if part < len(self._seq_parts) and self._seq_parts[part]:
+            return True
+        raise NotImplementedError(
+            f"Trainer(batch_specs=...): batch part {part} (shape "
+            f"{tuple(np.shape(a))}) is whole on dim 1 of a live 'seq' axis; "
+            "the port carries P(('data', 'fsdp'), 'seq', None) there — "
+            "ROADMAP queue A item 12.4 (sharded layouts)")
+
+    def cut_batch(self, batch) -> tuple:
+        """`cut` of each part of an ``(x, y)`` batch."""
+        return tuple(self.cut(a, i) for i, a in enumerate(batch))
+
     def _refuse_with_placements(self, shard_update: bool) -> None:
         """JAX's refusals of options that assume replicated parameters, and
         the port's of the reductions it runs over the world only."""
@@ -249,6 +338,12 @@ class Trainer:
                     "follow the fsdp/tp sharding — compose via the fsdp axis "
                     "instead"
                 )
+        if self.batch_specs is not None and tx.backward_passes_per_step > 1:
+            raise ValueError(
+                "backward_passes_per_step does not compose with custom "
+                "batch_specs — the microbatch stack is sharded along "
+                "the data axes only"
+            )
         if self.batch_group is not None and (compressed or shard_update
                                              or registry.get_raw(
                                                  mesh_lib.ENV_DCN_FACTOR)):
@@ -373,14 +468,30 @@ class Trainer:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     def _loss_and_correct(self, x, y, *, train: bool, seed=None):
-        """(per-example/per-token loss, per-example/per-token correct); the
-        sown values of the forward are left in the module."""
+        """(per-example/per-token loss, per-example/per-token correct) over
+        the global batch's rows of this shard — on a live ``seq`` axis
+        joined over the group (module docstring); the sown values of the
+        forward are left in the module."""
         if self._sows:
             train_state.clear_sown(self.module)
+        group = self.seq_group if self.seq_shards > 1 else None
         if self._module_loss:
-            return self.module(x, train=train, labels=y, dropout_seed=seed)
-        logits = self.module(x, train=train, dropout_seed=seed)
-        return self.loss_fn(logits, y), _correct(logits, y)
+            loss_vec, correct = self.module(x, train=train, labels=y,
+                                            dropout_seed=seed)
+        else:
+            logits = self.module(x, train=train, dropout_seed=seed)
+            if group is not None and not self._token_loss:
+                logits = collectives.all_gather_tiled(logits, group, 1)
+                if self._seq_sharded(y, 1):
+                    with torch.no_grad():
+                        y = collectives.all_gather_tiled(y, group, 1)
+                return self.loss_fn(logits, y), _correct(logits, y)
+            loss_vec, correct = self.loss_fn(logits, y), _correct(logits, y)
+        if group is None:
+            return loss_vec, correct
+        with torch.no_grad():
+            correct = collectives.all_gather_tiled(correct, group, 1)
+        return collectives.all_gather_tiled(loss_vec, group, 1), correct
 
     def _dropout_seed(self, micro: int, step: int | None = None) -> int:
         """The seed of optimizer step ``step`` (default: the next one) —
@@ -390,6 +501,8 @@ class Trainer:
         seed = self.state.step_seed(step)
         if self.dp > 1:
             seed = derive_seed(seed, self.data_index)
+        if self.seq_shards > 1:
+            seed = derive_seed(seed, self.mesh.seq_index)
         if self._accum_steps > 1:
             seed = derive_seed(seed, micro)
         return seed
@@ -408,8 +521,8 @@ class Trainer:
         if len(micro) != self._accum_steps:
             raise ValueError(f"got {len(micro)} microbatches, want "
                              f"backward_passes_per_step={self._accum_steps}")
-        xs = [self._tensor(xb) for xb, _ in micro]
-        ys = [self._tensor(yb) for _, yb in micro]
+        xs = [self._tensor(self.cut(xb, 0)) for xb, _ in micro]
+        ys = [self._tensor(self.cut(yb, 1)) for _, yb in micro]
         if any(a.shape != xs[0].shape for a in xs) or any(
                 b.shape != ys[0].shape for b in ys):
             raise ValueError("the microbatches of a step must share a shape")
@@ -481,13 +594,18 @@ class Trainer:
                                     verbose=verbose, cache=cache)
 
     def predict(self, x, batch_size: int = 128) -> np.ndarray:
-        """Class probabilities (softmax of the logits) as a numpy array."""
+        """Class probabilities (softmax of the logits) as a numpy array —
+        the full ``[N, T, ...]`` on every rank of a ``seq`` group."""
         if self.state is None:
             raise RuntimeError("call fit() or build() first")
         out = []
         with torch.inference_mode():
             for start in range(0, len(x), batch_size):
-                logits = self.module(self._tensor(x[start:start + batch_size]),
+                xb = x[start:start + batch_size]
+                logits = self.module(self._tensor(self.cut(xb, 0)),
                                      train=False)
+                if self._seq_sharded(xb, 0):
+                    logits = collectives.all_gather_tiled(
+                        logits, self.seq_group, 1)
                 out.append(torch.softmax(logits.float(), dim=-1).cpu().numpy())
         return np.concatenate(out, axis=0)

@@ -385,3 +385,28 @@ def test_moe_entry_points_refuse_cpu_fallback(no_cuda):
                    mesh=mesh.build_mesh())
     assert ht.Trainer(m, ht.adamw(1e-3), loss="module",
                       mesh=mesh.build_mesh(), device="cpu").dp == 1
+
+
+@pytest.mark.parametrize("mod", [
+    "horovod_tpu_torch.data.packing",
+    "horovod_tpu_torch.examples.lm_packed_pretraining",
+    "horovod_tpu_torch.ops.attention",
+])
+def test_sequence_parallel_slice_is_scanned(mod):
+    """The sequence-parallel slice's modules are in both scans."""
+    assert mod in _modules()
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    assert path in _port_files()
+
+
+def test_packed_twin_refuses_cpu_fallback(no_cuda, monkeypatch):
+    """The packed-pretraining twin defaults to the card (``HVT_DEVICE``
+    unset) and raises without CUDA."""
+    from horovod_tpu_torch.examples import lm_packed_pretraining as twin
+
+    for name in ("HVT_COORDINATOR_ADDRESS", "HVT_NUM_PROCESSES",
+                 "HVT_PROCESS_ID", "HVT_DEVICE", "HVT_MESH"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        twin.main()
+    assert not horovod_tpu_torch.is_initialized()

@@ -414,16 +414,18 @@ def _layout_mesh(**axes):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (lambda: {"mesh": _layout_mesh(data=1, seq=2)}, "item 12.2"),
+    (lambda: {"mesh": _layout_mesh(data=1, fsdp=2)}, "item 12.4"),
     (lambda: {"mesh": _layout_mesh(data=1, model=2),
               "param_specs": ttr.param_specs}, "item 12.4"),
-    (lambda: {"batch_specs": {}}, "item 12"),
+    (lambda: {"batch_specs": (tmesh.P("data", None, "seq"),)}, "item 12.4"),
 ], ids=["mesh", "param_specs", "batch_specs"])
 def test_trainer_unported_options_raise_naming_roadmap(kw, match):
-    """What the slice does not carry raises naming its ROADMAP item: a live
-    ``seq`` axis (12.2), a live ``model`` placement (12.4), custom batch
-    layouts (12.2). Meshes and expert placements: tests/test_torch_mesh.py
-    and tests/test_torch_expert_parallel.py."""
+    """What the port does not carry raises naming its ROADMAP item: a live
+    ``fsdp`` axis (12.4), a live ``model`` placement (12.4), batch layouts
+    other than JAX's ``P(('data', 'fsdp'), 'seq', None)`` (12.4). Meshes,
+    expert placements and the ``seq`` axis: tests/test_torch_mesh.py,
+    tests/test_torch_expert_parallel.py and
+    tests/test_torch_seq_parallel.py."""
     tm = ttr.TransformerLM(**_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         ht.Trainer(tm, ht.adamw(1e-3), device="cpu", **kw())
