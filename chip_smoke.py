@@ -69,7 +69,8 @@ Phases (any failed check exits non-zero before the result line):
    on blends of two, where the trained model is not saturated.
    val_accuracy per epoch and the epoch and seconds at which it first
    reaches 98 % are printed;
-10. ``mnist_2rank`` — the TF2 twin at ``--nprocs 2``, both ranks on the one
+10. ``mnist_2rank`` — the TF2 twin at ``--nprocs 2`` (run beside 12b-d:
+   all four are checks), both ranks on the one
    card over gloo, named with ``HVT_BACKEND=gloo`` (an H100 cannot host two
    NCCL ranks, so without it ``init`` refuses): a correctness
    check, not a speed. It fails unless the two ranks' parameters and
@@ -258,13 +259,48 @@ Phases (any failed check exits non-zero before the result line):
    b. the twin of ``examples/lm_packed_pretraining.py`` at the bench LM's
       width (vocab 8192, d_model 512, 8 layers, 4 heads of 128, seq 2048,
       bf16) on ``HVT_MESH="data=1,seq=2"``, two gloo ranks sharing the
-      card: the masked loss falls (``LEARNING``), the ranks' parameters
-      are equal, B1-B3 launch n_layers × the hops a rank runs a step, all
-      on tc; step ms, tokens/s, the ring's bytes a step, peak memory;
+      card, 3 epochs of 4 steps: the masked loss falls (``LEARNING``),
+      the ranks' parameters are equal, B1-B3 launch n_layers × the hops
+      a rank runs a step, all on tc; step ms, tokens/s, the ring's bytes a
+      step, peak memory;
    c. a 2-layer f32 model at seq = 2 (two gloo ranks) against one rank on
       the card: logits, loss and every gradient for the flash ring,
       Ulysses and the ring with window + sinks, at phase 7's tolerances;
-19. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
+19. the encoder-decoder family and LoRA (no new kernel: the seq2seq
+   sites are B1-B3 under new masks, LoRA's merge a plain product), each
+   part a ``phase19*`` line with the card:
+   a. the seq2seq masks in phases 3 and 4's case lists, forward and
+      backward (with and without an lse cotangent), on both routes: the
+      encoder's (non-causal, q = kv = padding ids with tails of several
+      lengths), the cross site's (q ids 1, padded kv ids, Tq ≠ Tk) and
+      tiles shorter than one 64-row tile (Tq 10 / Tk 12, bf16 D 64 and
+      f32 D 24); B1, B2 and B3 at the bench's encoder and cross sites
+      timed beside their plain versions, the bound for the pairs the ids
+      keep, and SDPA with the boolean mask;
+   b. bench.py's seq2seq (vocab 8192, d 512, 8 heads, 6 + 6 layers, 8 ×
+      (1024 + 1024), bf16 compute and logits, AdamW) trained 30 steps by
+      ``Trainer.fit`` on dict batches with the steps captured: the loss
+      falls, each step that runs the wrappers launches B1, B2 and B3 18
+      times (6 encoder, 6 decoder self, 6 cross sites), all on tc; step
+      ms, target tokens/s, peak memory, the busy share of five profiled
+      replays; a 2 + 2-layer f32 model against the CPU at phase 7's
+      tolerances;
+   c. greedy generation from (b)'s weights, 8 sources of 1024, 64 new
+      tokens: 6 tc B1 launches (the encode), every step a replay, the
+      tokens equal to the teacher-forced argmax on the card but at counted
+      bf16 near-ties; tokens/s;
+   d. the twin of ``examples/seq2seq_translation.py`` at its default knobs
+      on the card (launched beside phase 16, a check): ``REVERSAL
+      LEARNED`` and its accuracy;
+   e. (in 18c's child) a 2 + 2-layer f32 seq2seq at seq = 2 against one
+      rank: logits, loss and every gradient at phase 7's tolerances;
+   f. ``LoRAModel`` (rank 8, alpha 16) around the bench LM with
+      ``freeze_base(adamw)``, 30 captured steps at 8 × 1024: the base
+      bit-equal at the end, every adapter moved, the loss falls, B1-B3 on
+      tc; the merged model's logits against the wrapped forward's; the
+      optimizer's state bytes against a full AdamW's; step ms beside phase
+      6's;
+20. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
@@ -553,14 +589,24 @@ WORK_OF = {"flash_fwd": (2, 2, 1, 2), "flash_bwd_dq": (3, 2, 2, 3),
 
 
 def attention_bound_ms(b, tq, tk, h, hkv, d, dtype_name, *, causal,
-                       q_offset=None, kernel="flash_fwd", window=None):
+                       q_offset=None, kernel="flash_fwd", window=None,
+                       kept=None):
     """Least time for ``kernel``'s work on this card: the larger of (each
     input read once + each output written once) over HBM bandwidth and the
-    products the masks keep over the peak rate of the dtype."""
+    products the masks keep over the peak rate of the dtype. ``kept``: the
+    (row, key) pairs segment ids keep, summed over batch and heads (this
+    run's data), in place of the causal/full count; the ids are read
+    too."""
     n_q, n_kv, n_stat, n_prod = WORK_OF[kernel]
     item = 4 if dtype_name == "float32" else 2
     nbytes = (n_q * b * tq * h * d + n_kv * b * tk * hkv * d) * item \
         + n_stat * b * tq * h * 4
+    if kept is not None:
+        nbytes += 4 * b * (tq + tk)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_flops = 2.0 * n_prod * d * kept / PEAK_FLOPS[dtype_name] * 1e3
+        return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                       else "operations")
     if causal:
         off = tk - tq if q_offset is None else q_offset
         lo = (lambda r: 0) if window is None else (
@@ -584,6 +630,32 @@ def _segment_ids(torch, gen, b, tq):
            >= cuts[:, None, :]).sum(-1).to(torch.int32)
     return (torch.where(torch.arange(tq, device="cuda") >= tq - 16, 99, ids),
             ids)
+
+
+# Phase 19a: the seq2seq family's masks. Row i of a source keeps its
+# first t − tail real (id 1) and pads the rest (id 0), the tail scaled from
+# these lengths at T = 1024.
+S2S_MASK_TAILS = (0, 100, 257, 511, 700, 1000, 1023, 64)
+
+
+def _mask_ids(torch, kind, b, tq, tk):
+    """``(q_ids, kv_ids)`` of a seq2seq site: ``"pad"`` the encoder's (q =
+    kv = the source's padding ids; pad rows see each other, as in JAX),
+    ``"cross"`` the cross-attention's (q ids the constant 1, kv ids the
+    memory's padding)."""
+    def valid(t):
+        ids = torch.ones((b, t), dtype=torch.int32, device="cuda")
+        for i in range(b):
+            tail = min(S2S_MASK_TAILS[i % len(S2S_MASK_TAILS)] * t // 1024,
+                       t - 1)
+            if tail:
+                ids[i, t - tail:] = 0
+        return ids
+
+    if kind == "pad":
+        ids = valid(tq)
+        return ids, ids
+    return torch.ones((b, tq), dtype=torch.int32, device="cuda"), valid(tk)
 
 
 def _qkv_inputs(torch, rand, b, tq, tk, h, hkv, d, dtype, layout):
@@ -638,6 +710,22 @@ def kernel_cases(torch):
         ("fp16_window_d128", 2, 300, 300, 4, 4, 128, f16, {"window": 64},
          False),
         ("strided_head_dim", 2, 256, 256, 8, 8, 64, bf16, {}, "strided"),
+        # Phase 19a: the seq2seq sites' masks (non-causal, padding ids).
+        ("encoder_padded", 8, 1024, 1024, 8, 8, 64, bf16,
+         {"causal": False}, "pad"),
+        ("encoder_padded_f32", 2, 300, 300, 4, 4, 64, f32,
+         {"causal": False}, "pad"),
+        ("cross_padded_q700_k1024", 2, 700, 1024, 8, 8, 64, bf16,
+         {"causal": False}, "cross"),
+        ("cross_padded_q1024_k700", 2, 1024, 700, 8, 8, 64, bf16,
+         {"causal": False}, "cross"),
+        ("cross_padded_f32", 2, 200, 300, 4, 4, 64, f32,
+         {"causal": False}, "cross"),
+        ("tiny_tiles_bf16_d64", 8, 10, 12, 4, 4, 64, bf16,
+         {"causal": False}, "cross"),
+        ("tiny_tiles_f32_d24", 8, 10, 12, 4, 4, 24, f32,
+         {"causal": False}, "cross"),
+        ("tiny_tiles_causal_f32_d24", 8, 10, 10, 4, 4, 24, f32, {}, False),
     ]
     results = {}
     with torch.inference_mode():
@@ -648,6 +736,9 @@ def kernel_cases(torch):
             if extra is True:
                 kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
                     torch, gen, b, tq)
+            elif extra in ("pad", "cross"):
+                kw["q_segment_ids"], kw["kv_segment_ids"] = _mask_ids(
+                    torch, extra, b, tq, tk)
             route = fa._route(dt, d)
             tc0, n0, dense0 = fa.launches_tc, fa.launches, fa.launches_dense
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
@@ -758,6 +849,24 @@ def backward_cases(torch):
          True),
         ("fp16_window_d128", 2, 300, 300, 4, 4, 128, f16, {"window": 64},
          False, False),
+        # Phase 19a: the seq2seq sites' masks, with and without an lse
+        # cotangent.
+        ("encoder_padded", 8, 1024, 1024, 8, 8, 64, bf16, {"causal": False},
+         "pad", False),
+        ("encoder_padded_f32_lse_cotangent", 2, 300, 300, 4, 4, 64, f32,
+         {"causal": False}, "pad", True),
+        ("cross_padded_q700_k1024", 2, 700, 1024, 8, 8, 64, bf16,
+         {"causal": False}, "cross", False),
+        ("cross_padded_q1024_k700_lse_cotangent", 2, 1024, 700, 8, 8, 64,
+         bf16, {"causal": False}, "cross", True),
+        ("cross_padded_f32", 2, 200, 300, 4, 4, 64, f32, {"causal": False},
+         "cross", False),
+        ("tiny_tiles_bf16_d64_lse_cotangent", 8, 10, 12, 4, 4, 64, bf16,
+         {"causal": False}, "cross", True),
+        ("tiny_tiles_f32_d24", 8, 10, 12, 4, 4, 24, f32, {"causal": False},
+         "cross", False),
+        ("tiny_tiles_causal_bf16_d64", 8, 10, 10, 4, 4, 64, bf16, {}, False,
+         False),
     ]
     results = {}
     with torch.inference_mode():
@@ -768,6 +877,9 @@ def backward_cases(torch):
             if extra is True:
                 kw["q_segment_ids"], kw["kv_segment_ids"] = _segment_ids(
                     torch, gen, b, tq)
+            elif extra in ("pad", "cross"):
+                kw["q_segment_ids"], kw["kv_segment_ids"] = _mask_ids(
+                    torch, extra, b, tq, tk)
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
             dout = rand(b, tq, h, d, dtype=dt)
             delta = (dout.float() * out.float()).sum(-1)
@@ -1277,7 +1389,7 @@ def train_path(torch):
     }
     log("train", json.dumps(train))
     log("breakdown_train", json.dumps(train_breakdown(torch, trainer, feed)))
-    return dict(launches, graph_replays=replays)
+    return dict(launches, graph_replays=replays, step_ms_median=median)
 
 
 def profiled_fit(torch, fit, start, window):
@@ -4629,7 +4741,7 @@ SEQ_HOP_SHAPE, SEQ_HOP_WINDOW = (8, 1024, 4, 128), 1536
 # step ms is the median of the epochs after the first, a step.
 SEQ_TWIN = {"VOCAB": "8192", "DMODEL": "512", "NLAYERS": "8",
             "SEQ_LEN": "2048", "HVT_MESH": "data=1,seq=2",
-            "DRIVE_EPOCHS": "4", "DRIVE_STEPS": "4"}
+            "DRIVE_EPOCHS": "3", "DRIVE_STEPS": "4"}
 # 18c: a 2-layer f32 model at the bench width (8 heads) at seq = 2 against
 # one rank on the card, SEQ_PLAIN_ROWS × SEQ_PLAIN_T tokens: logits, loss
 # and every gradient, held to phase 7's TRAIN_LOSS_ATOL and TRAIN_GRAD_REL
@@ -4720,6 +4832,30 @@ for name, (kw, attn) in variants.items():
         res[f"{name}.g.{pn}"] = c.all_reduce_sum(
             p.grad, mesh.grad_group).cpu().numpy()
     res[name + ".loss"] = loss.detach().cpu().numpy()
+# 19e: the seq2seq family at seq = 2: its three sites as rings.
+s2s = json.loads(os.environ.get("SMOKE_S2S") or "null")
+if s2s:
+    from horovod_tpu_torch.models import seq2seq as tseq
+
+    sd = np.load(os.environ["SMOKE_S2S_DATA"])
+
+    def mine(a):
+        t = a.shape[1] // 2
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:, mesh.seq_index * t:(mesh.seq_index + 1) * t])).to(dev)
+
+    m = tseq.Seq2SeqTransformer(**s2s, seed=3, device=dev,
+                                sharding=ttr.ShardingConfig(mesh=mesh))
+    logits = m({"src": mine(sd["src"]), "tgt": mine(sd["tgt"])})
+    res["s2s.logits"] = logits.detach().cpu().numpy()
+    loss = torch.nn.functional.cross_entropy(
+        logits.float().flatten(0, 1), mine(sd["y"]).long().flatten(),
+        reduction="none").view(logits.shape[:2])
+    c.all_gather_tiled(loss, mesh.group("seq"), 1).mean().backward()
+    for pn, p in m.named_parameters():
+        res["s2s.g." + pn] = c.all_reduce_sum(
+            p.grad, mesh.grad_group).cpu().numpy()
+    res["s2s.loss"] = loss.detach().cpu().numpy()
 np.savez(os.path.join(os.environ["SMOKE_OUT"], f"rank{runtime.rank()}.npz"),
          **res)
 print("seq_plain", json.dumps({"rank": runtime.rank()}), flush=True)
@@ -4961,9 +5097,13 @@ def seq_vs_one_rank(torch, card):
     x, y = copy_task(SEQ_PLAIN_ROWS, SEQ_PLAIN_T, MODEL["vocab_size"], seed=5)
     np.savez(os.path.join(out, "data.npz"), x=x, y=y)
     cfg = dict(MODEL, n_layers=2)
+    sx, sy = _s2s_copy_task(SEQ_PLAIN_ROWS, S2S_E_T, S2S_E_T, seed=5)
+    np.savez(os.path.join(out, "s2s.npz"), y=sy, **sx)
     knobs = {"SMOKE_DATA": os.path.join(out, "data.npz"), "SMOKE_OUT": out,
              "SMOKE_MODEL": json.dumps(cfg),
              "SMOKE_VARIANTS": json.dumps(SEQ_PLAIN_VARIANTS),
+             "SMOKE_S2S": json.dumps(S2S_SMALL),
+             "SMOKE_S2S_DATA": os.path.join(out, "s2s.npz"),
              "HVT_BACKEND": "gloo", "PYTHONUNBUFFERED": "1"}
     _, wall, _, _ = _launch("seq_plain", 2, None, knobs,
                             code=SEQ_PLAIN_CHILD, timeout=600)
@@ -4998,7 +5138,46 @@ def seq_vs_one_rank(torch, card):
               and worst["grad_share_of_max"] <= TRAIN_GRAD_REL,
               f"18c {name}: seq = 2 differs from one rank: {worst}")
     log("phase18c", json.dumps(dict(res, launch_wall_s=wall, card=card)))
+    log("phase19e", json.dumps(dict(
+        seq2seq_vs_one_rank(torch, ranks, sx, sy), card=card)))
     return res
+
+
+def seq2seq_vs_one_rank(torch, ranks, x, y):
+    """19e: the f32 seq2seq of `S2S_SMALL` at seq = 2 (18c's two gloo
+    ranks; a padded source block rotates in the cross ring) against one
+    rank on the card: logits, per-token loss and every gradient of the
+    mean loss, at phase 7's tolerances."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.seq2seq import Seq2SeqTransformer
+
+    m = Seq2SeqTransformer(**S2S_SMALL, seed=3, device=DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in x.items()}
+    logits = m(batch)
+    loss = F.cross_entropy(logits.float().flatten(0, 1),
+                           torch.from_numpy(y).to(DEVICE).long().flatten(),
+                           reduction="none").view(logits.shape[:2])
+    loss.mean().backward()
+    logits, loss = logits.detach().cpu().numpy(), loss.detach().cpu().numpy()
+    t = S2S_E_T // 2
+    worst = {"logits": 0.0, "loss": 0.0, "grad_share_of_max": 0.0}
+    for r, got in enumerate(ranks):
+        cols = slice(r * t, (r + 1) * t)
+        worst["logits"] = max(worst["logits"], float(abs(
+            got["s2s.logits"] - logits[:, cols]).max()))
+        worst["loss"] = max(worst["loss"], float(abs(
+            got["s2s.loss"] - loss[:, cols]).max()))
+        for pn, p in m.named_parameters():
+            g = p.grad.cpu().numpy()
+            worst["grad_share_of_max"] = max(
+                worst["grad_share_of_max"],
+                float(abs(got["s2s.g." + pn] - g).max())
+                / max(float(abs(g).max()), 1e-30))
+    check(worst["logits"] <= LOGITS_ATOL and worst["loss"] <= TRAIN_LOSS_ATOL
+          and worst["grad_share_of_max"] <= TRAIN_GRAD_REL,
+          f"19e: seq2seq at seq = 2 differs from one rank: {worst}")
+    return dict(worst, rows=SEQ_PLAIN_ROWS, src=S2S_E_T, tgt=S2S_E_T)
 
 
 def seq_multi_card(torch, card, ranks, dense):
@@ -5028,6 +5207,470 @@ def seq_phase(torch, card):
     res["b"] = seq_twin(torch, card)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase18 seconds: {res['seconds']:.1f}")
+    return res
+
+
+# -- phase 19 ----------------------------------------------------------------
+
+# 19b: bench.py's seq2seq mode (bench.py:243-285): vocab 8192, d 512, 8
+# heads, 6 + 6 layers, source and target 1024, batch 8, bf16 compute and
+# logits, AdamW(scale_lr(3e-4)), dropout 0; its copy task (labels = the
+# source, the decoder input BOS + the source shifted) with pad tails of
+# [0, S2S_PAD_MAX) tokens on the source, so the encoder's and the cross
+# sites' padding masks are live.
+S2S_MODEL = dict(vocab_size=8192, d_model=512, n_heads=8, n_enc_layers=6,
+                 n_dec_layers=6, dropout=0.0)
+S2S_ROWS, S2S_PAD_MAX, S2S_BOS = 512, 256, 1
+# Attention sites a step: 6 encoder + 6 decoder self + 6 cross.
+S2S_SITES = 6 + 6 + 6
+# 19b's f32 check: 2 + 2 layers at the bench width, 2 rows of 256 + 256.
+S2S_SMALL = dict(S2S_MODEL, n_enc_layers=2, n_dec_layers=2)
+S2S_SMALL_ROWS, S2S_SMALL_T = 2, 256
+# 19e: S2S_SMALL in f32 at seq = 2, SEQ_PLAIN_ROWS rows of 512 + 512.
+S2S_E_T = 512
+# 19c: 64 greedy tokens for 8 sources of 1024. The cached steps and the
+# teacher-forced recompute round bf16 logits differently: a token may
+# differ only where the recompute's top two logits lie within two bf16
+# ulps of the top one (counted).
+S2S_NEW = 64
+# 19f: LoRA on the bench LM (rank 8, alpha 16, the default targets).
+LORA_RANK, LORA_ALPHA = 8, 16.0
+
+S2S_TWIN_CHILD = r"""
+import json
+from horovod_tpu_torch.examples import seq2seq_translation as twin
+from horovod_tpu_torch.ops import flash_attention as fa
+
+history, acc = twin.main()
+print("s2s_twin", json.dumps({
+    "losses": [e["loss"] for e in history], "accuracy": acc,
+    "epoch_s": [e["epoch_time_s"] for e in history],
+    "launches": {"flash_fwd": fa.launches, "flash_fwd_tc": fa.launches_tc,
+                 "flash_bwd_dq": fa.launches_bwd_dq,
+                 "flash_bwd_dkv": fa.launches_bwd_dkv}}), flush=True)
+"""
+
+
+def _s2s_copy_task(rows, s, t, seed):
+    """bench.py's seq2seq copy task with pad tails on the source: ``(x =
+    {"src", "tgt"}, y)``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    src = rng.randint(3, S2S_MODEL["vocab_size"], (rows, s)).astype(np.int32)
+    for i, tail in enumerate(rng.randint(0, S2S_PAD_MAX * s // 1024, rows)):
+        if tail:
+            src[i, s - tail:] = 0
+    y = src[:, :t].copy()
+    tgt = np.concatenate([np.full((rows, 1), S2S_BOS, np.int32),
+                          y[:, :-1]], axis=1)
+    return {"src": src, "tgt": tgt}, y
+
+
+def _fa_counts(fa):
+    return {"flash_fwd": fa.launches, "flash_fwd_tc": fa.launches_tc,
+            "flash_bwd_dq": fa.launches_bwd_dq,
+            "flash_bwd_dq_tc": fa.launches_bwd_dq_tc,
+            "flash_bwd_dkv": fa.launches_bwd_dkv,
+            "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc}
+
+
+def _fa_zero(fa):
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches_tc = fa.launches_bwd_dq_tc = fa.launches_bwd_dkv_tc = 0
+
+
+def _held(torch, name, got, want, forward):
+    """The largest absolute difference of a kernel's outputs from its
+    plain version's on the same inputs, checked to phase 3's tolerances
+    (B1: O and lse) or phase 4's (B2, B3: each gradient) at bf16."""
+    got = (got,) if torch.is_tensor(got) else tuple(got)
+    want = (want,) if torch.is_tensor(want) else tuple(want)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output {i}")
+        err = (g - w).abs()
+        if forward and i == 1:  # lse
+            ok = float(err.max()) <= TOL["bfloat16"]["lse"]
+        elif forward:
+            ok = bool((err <= TOL["bfloat16"]["o_atol"]
+                       + TOL["bfloat16"]["o_rtol"] * w.abs()).all())
+        else:
+            tol = GRAD_TOL["bfloat16"]
+            ok = bool((err <= tol["atol_of_max"] * float(w.abs().max())
+                       + tol["rtol"] * w.abs()).all())
+        check(ok, f"{name}: output {i} differs from the plain version "
+              f"(max abs {float(err.max()):.3g})")
+        if not (forward and i == 1):
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+def seq2seq_mask_timings(torch, card):
+    """19a's times: B1, B2 and B3 at the bench seq2seq's encoder site
+    ([8, 1024, 8, 64] bf16, non-causal, q = kv = the source's padding
+    ids) and cross site (target 1024 against source 1024, q ids 1, kv ids
+    the padding): kernel (held against its plain version, `_held`),
+    plain version, the bound for the pairs these ids keep, and SDPA with
+    the same boolean mask (forward; forward + backward less forward)."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = TRAIN_ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+    masks = dict(causal=False, window=None, sinks=0, q_offset=None)
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    out_t = {}
+    for site, kind in (("encoder_padded", "pad"), ("cross_padded", "cross")):
+        qi, ki = _mask_ids(torch, kind, b, t, t)
+        keep = qi[:, :, None] == ki[:, None, :]
+        kept = int(keep.sum()) * h
+        seg = dict(q_segment_ids=qi, kv_segment_ids=ki)
+        with torch.inference_mode():
+            out, lse = fa._launch(q, k, v, qi, ki, **masks)
+            delta = (dout.float() * out.float()).sum(-1)
+        entry = {"shape": [b, t, h, d], "kept_pairs": kept}
+        sdpa_mask = keep[:, None]
+        with torch.inference_mode():
+            lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=sdpa_mask), 20)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+
+        def fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg,
+                                               attn_mask=sdpa_mask)
+            torch.autograd.grad(o, (qg, kg, vg), gh)
+
+        lib_bwd = device_ms(torch, fwd_bwd, 10) - lib_fwd
+        calls = {
+            "flash_fwd_sm90": (
+                "flash_fwd", lambda: fa._launch(q, k, v, qi, ki, **masks),
+                lambda: fa.flash_attention_reference(q, k, v, causal=False,
+                                                     **seg), lib_fwd),
+            "flash_bwd_dq_sm90": (
+                "flash_bwd_dq", lambda: fa._launch_dq(
+                    q, k, v, dout, lse, delta, qi, ki, masks),
+                lambda: fa.flash_bwd_dq_reference(
+                    q, k, v, dout, lse, delta, causal=False, **seg),
+                lib_bwd),
+            "flash_bwd_dkv_sm90": (
+                "flash_bwd_dkv", lambda: fa._launch_dkv(
+                    q, k, v, dout, lse, delta, qi, ki, masks),
+                lambda: fa.flash_bwd_dkv_reference(
+                    q, k, v, dout, lse, delta, causal=False, **seg),
+                lib_bwd),
+        }
+        with torch.inference_mode():
+            for name, (work, kernel, plain, lib) in calls.items():
+                bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
+                                               causal=False, kernel=work,
+                                               kept=kept)
+                err = _held(torch, f"19a {site} {name}", kernel(), plain(),
+                            work == "flash_fwd")
+                entry[name] = {"max_abs_err": err,
+                               "ms": device_ms(torch, kernel, 20),
+                               "plain_ms": device_ms(torch, plain, 3),
+                               "library_ms": lib, "bound_ms": bound,
+                               "bound_by": by}
+        out_t[site] = entry
+        log(f"time seq2seq {site} B{b} T{t} H{h} D{d} bf16 [tc]: "
+            + ", ".join(f"{k_} {v_['ms']:.5f} ms (err {v_['max_abs_err']:.3g}, "
+                        f"plain {v_['plain_ms']:.5f}, "
+                        f"sdpa with the mask {v_['library_ms']:.5f}, bound "
+                        f"{v_['bound_ms']:.5f} {v_['bound_by']})"
+                        for k_, v_ in entry.items() if isinstance(v_, dict)))
+    log("phase19a", json.dumps({"timings": out_t, "card": card}))
+    return out_t
+
+
+def seq2seq_train(torch, card):
+    """19b: the bench seq2seq trained S2S steps at 8 × (1024 + 1024)
+    through `Trainer.fit` with dict batches, the steps captured: the loss
+    falls; every step that runs the wrappers (the eager warm-up and the
+    capture) launches B1, B2 and B3 once a site, 18 each, all on tc, and
+    the replays relaunch them; steps 20-24 profiled for the device's busy
+    share. Returns the fit's counts and the trained model."""
+    import numpy as np
+
+    from horovod_tpu_torch import (
+        DistributedOptimizer, Trainer, adamw, scale_lr,
+    )
+    from horovod_tpu_torch.models.seq2seq import Seq2SeqTransformer
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    x, y = _s2s_copy_task(S2S_ROWS, TRAIN_SEQ, TRAIN_SEQ, seed=0)
+    model = Seq2SeqTransformer(**S2S_MODEL, compute_dtype=torch.bfloat16,
+                               logits_dtype=torch.bfloat16, device=DEVICE,
+                               seed=0)
+    trainer = Trainer(model, DistributedOptimizer(adamw(scale_lr(3e-4))),
+                      loss="sparse_categorical_crossentropy", seed=0,
+                      device=DEVICE)
+    trainer.build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _fa_zero(fa)
+    window = 5
+    t0 = time.perf_counter()
+    prof, host_ms = profiled_fit(torch, lambda cbs: trainer.fit(
+        x=x, y=y, batch_size=TRAIN_BATCH, epochs=TRAIN_STEPS,
+        steps_per_epoch=1, callbacks=cbs, verbose=0), 20, window)
+    wall = time.perf_counter() - t0
+    launches = _fa_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    losses = [e["loss"] for e in hist]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"19b: non-finite seq2seq loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"19b: the seq2seq loss did not fall: {losses[0]} -> {losses[-1]}")
+    runner = trainer._runner
+    check(runner.captures == 1 and runner.replays == TRAIN_STEPS - 1,
+          f"19b: {runner.captures} captures and {runner.replays} replays, "
+          f"want 1 and {TRAIN_STEPS - 1}")
+    want = S2S_SITES * (runner.eager_steps + runner.captures)
+    for name, n in launches.items():
+        check(n == want, f"19b: {name} launched {n} times, want 18 sites × "
+              f"(eager steps + captures) = {want} (all on tc)")
+    per_step, _ = _per_step(torch, prof, window, host_ms)
+    steady = sorted(e["epoch_time_s"] * 1e3 for i, e in enumerate(hist)
+                    if i >= 2 and not 20 <= i < 20 + window)
+    median = steady[len(steady) // 2]
+    res = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "src": TRAIN_SEQ,
+           "tgt": TRAIN_SEQ, "pad_tokens_share": float((x["src"] == 0).mean()),
+           "wall_s": wall, "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_median": median, "step_ms_min": steady[0],
+           "step_ms_max": steady[-1],
+           "target_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+           "peak_memory_gib": peak / 2**30, "launches": launches,
+           "eager_steps": runner.eager_steps, "captures": runner.captures,
+           "graph_replays": runner.replays,
+           "profiled_steps_20_24": {k: v for k, v in per_step.items()
+                                    if k != "top_kernels_ms_per_step"},
+           "top_kernels_ms_per_step": per_step["top_kernels_ms_per_step"][:5],
+           "card": card}
+    log("phase19b", json.dumps(res))
+    return res, model, x
+
+
+def seq2seq_vs_plain(torch, card):
+    """19b's f32 check: one forward and backward of a 2 + 2-layer f32
+    seq2seq at the bench width, 2 rows of 256 + 256 with pad tails, on the
+    card (the CUDA-core kernels) and on the CPU (the plain versions), from
+    the same seeded weights: the loss and every gradient to phase 7's
+    tolerances."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.seq2seq import Seq2SeqTransformer
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _s2s_copy_task(S2S_SMALL_ROWS, S2S_SMALL_T, S2S_SMALL_T, seed=1)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        model = Seq2SeqTransformer(**S2S_SMALL, device=dev, seed=3)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+        _fa_zero(fa)
+        logits = model(batch)
+        loss = F.cross_entropy(logits.float().flatten(0, 1),
+                               torch.from_numpy(y).to(dev).long().flatten())
+        loss.backward()
+        runs[dev] = (float(loss), {n: p.grad.cpu() for n, p in
+                                   model.named_parameters()},
+                     _fa_counts(fa))
+    (lg, gg, counts), (lc, gc, _) = runs[DEVICE], runs["cpu"]
+    sites = S2S_SMALL["n_enc_layers"] + 2 * S2S_SMALL["n_dec_layers"]
+    check(counts["flash_fwd"] == counts["flash_bwd_dq"]
+          == counts["flash_bwd_dkv"] == sites
+          and counts["flash_fwd_tc"] == 0,
+          f"19b f32: want {sites} CUDA-core launches of each kernel: {counts}")
+    grad_err = max(float((gg[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                         1e-30)
+                   for n, g in gc.items())
+    res = {"loss_card": lg, "loss_cpu": lc, "loss_abs_err": abs(lg - lc),
+           "grad_max_err_of_max": grad_err, "launches": counts, "card": card}
+    check(abs(lg - lc) <= TRAIN_LOSS_ATOL and grad_err <= TRAIN_GRAD_REL,
+          f"19b f32: card vs cpu differ beyond phase 7's limits: {res}")
+    log("phase19b_f32", json.dumps(res))
+    return res
+
+
+def seq2seq_generate(torch, card, model, x):
+    """19c: greedy generation from 19b's trained weights, 8 sources of
+    1024, 64 new tokens: the encoder's 6 B1 launches (tc) a call, then the
+    BOS prefill and 63 steps, replays of one captured step; the tokens
+    against the teacher-forced argmax on the card, with counted near-ties
+    (`S2S_NEW`'s note); tokens/s of a second call."""
+    from horovod_tpu_torch.models.seq2seq import make_seq2seq_generate_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    src = torch.from_numpy(x["src"][:TRAIN_BATCH]).to(DEVICE)
+    fn = make_seq2seq_generate_fn(model, max_new_tokens=S2S_NEW,
+                                  bos_id=S2S_BOS)
+    fn(src)  # the warm-up step and the capture
+    first = fn.steps.counts()
+    _fa_zero(fa)
+    out, ms = _timed(torch, lambda: fn(src))
+    b1 = _fa_counts(fa)
+    counts = {k: v - first[k] for k, v in fn.steps.counts().items()}
+    check(b1["flash_fwd"] == b1["flash_fwd_tc"] == S2S_MODEL["n_enc_layers"],
+          f"19c: the encode launched B1 {b1}, want "
+          f"{S2S_MODEL['n_enc_layers']} on tc")
+    check(counts == {"eager_steps": 0, "captures": 0,
+                     "replays": S2S_NEW - 1},
+          f"19c: the steps were not all replays: {counts}")
+    tf_in = torch.cat([torch.full((TRAIN_BATCH, 1), S2S_BOS,
+                                  dtype=torch.int32, device=DEVICE),
+                       out[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits = model({"src": src, "tgt": tf_in}).float()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    differ = logits.argmax(-1) != out.long()
+    limit = 2 * torch.finfo(torch.bfloat16).eps * top2[..., 0].abs()
+    near = (top2[..., 0] - top2[..., 1]) <= limit
+    check(bool((~differ | near).all()),
+          "19c: a generated token differs from the teacher-forced argmax "
+          "without a near-tie")
+    res = {"rows": TRAIN_BATCH, "source": TRAIN_SEQ, "new_tokens": S2S_NEW,
+           "ms": ms, "tokens_per_s": TRAIN_BATCH * S2S_NEW / ms * 1e3,
+           "steps": counts, "b1_launches": b1,
+           "near_tie_differences": int(differ.sum()),
+           "equal_to_teacher_forced": not bool(differ.any()), "card": card}
+    log("phase19c", json.dumps(res))
+    return res
+
+
+def seq2seq_twin_start():
+    """19d: the twin of ``examples/seq2seq_translation.py`` at its default
+    knobs on the card, launched in a thread (it runs beside phase 16's
+    launches, which wait on faults and heartbeats); `seq2seq_twin_check`
+    joins it."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(_launch, "s2s_twin", 1, None,
+                      {"PYTHONUNBUFFERED": "1"}, timeout=600,
+                      code=S2S_TWIN_CHILD)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def seq2seq_twin_check(fut, card):
+    lines, wall, _, _ = fut.result()
+    rec = json.loads(_rank_line(lines, "s2s_twin "))
+    check(any(ln == "[rank 0] REVERSAL LEARNED" for ln in lines),
+          "19d: the twin did not print REVERSAL LEARNED: "
+          + str([ln for ln in lines if "accuracy" in ln or "REVERSAL" in ln]))
+    res = {"accuracy": rec["accuracy"], "losses": rec["losses"],
+           "epoch_s": rec["epoch_s"], "launches": rec["launches"],
+           "lines": [ln for ln in lines if ln.startswith(tuple(
+               "[rank 0] " + k for k in ("byte-BPE", "src:", "out:",
+                                         "held-out", "REVERSAL",
+                                         "dropped")))],
+           "launch_wall_s": wall, "card": card}
+    log("phase19d", json.dumps(res))
+    return res
+
+
+def lora_train(torch, card, dense_step_ms):
+    """19f: `LoRAModel` (rank 8, alpha 16, the default targets) around the
+    bench LM, `freeze_base(adamw)`, the fused-CE head, 30 captured steps at
+    8 × 1024 of phase 6's feed: the base bit-equal at the end, every
+    adapter's B moved, the loss falls, B1-B3 on tc (n_layers × (eager steps
+    + captures) each); the merged model's logits against the wrapped
+    forward's within bf16's two ulps; the optimizer's state bytes against
+    a full AdamW's; the step against phase 6's dense LM step."""
+    import numpy as np
+
+    from horovod_tpu_torch import (
+        DistributedOptimizer, Trainer, adamw, scale_lr,
+    )
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models import lora
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    x, y = copy_task(4096, TRAIN_SEQ, MODEL["vocab_size"])
+    feed = _draw(x, y, np.random.RandomState(0))
+    inner = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
+                          fused_head_chunks=8, device=DEVICE, seed=0)
+    model = lora.LoRAModel(inner, rank=LORA_RANK, alpha=LORA_ALPHA)
+    base0 = {k: v.clone() for k, v in inner.state_dict().items()}
+    trainer = Trainer(model, DistributedOptimizer(
+        lora.freeze_base(adamw(scale_lr(3e-4)))), loss="module", seed=0,
+        device=DEVICE)
+    trainer.build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _fa_zero(fa)
+    hist = trainer.fit(dataset=feed, epochs=TRAIN_STEPS, steps_per_epoch=1,
+                       verbose=0)
+    launches = _fa_counts(fa)
+    runner = trainer._runner
+    want = MODEL["n_layers"] * (runner.eager_steps + runner.captures)
+    for name, n in launches.items():
+        check(n == want, f"19f: {name} launched {n} times, want n_layers × "
+              f"(eager steps + captures) = {want} (all on tc)")
+    check(runner.replays == TRAIN_STEPS - runner.eager_steps,
+          f"19f: {runner.replays} replays of {TRAIN_STEPS} steps")
+    losses = [e["loss"] for e in hist]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"19f: the LoRA loss did not fall: {losses[0]} -> {losses[-1]}")
+    for k, v in inner.state_dict().items():
+        check(torch.equal(v, base0[k]), f"19f: the frozen base moved: {k}")
+    moved = sum(float(ab["b"].abs().max()) > 0
+                for ab in model.adapters().values())
+    check(moved == len(model.adapted),
+          f"19f: {moved} of {len(model.adapted)} adapters moved")
+    xb = torch.from_numpy(x[:TRAIN_BATCH]).to(DEVICE)
+    plain = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
+                          device=DEVICE, seed=0)
+    plain.load_state_dict(lora.merge_params(model))
+    with torch.no_grad():
+        wrapped, merged = model(xb).float(), plain(xb).float()
+    tol = TOL["bfloat16"]
+    err = (merged - wrapped).abs()
+    check(bool((err <= tol["o_atol"] + tol["o_rtol"] * wrapped.abs()).all()),
+          f"19f: the merged forward differs from the wrapped forward "
+          f"(max abs {float(err.max()):.3g})")
+    n_params = sum(p.numel() for p in inner.parameters())
+    steady = sorted(e["epoch_time_s"] * 1e3 for e in hist[2:])
+    median = steady[len(steady) // 2]
+    res = {"rank": LORA_RANK, "alpha": LORA_ALPHA,
+           "adapted": len(model.adapted),
+           "adapter_params": sum(p.numel() for p in model.lora.parameters()),
+           "base_params": n_params,
+           "optimizer_state_bytes": trainer.tx.state_bytes(),
+           "full_adamw_state_bytes": 2 * 4 * n_params,
+           "losses_first_last": [losses[0], losses[-1]],
+           "step_ms_median": median, "step_ms_min": steady[0],
+           "dense_lm_step_ms_phase6": dense_step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+           "merged_vs_wrapped_max_abs": float(err.max()),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "eager_steps": runner.eager_steps,
+           "captures": runner.captures, "graph_replays": runner.replays,
+           "card": card}
+    log("phase19f", json.dumps(res))
+    return res
+
+
+def seq2seq_phase(torch, card, twin, dense_step_ms):
+    """Phase 19: the encoder-decoder family and LoRA (19a's mask cases ran
+    in phases 3-4; 19e ran in 18c's child; 19d's twin was started beside
+    phase 16)."""
+    t0 = time.perf_counter()
+    res = {"a": seq2seq_mask_timings(torch, card)}
+    res["b"], model, x = seq2seq_train(torch, card)
+    res["b_f32"] = seq2seq_vs_plain(torch, card)
+    res["c"] = seq2seq_generate(torch, card, model, x)
+    del model
+    torch.cuda.empty_cache()
+    res["f"] = lora_train(torch, card, dense_step_ms)
+    res["d"] = seq2seq_twin_check(twin, card)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase19 seconds: {res['seconds']:.1f}")
     return res
 
 
@@ -5183,9 +5826,8 @@ def main(argv=None) -> int:
         lap("6-7 train")
         mnist_tf2(torch)
         mnist_tf1(torch)
-        mnist_2rank(torch)
         log("breakdown_mnist", json.dumps(mnist_breakdown(torch)))
-        lap("8-10 mnist")
+        lap("8-9 mnist")
         ci, ci_path = mnist_ci_cached(torch)
         cached = cached_in_process(torch, ci_path)
         log("breakdown_mnist_cached", json.dumps(dict(
@@ -5196,25 +5838,32 @@ def main(argv=None) -> int:
         log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch),
                                                card=card)))
         lap("12a cifar")
-        # 12b and 12c (checks, not timings) share the card at once.
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        # 12b, 12c, 12d and phase 10 (checks, not timings) share the card
+        # at once.
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
             for fut in [pool.submit(cifar_graph_vs_eager, torch),
-                        pool.submit(sync_bn_on_card, torch)]:
+                        pool.submit(sync_bn_on_card, torch),
+                        pool.submit(cifar_vit, torch),
+                        pool.submit(mnist_2rank, torch)]:
                 fut.result()
-        cifar_vit(torch)
-        lap("12b-d cifar")
+        lap("12b-d cifar, 10 mnist_2rank")
         decode = decode_phase(torch)
         lap("13 decode")
         tier = serve_tier(torch, card)
         lap("14 serve tier")
         reduction = reduction_phase(torch, card)
         lap("15 reduction")
+        # 19d's twin (a check) shares the card with phase 16's launches.
+        twin = seq2seq_twin_start()
         launch_phase(torch, card, ci["ci_job"])
         lap("16 launch")
         moe = moe_phase(torch, card)
         lap("17 moe")
         seq = seq_phase(torch, card)
         lap("18 seq")
+        s2s = seq2seq_phase(torch, card, twin,
+                            train_launches["step_ms_median"])
+        lap("19 seq2seq")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5309,6 +5958,16 @@ def main(argv=None) -> int:
             # 18a: this kernel at the ring's hops (the q_offset hop, the
             # merge's lse cotangent).
             entry["launches_ring"] = [r[key] for r in seq["b"]["launches"]]
+            # Phase 19b: the bench seq2seq's fit, 18 sites × (eager steps +
+            # captures); 19f: LoRA on the bench LM, n_layers × (eager
+            # steps + captures); both all on the tensor-core route. 19a:
+            # this kernel at the seq2seq sites' masks.
+            entry["launches_seq2seq"] = s2s["b"]["launches"][key]
+            entry["launches_seq2seq_graph_replays"] = s2s["b"][
+                "graph_replays"]
+            entry["launches_lora"] = s2s["f"]["launches"][key]
+            entry["seq2seq_masks"] = {site: t_[name] for site, t_ in
+                                      s2s["a"].items()}
             entry["ring_hops"] = {
                 hop: t_[name] for hop, t_ in seq["a"]["timings"].items()
                 if name in t_}

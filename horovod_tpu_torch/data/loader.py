@@ -13,6 +13,12 @@ with ``g++`` at first use) whenever it is available and the shuffle covers
 the whole data, the python engine otherwise (``HVT_NO_NATIVE=1``, no
 compiler, a bounded shuffle buffer). The two engines' streams are
 different byte streams; each equals its JAX counterpart's.
+
+Batches may be any nesting of dicts, tuples and lists of arrays that share
+dim 0 (``({"src": ..., "tgt": ...}, y)`` for a dict-input model): the
+transforms and both engines work on the flat leaves, in ``jax.tree_util``
+order (dict keys sorted), and every batch is rebuilt with the same
+structure.
 """
 
 from __future__ import annotations
@@ -23,18 +29,18 @@ import numpy as np
 
 from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import stream as stream_lib
+from horovod_tpu_torch.parallel.collectives import tree_flatten, tree_unflatten
 
 
 class ArrayDataset:
     """An in-memory dataset of parallel arrays with chained transforms.
 
-    ``arrays`` is one array or a tuple/list of same-leading-dim arrays;
+    ``arrays`` is one array or any nesting of dicts, tuples and lists of
+    same-leading-dim arrays; the transforms work on the flat leaves and
     batches are yielded with the same structure."""
 
     def __init__(self, arrays):
-        self._single = not isinstance(arrays, (tuple, list))
-        self._kind = None if self._single else type(arrays)
-        leaves = (arrays,) if self._single else tuple(arrays)
+        leaves, self._treedef = tree_flatten(arrays)
         self._arrays = tuple(np.asarray(a) for a in leaves)
         n = self._arrays[0].shape[0]
         if any(a.shape[0] != n for a in self._arrays):
@@ -59,8 +65,15 @@ class ArrayDataset:
 
     @property
     def arrays(self) -> tuple:
-        """The flat tuple of arrays."""
+        """The flat leaves (what the native engine consumes); `structure`
+        rebuilds a batch from them."""
         return self._arrays
+
+    @property
+    def structure(self):
+        """The structure batches are yielded with (a
+        `collectives.tree_flatten` treedef)."""
+        return self._treedef
 
     @property
     def shard_spec(self) -> tuple[int, int] | None:
@@ -106,7 +119,7 @@ class ArrayDataset:
 
     def _clone(self) -> "ArrayDataset":
         ds = ArrayDataset(self._arrays)
-        for name in ("_single", "_kind", "_repeat", "_shuffle_buffer",
+        for name in ("_treedef", "_repeat", "_shuffle_buffer",
                      "_batch_size", "_drop_remainder", "_seed", "_unsharded",
                      "_shard_spec"):
             setattr(ds, name, getattr(self, name))
@@ -141,8 +154,7 @@ class ArrayDataset:
 
     def _assemble(self, pending: list):
         sel = np.asarray(pending)
-        parts = [a[sel] for a in self._arrays]
-        return parts[0] if self._single else self._kind(parts)
+        return tree_unflatten(self._treedef, [a[sel] for a in self._arrays])
 
     def batches(self, skip: int = 0, *, start_epoch: int = 0,
                 batches_per_epoch: int | None = None):
@@ -216,7 +228,7 @@ class ArrayDataset:
 
 
 def training_pipeline(arrays, batch_size: int, seed: int = 0,
-                      shuffle_buffer: int | None = None,
+                      shuffle_buffer: int | None = None, structure=None,
                       skip_batches: int = 0, start_epoch: int = 0,
                       batches_per_epoch: int | None = None,
                       engine_out: dict | None = None):
@@ -227,8 +239,16 @@ def training_pipeline(arrays, batch_size: int, seed: int = 0,
 
     Engine (the JAX package's rule): the native engine when it is
     available and the shuffle covers the data (``shuffle_buffer`` None or
-    at least the row count), else the python engine. ``engine_out`` (a
-    dict) receives ``{"engine": "native" | "python"}``."""
+    at least the row count), else the python engine. ``arrays`` are flat
+    leaves; ``structure`` (an `ArrayDataset.structure`) rebuilds each batch
+    into that structure on either engine. ``engine_out`` (a dict) receives
+    ``{"engine": "native" | "python"}``."""
+
+    def rebuild(it):
+        if structure is None:
+            return it
+        return (tree_unflatten(structure, list(b)) for b in it)
+
     n = len(arrays[0])
     full_shuffle = shuffle_buffer is None or shuffle_buffer >= n
     if (full_shuffle and batch_size <= n
@@ -244,11 +264,12 @@ def training_pipeline(arrays, batch_size: int, seed: int = 0,
                 loader.skip(skip_batches)
             if engine_out is not None:
                 engine_out["engine"] = "native"
-            return loader, loader.close
+            return rebuild(iter(loader)), loader.close
     if engine_out is not None:
         engine_out["engine"] = "python"
     ds = (ArrayDataset(tuple(arrays)).repeat()
           .shuffle(shuffle_buffer or n, seed=seed)
           .batch(batch_size))
-    return ds.batches(skip=int(skip_batches), start_epoch=start_epoch,
-                      batches_per_epoch=batches_per_epoch), lambda: None
+    return rebuild(ds.batches(skip=int(skip_batches), start_epoch=start_epoch,
+                              batches_per_epoch=batches_per_epoch)), \
+        lambda: None

@@ -1,5 +1,5 @@
-"""flax variables ⇄ `TransformerLM` / `MnistCNN` / `ResNetCIFAR` / `ViT`
-state_dicts.
+"""flax variables ⇄ `TransformerLM` / `MnistCNN` / `ResNetCIFAR` / `ViT` /
+`Seq2SeqTransformer` / `LoRAModel` state_dicts.
 
 The input of `params_from_flax` is the JAX model's ``params`` tree as
 nested dicts of numpy arrays (``jax.device_get`` of it) — this module
@@ -26,9 +26,18 @@ The torch side keeps `nn.Linear`'s ``[out, in]`` weights. `params_to_flax`
 is the exact inverse (pure reshapes and transposes). `ema_from_flax`
 carries a JAX EMA shadow across: the params conversion applied to the
 shadow tree.
+
+`kernel_to_weight` / `weight_to_kernel` are those layouts one kernel at a
+time (`FlaxKernel` names a kernel's path and kind; `flax_kernels` lists a
+model's), on arrays and tensors alike: the LM and seq2seq converters are
+built on them, and a LoRA merge lays a delta shaped like the flax kernel
+onto the port's weight through them. `lora_params_from_flax` carries a JAX
+``LoRAModel`` tree (base and adapters) across.
 """
 
 from __future__ import annotations
+
+import typing
 
 import numpy as np
 import torch
@@ -38,62 +47,25 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
 
-def _heads_to_linear(kernel) -> np.ndarray:
-    """``[d, H, D]`` → ``[H*D, d]``."""
-    kernel = np.asarray(kernel)
-    return kernel.reshape(kernel.shape[0], -1).T
-
-
 def params_from_flax(tree) -> dict:
     """flax ``params`` tree → `TransformerLM` state_dict (f32 tensors)."""
     return _lm_from_flax(tree, _t)
 
 
 def _lm_from_flax(tree, _t) -> dict:
-    """The `TransformerLM` layout of a flax ``params``-shaped tree, each
-    leaf through ``_t`` (numpy → tensor)."""
-    sd = {
-        "embed.weight": _t(tree["Embed_0"]["embedding"]),
-        "ln_f.scale": _t(tree["LayerNorm_0"]["scale"]),
-        "lm_head.weight": _t(np.asarray(tree["lm_head"]["kernel"]).T),
-    }
-    n_layers = sum(1 for k in tree if k.startswith("Block_"))
-    for i in range(n_layers):
-        blk = tree[f"Block_{i}"]
-        pre = f"blocks.{i}."
-        if "qkv" in blk:
-            qkv = np.asarray(blk["qkv"]["kernel"])
-            d = qkv.shape[-1] // 3
-            sd[pre + "qkv.weight"] = _t(np.concatenate([
-                _heads_to_linear(qkv[..., j * d:(j + 1) * d]) for j in range(3)
-            ]))
-        else:
-            kv = np.asarray(blk["kv_proj"]["kernel"])
-            d = kv.shape[-1] // 2
-            sd[pre + "q_proj.weight"] = _t(
-                _heads_to_linear(blk["q_proj"]["kernel"])
-            )
-            sd[pre + "kv_proj.weight"] = _t(np.concatenate(
-                [_heads_to_linear(kv[..., :d]), _heads_to_linear(kv[..., d:])]
-            ))
-        attn_out = np.asarray(blk["attn_out"]["kernel"])
-        sd[pre + "attn_out.weight"] = _t(
-            attn_out.reshape(-1, attn_out.shape[-1]).T
-        )
-        sd[pre + "ln_attn.scale"] = _t(blk["LayerNorm_0"]["scale"])
-        sd[pre + "ln_mlp.scale"] = _t(blk["LayerNorm_1"]["scale"])
-        if "moe" in blk:
-            moe = blk["moe"]
-            sd[pre + "moe.router.weight"] = _t(
-                np.asarray(moe["router"]["kernel"]).T)
-            sd[pre + "moe.moe_up"] = _t(moe["moe_up"])
-            sd[pre + "moe.moe_down"] = _t(moe["moe_down"])
-            continue
-        sd[pre + "mlp_up.weight"] = _t(np.asarray(blk["mlp_up"]["kernel"]).T)
-        sd[pre + "mlp_down.weight"] = _t(
-            np.asarray(blk["mlp_down"]["kernel"]).T
-        )
-    return sd
+    """The `TransformerLM` layout (`lm_kernels`) of a flax
+    ``params``-shaped tree, each leaf through ``_t`` (numpy → tensor)."""
+    blocks = [tree[f"Block_{i}"]
+              for i in range(sum(1 for k in tree if k.startswith("Block_")))]
+    if blocks and "qkv" in blocks[0]:
+        h = h_kv = np.shape(blocks[0]["qkv"]["kernel"])[1]
+    else:
+        h = np.shape(blocks[0]["q_proj"]["kernel"])[1] if blocks else 1
+        h_kv = np.shape(blocks[0]["kv_proj"]["kernel"])[1] if blocks else 1
+    layout = _lm_layout(h, h_kv, ["moe" in blk for blk in blocks])
+    return {name: _t(kernel_to_weight(np.asarray(_tree_get(tree, fk.path)),
+                                      fk))
+            for name, fk in layout.items()}
 
 
 def qparams_from_flax(qtree) -> dict:
@@ -129,62 +101,22 @@ def qparams_from_flax(qtree) -> dict:
     return out
 
 
-def _linear_to_heads(weight, n_heads: int) -> np.ndarray:
-    """``[H*D, d]`` → ``[d, H, D]``."""
-    w = weight.T
-    return w.reshape(w.shape[0], n_heads, -1)
-
-
 def params_to_flax(state_dict, *, n_heads: int) -> dict:
     """`TransformerLM` state_dict → flax ``params`` tree of f32 numpy
     arrays; the exact inverse of `params_from_flax`. ``n_heads`` is the
     query head count (the state_dict's fused shapes do not carry it)."""
     sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
-    tree = {
-        "Embed_0": {"embedding": sd["embed.weight"]},
-        "LayerNorm_0": {"scale": sd["ln_f.scale"]},
-        "lm_head": {"kernel": np.ascontiguousarray(sd["lm_head.weight"].T)},
-    }
     n_layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
-    d_model = sd["embed.weight"].shape[1]
-    head_dim = d_model // n_heads
-    for i in range(n_layers):
-        pre = f"blocks.{i}."
-        blk = {}
-        if pre + "qkv.weight" in sd:
-            q, k, v = np.split(sd[pre + "qkv.weight"], 3)
-            blk["qkv"] = {"kernel": np.ascontiguousarray(np.concatenate(
-                [_linear_to_heads(x, n_heads) for x in (q, k, v)], axis=-1
-            ))}
-        else:
-            kw, vw = np.split(sd[pre + "kv_proj.weight"], 2)
-            h_kv = kw.shape[0] // head_dim
-            blk["q_proj"] = {"kernel": np.ascontiguousarray(
-                _linear_to_heads(sd[pre + "q_proj.weight"], n_heads)
-            )}
-            blk["kv_proj"] = {"kernel": np.ascontiguousarray(np.concatenate(
-                [_linear_to_heads(kw, h_kv), _linear_to_heads(vw, h_kv)],
-                axis=-1,
-            ))}
-        blk["attn_out"] = {"kernel": np.ascontiguousarray(
-            sd[pre + "attn_out.weight"].T.reshape(n_heads, head_dim, d_model)
-        )}
-        blk["LayerNorm_0"] = {"scale": sd[pre + "ln_attn.scale"]}
-        blk["LayerNorm_1"] = {"scale": sd[pre + "ln_mlp.scale"]}
-        if pre + "moe.moe_up" in sd:
-            blk["moe"] = {
-                "router": {"kernel": np.ascontiguousarray(
-                    sd[pre + "moe.router.weight"].T)},
-                "moe_up": sd[pre + "moe.moe_up"],
-                "moe_down": sd[pre + "moe.moe_down"],
-            }
-        else:
-            blk["mlp_up"] = {
-                "kernel": np.ascontiguousarray(sd[pre + "mlp_up.weight"].T)}
-            blk["mlp_down"] = {
-                "kernel": np.ascontiguousarray(sd[pre + "mlp_down.weight"].T)
-            }
-        tree[f"Block_{i}"] = blk
+    h_kv = n_heads
+    if "blocks.0.kv_proj.weight" in sd:
+        head_dim = sd["embed.weight"].shape[1] // n_heads
+        h_kv = sd["blocks.0.kv_proj.weight"].shape[0] // (2 * head_dim)
+    layout = _lm_layout(n_heads, h_kv, [f"blocks.{i}.moe.moe_up" in sd
+                                        for i in range(n_layers)])
+    tree: dict = {}
+    for name, fk in layout.items():
+        _put(tree, fk.path,
+             np.ascontiguousarray(weight_to_kernel(sd[name], fk)))
     return tree
 
 
@@ -428,3 +360,209 @@ def vit_to_flax(state_dict, *, n_heads: int) -> dict:
             leaf = {"kernel": w, "bias": bias}
         _put(tree, path, leaf)
     return tree
+
+
+# -- one flax kernel <-> one port weight ---------------------------------------
+#
+# The layouts of the converters above, one kernel at a time, on numpy arrays
+# and on tensors alike (a LoRA merge lays a delta shaped like the flax kernel
+# onto the port's weight inside the forward, with autograd). ``kind``:
+#
+# * ``heads_in``  ``[d, H, parts·D]`` → ``[parts·H·D, d]``: the kernel split
+#   per head into ``parts`` (qkv: q | k | v; kv_proj, cross_kv: k | v), each
+#   part's heads in order, one part after another;
+# * ``heads_out`` ``[H, D, d]`` → ``[d, H·D]`` (attn_out, cross_out);
+# * ``dense``     ``[in, out]`` → ``[out, in]`` (MLP, LM head, router);
+# * ``same``      as it is (embeddings, scales, expert weights).
+
+
+class FlaxKernel(typing.NamedTuple):
+    """Where one port weight lives in the flax tree: ``path`` (the dict
+    keys down to the leaf), ``kind`` and ``parts`` (above), ``heads``
+    (the head count of a ``heads_*`` kernel)."""
+
+    path: tuple
+    kind: str = "same"
+    parts: int = 1
+    heads: int = 1
+
+    def flax_shape(self, weight_shape) -> tuple:
+        """The flax kernel's shape, from the port weight's."""
+        out, inp = (tuple(weight_shape) + (0,))[:2]
+        if self.kind == "heads_in":
+            return (inp, self.heads, out // self.heads)
+        if self.kind == "heads_out":
+            return (self.heads, inp // self.heads, out)
+        if self.kind == "dense":
+            return tuple(reversed(weight_shape))
+        return tuple(weight_shape)
+
+
+def _cat(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return np.concatenate(parts)
+
+
+def kernel_to_weight(kernel, fk: FlaxKernel):
+    """A flax kernel (array or tensor) in the port's weight layout."""
+    if fk.kind == "heads_in":
+        d = kernel.shape[-1] // fk.parts
+        return _cat([kernel[..., j * d:(j + 1) * d]
+                     .reshape(kernel.shape[0], -1).T
+                     for j in range(fk.parts)])
+    if fk.kind == "heads_out":
+        return kernel.reshape(-1, kernel.shape[-1]).T
+    if fk.kind == "dense":
+        return kernel.T
+    return kernel
+
+
+def weight_to_kernel(weight, fk: FlaxKernel):
+    """Inverse of `kernel_to_weight`."""
+    shape = fk.flax_shape(weight.shape)
+    if fk.kind == "heads_in":
+        rows = weight.shape[0] // fk.parts
+        blocks = [weight[j * rows:(j + 1) * rows].T.reshape(
+            shape[0], fk.heads, -1) for j in range(fk.parts)]
+        if isinstance(weight, torch.Tensor):
+            return torch.cat(blocks, dim=-1)
+        return np.concatenate(blocks, axis=-1)
+    if fk.kind == "heads_out":
+        return weight.T.reshape(shape)
+    if fk.kind == "dense":
+        return weight.T
+    return weight
+
+
+def lm_kernels(model) -> dict:
+    """Port parameter name → `FlaxKernel` of a `TransformerLM`: the layout
+    `params_from_flax` and `params_to_flax` apply."""
+    return _lm_layout(model.n_heads, model.n_kv_heads or model.n_heads,
+                      [blk.use_moe for blk in model.blocks])
+
+
+def _lm_layout(h: int, h_kv: int, moe) -> dict:
+    """`lm_kernels` of an LM of ``h`` query and ``h_kv`` key/value heads
+    whose block i is an MoE block where ``moe[i]``."""
+    out = {"embed.weight": FlaxKernel(("Embed_0", "embedding")),
+           "ln_f.scale": FlaxKernel(("LayerNorm_0", "scale")),
+           "lm_head.weight": FlaxKernel(("lm_head", "kernel"), "dense")}
+    for i, use_moe in enumerate(moe):
+        b, pre = f"Block_{i}", f"blocks.{i}."
+        out[pre + "ln_attn.scale"] = FlaxKernel((b, "LayerNorm_0", "scale"))
+        out[pre + "ln_mlp.scale"] = FlaxKernel((b, "LayerNorm_1", "scale"))
+        if h_kv == h:
+            out[pre + "qkv.weight"] = FlaxKernel((b, "qkv", "kernel"),
+                                                 "heads_in", 3, h)
+        else:
+            out[pre + "q_proj.weight"] = FlaxKernel(
+                (b, "q_proj", "kernel"), "heads_in", 1, h)
+            out[pre + "kv_proj.weight"] = FlaxKernel(
+                (b, "kv_proj", "kernel"), "heads_in", 2, h_kv)
+        out[pre + "attn_out.weight"] = FlaxKernel(
+            (b, "attn_out", "kernel"), "heads_out", 1, h)
+        if use_moe:
+            out[pre + "moe.router.weight"] = FlaxKernel(
+                (b, "moe", "router", "kernel"), "dense")
+            out[pre + "moe.moe_up"] = FlaxKernel((b, "moe", "moe_up"))
+            out[pre + "moe.moe_down"] = FlaxKernel((b, "moe", "moe_down"))
+        else:
+            for layer in ("mlp_up", "mlp_down"):
+                out[pre + layer + ".weight"] = FlaxKernel(
+                    (b, layer, "kernel"), "dense")
+    return out
+
+
+def seq2seq_kernels(model) -> dict:
+    """Port parameter name → `FlaxKernel` of a `Seq2SeqTransformer`: the
+    flax tree's ``encoder``/``decoder``, each with ``embed``, ``Block_i``
+    and a final ``LayerNorm_0``, and the decoder's ``lm_head``; a decoder
+    block's LayerNorms are ``LayerNorm_0..2`` in call order."""
+    h = model.n_heads
+    out = {}
+    for part, n, norms in (
+            ("encoder", model.n_enc_layers, ("ln_attn", "ln_mlp")),
+            ("decoder", model.n_dec_layers,
+             ("ln_self", "ln_cross", "ln_mlp"))):
+        out[f"{part}.embed.weight"] = FlaxKernel((part, "embed",
+                                                  "embedding"))
+        out[f"{part}.ln_f.scale"] = FlaxKernel((part, "LayerNorm_0",
+                                                "scale"))
+        for i in range(n):
+            b, pre = (part, f"Block_{i}"), f"{part}.blocks.{i}."
+            for j, ln in enumerate(norms):
+                out[pre + ln + ".scale"] = FlaxKernel(
+                    b + (f"LayerNorm_{j}", "scale"))
+            out[pre + "qkv.weight"] = FlaxKernel(b + ("qkv", "kernel"),
+                                                 "heads_in", 3, h)
+            out[pre + "attn_out.weight"] = FlaxKernel(
+                b + ("attn_out", "kernel"), "heads_out", 1, h)
+            for layer in ("mlp_up", "mlp_down"):
+                out[pre + layer + ".weight"] = FlaxKernel(
+                    b + (layer, "kernel"), "dense")
+            if part == "decoder":
+                out[pre + "cross_q.weight"] = FlaxKernel(
+                    b + ("cross_q", "kernel"), "heads_in", 1, h)
+                out[pre + "cross_kv.weight"] = FlaxKernel(
+                    b + ("cross_kv", "kernel"), "heads_in", 2, h)
+                out[pre + "cross_out.weight"] = FlaxKernel(
+                    b + ("cross_out", "kernel"), "heads_out", 1, h)
+    out["decoder.lm_head.weight"] = FlaxKernel(
+        ("decoder", "lm_head", "kernel"), "dense")
+    return out
+
+
+def flax_kernels(module) -> dict:
+    """Port parameter name → `FlaxKernel` for a `TransformerLM`, a
+    `Seq2SeqTransformer`, or any other module, whose parameters are taken
+    as their own kernels (``same``, the path their dotted name)."""
+    from horovod_tpu_torch.models.seq2seq import Seq2SeqTransformer
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    if isinstance(module, TransformerLM):
+        return lm_kernels(module)
+    if isinstance(module, Seq2SeqTransformer):
+        return seq2seq_kernels(module)
+    return {name: FlaxKernel(tuple(name.split(".")))
+            for name, _ in module.named_parameters()}
+
+
+def _tree_get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def seq2seq_params_from_flax(tree, model) -> dict:
+    """flax ``Seq2SeqTransformer`` params tree (numpy) → the state_dict of
+    ``model`` (a `Seq2SeqTransformer` of the same configuration), f32."""
+    return {name: _t(np.ascontiguousarray(kernel_to_weight(
+        np.asarray(_tree_get(tree, fk.path)), fk)))
+        for name, fk in seq2seq_kernels(model).items()}
+
+
+def seq2seq_params_to_flax(state_dict, model) -> dict:
+    """The exact inverse of `seq2seq_params_from_flax`: f32 numpy arrays."""
+    tree: dict = {}
+    for name, fk in seq2seq_kernels(model).items():
+        w = state_dict[name].detach().cpu().float().numpy()
+        _put(tree, fk.path, np.ascontiguousarray(weight_to_kernel(w, fk)))
+    return tree
+
+
+def lora_params_from_flax(tree, model) -> dict:
+    """A JAX ``LoRAModel`` params tree ``{"base", "lora"}`` (numpy) → the
+    state_dict of ``model`` (a port `models.lora.LoRAModel` of the same
+    configuration): each base weight through its kernel's layout
+    (``model.kernels``), each adapter's ``a [m, r]`` and ``b [r, n]`` as
+    they are, found at its kernel's flax path."""
+    sd = {}
+    for name, fk in model.kernels.items():
+        sd[f"base.{name}"] = _t(kernel_to_weight(
+            np.asarray(_tree_get(tree["base"], fk.path)), fk))
+        if name in model.adapted:
+            ab = _tree_get(tree["lora"], fk.path)
+            for leaf in ("a", "b"):
+                sd[f"lora.{name}.{leaf}"] = _t(ab[leaf])
+    return sd

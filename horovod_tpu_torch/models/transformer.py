@@ -881,22 +881,29 @@ def _full_shapes(module_or_state_dict) -> dict:
     return shapes
 
 
-def param_specs(module_or_state_dict, mesh) -> dict:
+def param_specs(module_or_state_dict, mesh, extra_tp_dim=None) -> dict:
     """Per parameter name, its placement ``{dim: axis}`` ({} = replicated)
     by the JAX model's rules: expert weights ``moe_up`` {0: expert, 2:
     model} and ``moe_down`` {0: expert, 1: model} (a dim not divisible by
-    its axis raises JAX's error), the Megatron table (`_TP_DIM`) on
-    ``model``, and with a live ``fsdp`` axis each ≥2-D weight's first
-    free divisible dim on ``fsdp``. Placements on axes of size 1 are
-    no-ops. ``module_or_state_dict`` is a `TransformerLM` (its MoE layers
-    counted at their full E) or a full state dict."""
+    its axis raises JAX's error), the Megatron table (`_TP_DIM`, extended
+    by ``extra_tp_dim``) on ``model``, and with a live ``fsdp`` axis each
+    ≥2-D weight's first free divisible dim on ``fsdp``. A LoRA adapter
+    (`models.lora`: a leaf ``a`` or ``b`` under a ``lora`` component)
+    skips the expert and Megatron rules, as in JAX. Placements on axes of
+    size 1 are no-ops. ``module_or_state_dict`` is a module (its MoE
+    layers counted at their full E) or a full state dict."""
     fsdp = mesh.shape.get(FSDP_AXIS, 1)
+    tp_dim = {**_TP_DIM, **(extra_tp_dim or {})}
     specs = {}
     # By name, as JAX walks its tree: the same leaf fails first.
     for name, shape in sorted(_full_shapes(module_or_state_dict).items()):
         parts = name.split(".")
         spec: dict = {}
-        moe = next((n for n in parts if n in _MOE_DIMS), None)
+        # An adapter lives under the names of the kernel it adapts, with a
+        # rank dimension: a submodule merely named 'lora' keeps the rules.
+        is_lora = "lora" in parts and parts[-1] in ("a", "b")
+        moe = None if is_lora else next(
+            (n for n in parts if n in _MOE_DIMS), None)
         if moe is not None:
             for dim, axis in _MOE_DIMS[moe].items():
                 if shape[dim] % mesh.shape[axis] != 0:
@@ -906,9 +913,9 @@ def param_specs(module_or_state_dict, mesh) -> dict:
                     )
                 spec[dim] = axis
         else:
-            layer = next((n for n in parts if n in _TP_DIM), None)
-            if layer is not None and len(shape) >= 2:
-                spec[_TP_DIM[layer]] = MODEL_AXIS
+            layer = next((n for n in parts if n in tp_dim), None)
+            if layer is not None and len(shape) >= 2 and not is_lora:
+                spec[tp_dim[layer]] = MODEL_AXIS
         if fsdp > 1 and len(shape) >= 2:
             for dim in range(len(shape)):
                 if dim not in spec and shape[dim] % fsdp == 0:

@@ -70,6 +70,20 @@ def tree_unflatten(treedef, leaves):
     return build(treedef)
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of each
+    tree of ``rest``), rebuilt in ``tree``'s structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(t)[0] for t in rest]
+    return tree_unflatten(treedef, [fn(*ls) for ls in zip(leaves, *others)])
+
+
+def first_leaf(tree):
+    """The first leaf of ``tree`` in `tree_flatten` order (a batch part's
+    row count is its length)."""
+    return tree_flatten(tree)[0][0]
+
+
 def _comm_device() -> torch.device:
     """Where the live backend takes its tensors."""
     if runtime.backend() == "nccl":

@@ -18,6 +18,12 @@ device-cached paths stage dim 0 only, so there (with ``batch_specs``, which
 a live ``seq`` axis needs) the fit refuses and the evaluation takes the
 streamed path, as in JAX. Evaluation's sums are over the joined per-token
 losses, counted in tokens.
+
+The input ``x`` may be a dict or tuple of arrays (a model of several
+inputs, such as the seq2seq family's ``{"src", "tgt"}``): the streamed fit
+stacks, prefetches and feeds each leaf, evaluate and predict slice and pad
+leaf by leaf, and the device-cached paths, which stage one array, refuse
+it with JAX's error.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ from horovod_tpu_torch.data.loader import ArrayDataset, training_pipeline
 from horovod_tpu_torch.data.prefetch import DevicePrefetcher
 from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.parallel import mesh as mesh_lib
+from horovod_tpu_torch.parallel.collectives import (
+    first_leaf, tree_flatten, tree_map,
+)
 from horovod_tpu_torch.training.callbacks import agree_any
 from horovod_tpu_torch.training.graphs import StepRunner, _host
 from horovod_tpu_torch.training.train_state import (
@@ -184,7 +193,8 @@ def run_fit(trainer, dataset=None, *, x=None, y=None, batch_size: int = 128,
         engine: dict = {}
         it, close_input = training_pipeline(
             ds.arrays, batch_size, seed=trainer.seed,
-            shuffle_buffer=shuffle_buffer, skip_batches=initial_step * K,
+            shuffle_buffer=shuffle_buffer, structure=ds.structure,
+            skip_batches=initial_step * K,
             start_epoch=initial_epoch,
             batches_per_epoch=steps_per_epoch * K, engine_out=engine)
         trainer._stream_geometry = {
@@ -256,7 +266,12 @@ def fit_epochs(trainer, it, runner, epochs, initial_epoch, steps_per_epoch,
         return [spe] * (steps // spe) + ([steps % spe] if steps % spe else [])
 
     def layout(batch):
-        return tuple((np.shape(a), np.asarray(a).dtype) for a in batch[:2])
+        leaves, treedef = tree_flatten(tuple(batch[:2]))
+        return (repr(treedef),) + tuple(
+            (np.shape(a), np.asarray(a).dtype) for a in leaves)
+
+    def stack(*leaves):
+        return np.stack([np.asarray(a) for a in leaves])
 
     def host_chunks():
         for epoch in range(initial_epoch, epochs):
@@ -272,7 +287,7 @@ def fit_epochs(trainer, it, runner, epochs, initial_epoch, steps_per_epoch,
                         runs[-1][1].extend(step)
                     else:
                         runs.append((layout(step[0]), list(step)))
-                yield [tuple(np.stack([np.asarray(b[i]) for b in run])
+                yield [tuple(tree_map(stack, *[b[i] for b in run])
                              for i in (0, 1)) for _, run in runs]
 
     prefetcher = DevicePrefetcher(host_chunks(), trainer.device)
@@ -288,9 +303,11 @@ def fit_epochs(trainer, it, runner, epochs, initial_epoch, steps_per_epoch,
             runner.zero_metrics()
             for k in plan_for(epoch):
                 for sx, sy in next(prefetcher):
-                    runner.feed(sx.flatten(0, 1), sy.flatten(0, 1),
-                                sx.shape[1])
-                    runner.run(len(sx) // K)
+                    n_k, rows = first_leaf(sx).shape[:2]
+                    runner.feed(tree_map(lambda a: a.flatten(0, 1), sx),
+                                tree_map(lambda a: a.flatten(0, 1), sy),
+                                rows)
+                    runner.run(n_k // K)
                 metrics = runner.last_metrics()
                 step += k
                 for cb in callbacks:
@@ -385,6 +402,20 @@ def fit_device_cached(trainer, x, y, batch_size, epochs, initial_epoch,
 # -- evaluation ---------------------------------------------------------------
 
 
+def slice_pad(part, start: int, global_batch: int):
+    """``(rows [start, start + global_batch) of a batch part, padded to
+    global_batch by repeating its last row; the true row count)``, leaf by
+    leaf (JAX's `slice_pad`, shared by evaluate and predict)."""
+    sliced = tree_map(lambda a: np.asarray(a[start:start + global_batch]),
+                      part)
+    bs = len(first_leaf(sliced))
+    if bs < global_batch:
+        pad = global_batch - bs
+        sliced = tree_map(
+            lambda a: np.concatenate([a, np.repeat(a[-1:], pad, 0)]), sliced)
+    return sliced, bs
+
+
 def _eval_batch_sums(trainer, xb, yb, mask, sums) -> None:
     loss_vec, correct = trainer._loss_and_correct(xb, yb, train=False)
     w = mask.reshape(mask.shape + (1,) * (loss_vec.dim() - 1))
@@ -467,18 +498,25 @@ def run_evaluate(trainer, x, y, batch_size: int = 128, verbose: int = 0,
     elif cache is not None:
         raise ValueError(f"unknown cache mode {cache!r}")
     else:
-        r, n = trainer.data_index, trainer.dp
-        xs, ys = x[r::n], y[r::n]
+        # JAX's global batches of batch_size × dp rows, the last padded by
+        # repeating its last row and the padding masked out of the sums;
+        # batch shard r takes rows [r·batch_size, (r+1)·batch_size) of
+        # each, leaf by leaf for a dict or tuple x.
+        n = len(first_leaf(x))
+        global_batch = batch_size * trainer.dp
+        lo = trainer.data_index * batch_size
         sums = torch.zeros(3, dtype=torch.float64, device=trainer.device)
         with torch.inference_mode():
-            for lo in range(0, len(xs), batch_size):
-                xb = trainer._tensor(trainer.cut(xs[lo:lo + batch_size], 0))
-                yb = trainer._tensor(trainer.cut(ys[lo:lo + batch_size], 1))
-                loss_vec, correct = trainer._loss_and_correct(xb, yb,
-                                                              train=False)
-                sums[0] += loss_vec.double().sum()
-                sums[1] += correct.double().sum()
-                sums[2] += loss_vec.numel()
+            for start in range(0, n, global_batch):
+                xb, bs = slice_pad(x, start, global_batch)
+                yb, _ = slice_pad(y, start, global_batch)
+                mask = np.zeros(global_batch, np.float32)
+                mask[:bs] = 1.0
+                mine = lambda a: a[lo:lo + batch_size]  # noqa: E731
+                _eval_batch_sums(
+                    trainer, trainer._tensor(trainer.cut(tree_map(mine, xb), 0)),
+                    trainer._tensor(trainer.cut(mine(yb), 1)),
+                    trainer._tensor(mine(mask)), sums)
         result = _reduce_sums(trainer, sums)
     if verbose and runtime.is_primary():
         print(f"eval - {({k: round(v, 4) for k, v in result.items()})}")

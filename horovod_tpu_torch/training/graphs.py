@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import runtime
+from horovod_tpu_torch.parallel.collectives import tree_flatten, tree_map
 
 
 def forward_communicates_over_host(module) -> bool:
@@ -88,11 +89,18 @@ def _host(a: np.ndarray, pinned: bool) -> torch.Tensor:
     return t.pin_memory() if pinned else t
 
 
+def _leaf_layout(tree) -> tuple:
+    leaves, treedef = tree_flatten(tree)
+    return (repr(treedef),) + tuple((tuple(a.shape[1:]), a.dtype)
+                                    for a in leaves)
+
+
 class StepRunner:
     """Optimizer steps of ``trainer`` on batches of ``batch_size`` rows
     read from ``src_x`` / ``src_y`` (device tensors of rows, K·B rows a
-    step; or, left None, what `feed` brings), for at most ``max_steps``
-    steps between two `reset_counter` calls."""
+    step, or dicts/tuples of them for a model of several inputs — one
+    buffer a leaf; or, left None, what `feed` brings), for at most
+    ``max_steps`` steps between two `reset_counter` calls."""
 
     def __init__(self, trainer, src_x=None, src_y=None, *,
                  batch_size: int, max_steps: int, eager: bool = False):
@@ -149,9 +157,10 @@ class StepRunner:
         steps read them from the runner's own buffers, which they are
         copied into; rows of another batch shape or dtype replace the
         buffers and drop the graphs, so the next `run` steps once eagerly
-        and captures again. Eager steps read ``x``/``y`` in place."""
-        layout = (int(batch_size), tuple(x.shape[1:]), x.dtype,
-                  tuple(y.shape[1:]), y.dtype)
+        and captures again. Eager steps read ``x``/``y`` in place. A
+        dict or tuple ``x`` (a model of several inputs) is one buffer a
+        leaf."""
+        layout = (int(batch_size), _leaf_layout(x), _leaf_layout(y))
         if layout != self._layout:
             self._drop_graphs()
             self._layout = layout
@@ -162,10 +171,11 @@ class StepRunner:
         else:
             if self.src_x is None:
                 rows = self.max_steps * self.accum * self.batch_size
-                self.src_x = x.new_empty((rows,) + tuple(x.shape[1:]))
-                self.src_y = y.new_empty((rows,) + tuple(y.shape[1:]))
-            self.src_x[:len(x)].copy_(x)
-            self.src_y[:len(y)].copy_(y)
+                self.src_x, self.src_y = (
+                    tree_map(lambda a: a.new_empty((rows,) + a.shape[1:]), t)
+                    for t in (x, y))
+            for dst, src in ((self.src_x, x), (self.src_y, y)):
+                tree_map(lambda d, s: d[:len(s)].copy_(s), dst, src)
         self.reset_counter()
 
     def zero_metrics(self) -> None:
@@ -219,7 +229,8 @@ class StepRunner:
             # Before any step: one eval-mode forward of the first rows
             # names the module's sown metrics (JAX's build-time init).
             b = self.batch_size
-            tr.discover_metrics(self.src_x[:b], self.src_y[:b])
+            tr.discover_metrics(tree_map(lambda a: a[:b], self.src_x),
+                                tree_map(lambda a: a[:b], self.src_y))
             self._size_metrics()
         self._upload_seeds(n)
         self._t_host += n
@@ -250,8 +261,8 @@ class StepRunner:
         rows = []
         for k in range(K):
             idx = (self.t * K + k) * B + self.rows
-            x = self.src_x.index_select(0, idx)
-            y = self.src_y.index_select(0, idx)
+            x = tree_map(lambda a: a.index_select(0, idx), self.src_x)
+            y = tree_map(lambda a: a.index_select(0, idx), self.src_y)
             loss_vec, correct = tr._loss_and_correct(x, y, train=True,
                                                      seed=seeds[k])
             # JAX's forward_loss: the mean loss plus every sown loss.

@@ -276,6 +276,10 @@ class DistributedOptimizer:
         returned is the inner one, over this rank's shards and the tail
         parameters."""
         if self.optimizer is None:
+            check = getattr(self._factory, "check_reduction", None)
+            if check is not None:  # a factory with its own rule (LoRA's)
+                check(self.quantized or collectives.is_quantized_wire(
+                    self.ici_wire_dtype), shard_update and runtime.size() > 1)
             self._set(self._factory(list(params)))
             self._model_params = list(self._params())
         if shard_update and runtime.size() > 1 and self.zero1 is None:

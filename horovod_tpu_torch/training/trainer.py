@@ -15,7 +15,9 @@ logs over the ranks.
 Module contract: ``module(x, train=bool, dropout_seed=seed)`` returns
 logits, ``seed`` an int or a 0-d int64 tensor; with ``loss="module"`` it
 also takes ``labels=y`` and returns ``(per_token_loss,
-per_token_correct)``, as the port's `TransformerLM` does.
+per_token_correct)``, as the port's `TransformerLM` does. ``x`` may be a
+dict or tuple of arrays sharing dim 0 (``{"src", "tgt"}`` for the seq2seq
+family): every path feeds, cuts and stages it leaf by leaf.
 
 ``fit(x=, y=)`` feeds ``ArrayDataset((x, y)).shard(i, dp)`` through
 `training_pipeline` (the native engine where it builds, as in JAX) seeded
@@ -99,26 +101,31 @@ from horovod_tpu_torch.training.train_state import (
 _BATCH_AXES = (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS)
 
 
+def _one_spec(spec) -> bool:
+    """Whether one layout shards dim 1 over ``seq``; any layout but
+    ``P(("data", "fsdp"), "seq" or None, None, ...)`` raises naming its
+    ROADMAP item."""
+    spec = tuple(spec)
+    if (not spec or tuple(np.atleast_1d(spec[0])) != _BATCH_AXES
+            or (len(spec) > 1 and spec[1] not in (None, mesh_lib.SEQ_AXIS))
+            or any(a is not None for a in spec[2:])):
+        raise NotImplementedError(
+            f"Trainer(batch_specs=...): the layout {spec!r} is not "
+            "ported yet — the port carries P(('data', 'fsdp'), 'seq' "
+            "or None, None, ...); ROADMAP queue A item 12.4 (sharded "
+            "layouts)")
+    return len(spec) > 1 and spec[1] == mesh_lib.SEQ_AXIS
+
+
 def _seq_parts(batch_specs) -> tuple:
-    """For each batch part's spec, whether it shards dim 1 over ``seq``;
-    any layout but ``P(("data", "fsdp"), "seq" or None, None, ...)``
-    raises naming its ROADMAP item."""
+    """For each batch part's spec, whether it shards dim 1 over ``seq``:
+    a bool, or for a dict of specs (a dict part's layout leaf by leaf) a
+    dict of them. One spec applies to every leaf of a part, as in JAX."""
     if batch_specs is None:
         return ()
-    parts = []
-    for spec in batch_specs:
-        spec = tuple(spec)
-        if (not spec or tuple(np.atleast_1d(spec[0])) != _BATCH_AXES
-                or (len(spec) > 1 and spec[1] not in (None,
-                                                      mesh_lib.SEQ_AXIS))
-                or any(a is not None for a in spec[2:])):
-            raise NotImplementedError(
-                f"Trainer(batch_specs=...): the layout {spec!r} is not "
-                "ported yet — the port carries P(('data', 'fsdp'), 'seq' "
-                "or None, None, ...); ROADMAP queue A item 12.4 (sharded "
-                "layouts)")
-        parts.append(len(spec) > 1 and spec[1] == mesh_lib.SEQ_AXIS)
-    return tuple(parts)
+    return tuple({k: _one_spec(v) for k, v in spec.items()}
+                 if isinstance(spec, dict) else _one_spec(spec)
+                 for spec in batch_specs)
 
 
 class Trainer:
@@ -281,9 +288,29 @@ class Trainer:
     def cut(self, a, part: int):
         """This rank's columns of batch part ``part`` (0: x, 1: y) on a
         live ``seq`` axis: ``[c·T/n, (c+1)·T/n)`` of dim 1 where the part's
-        layout shards it (`_seq_sharded`), else the whole part."""
-        if not self._seq_sharded(a, part):
+        layout shards it (`_seq_sharded`), else the whole part; a dict or
+        tuple part leaf by leaf."""
+        if self.seq_shards == 1:
             return a
+        flags = self._part_flags(a, part)
+        return collectives.tree_map(self._cut_leaf, a, flags)
+
+    def _part_flags(self, a, part: int):
+        """Part ``part``'s sharding flag for each leaf of ``a``."""
+        flag = self._seq_parts[part] if part < len(self._seq_parts) else False
+        if isinstance(flag, dict):
+            return flag
+        return collectives.tree_map(lambda _: flag, a)
+
+    def _cut_leaf(self, a, sharded: bool):
+        if np.ndim(a) < 2:
+            return a
+        if not sharded:
+            raise NotImplementedError(
+                f"Trainer(batch_specs=...): a batch part (shape "
+                f"{tuple(np.shape(a))}) is whole on dim 1 of a live 'seq' "
+                "axis; the port carries P(('data', 'fsdp'), 'seq', None) "
+                "there — ROADMAP queue A item 12.4 (sharded layouts)")
         n, t = self.seq_shards, a.shape[1]
         if t % n:
             raise ValueError(
@@ -293,18 +320,16 @@ class Trainer:
         return a[:, c * t // n:(c + 1) * t // n]
 
     def _seq_sharded(self, a, part: int) -> bool:
-        """Whether batch part ``part`` is cut over ``seq``: on a live seq
-        axis a part of two or more dims must be, and one whose layout
-        leaves dim 1 whole raises naming its ROADMAP item."""
-        if self.seq_shards == 1 or np.ndim(a) < 2:
+        """Whether batch part ``part`` is cut over ``seq`` (a leaf of two
+        or more dims on a live seq axis); a leaf whose layout leaves dim 1
+        whole raises naming its ROADMAP item."""
+        if self.seq_shards == 1:
             return False
-        if part < len(self._seq_parts) and self._seq_parts[part]:
-            return True
-        raise NotImplementedError(
-            f"Trainer(batch_specs=...): batch part {part} (shape "
-            f"{tuple(np.shape(a))}) is whole on dim 1 of a live 'seq' axis; "
-            "the port carries P(('data', 'fsdp'), 'seq', None) there — "
-            "ROADMAP queue A item 12.4 (sharded layouts)")
+        leaves = collectives.tree_flatten(a)[0]
+        flags = collectives.tree_flatten(self._part_flags(a, part))[0]
+        for leaf, flag in zip(leaves, flags):
+            self._cut_leaf(leaf, flag)  # raises for a layout not carried
+        return any(np.ndim(leaf) >= 2 for leaf in leaves)
 
     def cut_batch(self, batch) -> tuple:
         """`cut` of each part of an ``(x, y)`` batch."""
@@ -463,9 +488,14 @@ class Trainer:
                 "step": int(step), "position": dict(self._stream_geometry)}
 
     def _tensor(self, a):
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        return torch.as_tensor(np.asarray(a), device=self.device)
+        """``a`` on the device: an array, or a dict/tuple of them leaf by
+        leaf."""
+        def one(leaf):
+            if isinstance(leaf, torch.Tensor):
+                return leaf.to(self.device)
+            return torch.as_tensor(np.asarray(leaf), device=self.device)
+
+        return collectives.tree_map(one, a)
 
     def _loss_and_correct(self, x, y, *, train: bool, seed=None):
         """(per-example/per-token loss, per-example/per-token correct) over
@@ -523,14 +553,24 @@ class Trainer:
                              f"backward_passes_per_step={self._accum_steps}")
         xs = [self._tensor(self.cut(xb, 0)) for xb, _ in micro]
         ys = [self._tensor(self.cut(yb, 1)) for _, yb in micro]
-        if any(a.shape != xs[0].shape for a in xs) or any(
-                b.shape != ys[0].shape for b in ys):
+
+        def shapes(t):
+            return [a.shape for a in collectives.tree_flatten(t)[0]]
+
+        if any(shapes(a) != shapes(xs[0]) for a in xs) or any(
+                shapes(b) != shapes(ys[0]) for b in ys):
             raise ValueError("the microbatches of a step must share a shape")
+        rows = len(collectives.first_leaf(xs[0]))
         if self._step_runner is None:
-            self._step_runner = StepRunner(self, batch_size=len(xs[0]),
+            self._step_runner = StepRunner(self, batch_size=rows,
                                            max_steps=1, eager=True)
         runner = self._step_runner
-        runner.feed(torch.cat(xs), torch.cat(ys), len(xs[0]))
+
+        def cat(*leaves):
+            return torch.cat(leaves)
+
+        runner.feed(collectives.tree_map(cat, *xs),
+                    collectives.tree_map(cat, *ys), rows)
         self.tx.set_scale(self.update_scale)
         runner.run(1)
         if not self.tx.lr_is_tensor:
@@ -595,17 +635,24 @@ class Trainer:
 
     def predict(self, x, batch_size: int = 128) -> np.ndarray:
         """Class probabilities (softmax of the logits) as a numpy array —
-        the full ``[N, T, ...]`` on every rank of a ``seq`` group."""
+        the full ``[N, T, ...]`` on every rank of a ``seq`` group. ``x``
+        may be a dict or tuple of arrays; the last batch is padded to
+        ``batch_size`` rows by repeating its last row (JAX's `slice_pad`)
+        and the padding dropped."""
         if self.state is None:
             raise RuntimeError("call fit() or build() first")
+        if isinstance(x, list):
+            x = np.asarray(x)
         out = []
         with torch.inference_mode():
-            for start in range(0, len(x), batch_size):
-                xb = x[start:start + batch_size]
+            for start in range(0, len(collectives.first_leaf(x)),
+                               batch_size):
+                xb, bs = feeding.slice_pad(x, start, batch_size)
                 logits = self.module(self._tensor(self.cut(xb, 0)),
                                      train=False)
                 if self._seq_sharded(xb, 0):
                     logits = collectives.all_gather_tiled(
                         logits, self.seq_group, 1)
-                out.append(torch.softmax(logits.float(), dim=-1).cpu().numpy())
+                out.append(torch.softmax(logits.float(),
+                                         dim=-1)[:bs].cpu().numpy())
         return np.concatenate(out, axis=0)

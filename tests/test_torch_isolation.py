@@ -410,3 +410,42 @@ def test_packed_twin_refuses_cpu_fallback(no_cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         twin.main()
     assert not horovod_tpu_torch.is_initialized()
+
+
+@pytest.mark.parametrize("mod", [
+    "horovod_tpu_torch.models.seq2seq",
+    "horovod_tpu_torch.models.lora",
+    "horovod_tpu_torch.examples.seq2seq_translation",
+    "horovod_tpu_torch.data.loader",
+    "horovod_tpu_torch.models.convert",
+])
+def test_seq2seq_and_lora_slice_is_scanned(mod):
+    """The encoder-decoder and LoRA slice's modules are in both scans."""
+    assert mod in _modules()
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    assert path in _port_files()
+
+
+def test_seq2seq_slice_refuses_cpu_fallback(no_cuda, monkeypatch):
+    """The seq2seq model and its twin default to the card (``HVT_DEVICE``
+    unset) and raise without CUDA; LoRA wraps a model where it lives."""
+    from horovod_tpu_torch.examples import seq2seq_translation as twin
+    from horovod_tpu_torch.models import lora
+    from horovod_tpu_torch.models.seq2seq import Seq2SeqTransformer
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    kw = dict(vocab_size=16, d_model=8, n_heads=2, n_enc_layers=1,
+              n_dec_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Seq2SeqTransformer(**kw)
+    assert Seq2SeqTransformer(**kw, device="cpu").device.type == "cpu"
+    wrapped = lora.LoRAModel(TransformerLM(
+        vocab_size=16, d_model=8, n_heads=2, n_layers=1, device="cpu"))
+    assert {p.device.type for p in wrapped.parameters()} == {"cpu"}
+    for name in ("HVT_COORDINATOR_ADDRESS", "HVT_NUM_PROCESSES",
+                 "HVT_PROCESS_ID", "HVT_DEVICE", "HVT_MESH"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("DOCS", "16")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        twin.main()
+    assert not horovod_tpu_torch.is_initialized()
