@@ -300,7 +300,28 @@ Phases (any failed check exits non-zero before the result line):
       tc; the merged model's logits against the wrapped forward's; the
       optimizer's state bytes against a full AdamW's; step ms beside phase
       6's;
-20. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
+20. tensor parallelism and FSDP (no new kernel: Megatron's f and g, the
+   logits' and weights' gathers and FSDP's reduce-scatters are collectives
+   and cuBLAS products around B1-B3), each part a ``phase20*`` line with
+   the card:
+   a. B1, B2 and B3 at a ``model=2`` rank's attention ([8, 1024, 4, 64]
+      bf16 causal, tc) against their plain versions at phases 3/4's
+      tolerances, timed beside the bound and SDPA; then a 2-layer f32
+      model at the bench width with ``model=2`` emulated in this process
+      (two models holding one rank's cut each, the row-parallel partial
+      products summed here) against the unsharded model;
+   b. the bench LM (bf16, fused-CE head, AdamW) at ``model=2``, two gloo
+      ranks sharing the card, 4 eager steps of 8 × 1024: the losses within
+      one bf16 ulp of one rank's from the same weights and batches, each
+      parameter within a quarter of the one-rank update's norm, B1-B3
+      launched 8 layers × 4 steps a rank, all tc, at 4 heads; the step ms
+      (gloo staging, not speed);
+   c. (b) at ``fsdp=2`` (4 rows a rank), beside (b): the same checks at 8
+      heads, and the parameter and Adam bytes a rank against one rank's
+      (about half);
+   (b and c, checks with no timing read, are launched beside 12b-d and
+   joined here);
+21. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
@@ -327,7 +348,14 @@ checkpoint written there restored at one rank with the full experts.
 after 17e, whose dense LM at four data ranks it stands beside): each
 step after the first a replay of one captured graph holding the ring's
 sends and receives, the parameters bit-equal on every rank, tokens/s a
-card.
+card. 20d (``--ranks 4`` last; alone with ``--tp-only``) trains the bench
+LM at ``fsdp=2,model=2`` on four NCCL ranks, 30 steps, each after the
+first a replay of one captured graph holding f, g, the weight gathers and
+reduce-scatters: ms a step, tokens/s a card and the busy share of 5
+profiled replays beside the dense LM on one card; the replicated
+parameters bit-equal on every rank; then the twin of
+``examples/lm_long_context.py`` at its defaults on ``HVT_MESH=
+"seq=2,model=2"``, its recall report and greedy exact match printed.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -5674,6 +5702,497 @@ def seq2seq_phase(torch, card, twin, dense_step_ms):
     return res
 
 
+# -- phase 20 ----------------------------------------------------------------
+
+# Phase 20: tensor parallelism and FSDP (no new kernel: Megatron's f and g,
+# the logits' and head weight's gathers and FSDP's weight gathers and
+# reduce-scatters are collectives and cuBLAS products around B1-B3).
+# 20a: B1-B3 at the bench LM's attention on one rank of model = 2, 4 of its
+# 8 heads, bf16 causal (tc), against their plain versions at phases 3/4's
+# tolerances and timed; then a 2-layer f32 model at the bench width with
+# model = 2 emulated in this process (two models, each holding one rank's
+# cut, their row-parallel partial products summed here) against the
+# unsharded model on the card, TP_SMALL_ROWS × TP_SMALL_T tokens, logits to
+# phase 5's LOGITS_ATOL: a wrong qkv cut pairs q, k and v heads of other
+# heads and moves the logits by O(1).
+TP_ATTN_SHAPE = (8, 1024, 4, 64)
+TP_SMALL_ROWS, TP_SMALL_T = 2, 512
+# 20b/20c: the bench LM (bf16, fused-CE head in 8 chunks, AdamW(3e-4)) at
+# model = 2 and at fsdp = 2, two gloo ranks sharing the card each, TP_STEPS
+# eager steps of 8 × 1024 copy_task rows (`tp_batches`; the fsdp ranks 4
+# rows each) from the seed-0 weights, against one rank on the same batches.
+# The losses within one bf16 ulp (2^-8) of the one-rank loss: the Megatron
+# sums round two bf16 partial products where one rank rounds one. The
+# parameters: Adam moves an element by about lr a step whatever its
+# gradient, so an element whose gradient sits within bf16 rounding of zero
+# may step either way; each parameter's distance from the one-rank one
+# within TP_UPDATE_RTOL of the one-rank update's norm (a 2-layer bf16 LM
+# on the CPU: 0.085 at model = 2, 0.048 at fsdp = 2, after 4 steps); a
+# wrong cut or reduction leaves the updates uncorrelated (about √2).
+TP_STEPS, TP_LOSS_RTOL, TP_UPDATE_RTOL = 4, 2.0 ** -8, 0.25
+# 20d (--ranks 4): fsdp = 2, model = 2 at four NCCL ranks, TP_4_STEPS
+# captured steps of 8 × 1024 (each fsdp rank 4 rows); busy share over
+# TP_4_WINDOW replays; then the twin of examples/lm_long_context.py at its
+# defaults on HVT_MESH="seq=2,model=2".
+TP_4_STEPS, TP_4_WINDOW = 30, 5
+
+TP_CHILD = r"""
+import hashlib, json, os, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import callbacks, runtime
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import mesh as tmesh
+from horovod_tpu_torch.parallel import sharding
+
+ht.init(device="cuda")
+r = ht.rank()
+dev = runtime.device()
+steps = int(os.environ["SMOKE_STEPS"])
+out = os.environ["SMOKE_OUT"]
+mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string(os.environ["SMOKE_MESH"]))
+model = ttr.TransformerLM(**cs.TP_MODEL, sharding=ttr.ShardingConfig(
+    mesh=mesh), device=dev, seed=0)
+trainer = ht.Trainer(model, ht.DistributedOptimizer(ht.adamw(3e-4)),
+                     loss="module", seed=0, mesh=mesh,
+                     param_specs=ttr.param_specs, device=dev)
+batches = [sharding.shard_batch(b, mesh) for b in cs.tp_batches(steps)]
+heads = set()
+launch = fa._launch
+
+
+def recorded(q, *args, **kwargs):
+    heads.add(int(q.shape[2]))
+    return launch(q, *args, **kwargs)
+
+
+fa._launch = recorded
+
+
+class Clock(callbacks.Callback):
+    def on_train_begin(self, logs=None):
+        self.t, self.logs = [time.perf_counter()], []
+
+    def on_batch_end(self, batch, logs=None):
+        self.logs.append({k: float(v) for k, v in logs.items()})
+        self.t.append(time.perf_counter())
+
+
+clock = Clock()
+trainer.build(*batches[0])
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+fa.launches_tc = fa.launches_bwd_dq_tc = fa.launches_bwd_dkv_tc = 0
+trainer.fit(dataset=batches, epochs=1, steps_per_epoch=steps,
+            callbacks=[clock, callbacks.MetricAverageCallback()], verbose=0)
+launches = {"flash_fwd": fa.launches, "flash_fwd_tc": fa.launches_tc,
+            "flash_bwd_dq": fa.launches_bwd_dq,
+            "flash_bwd_dq_tc": fa.launches_bwd_dq_tc,
+            "flash_bwd_dkv": fa.launches_bwd_dkv,
+            "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc}
+runner = trainer._runner
+step_ms = sorted(1e3 * (b - a) for a, b in zip(clock.t[2:], clock.t[3:]))
+median = step_ms[len(step_ms) // 2] if step_ms else None
+res = {"rank": r, "coords": mesh.coords, "losses": [e["loss"] for e in
+                                                   clock.logs],
+       "launches": launches, "heads": sorted(heads),
+       "eager_steps": runner.eager_steps, "captures": runner.captures,
+       "replays": runner.replays, "step_ms_median": median,
+       "tokens_per_s": (cs.TRAIN_BATCH * cs.TRAIN_SEQ / (median / 1e3)
+                        if median else None),
+       "param_bytes": sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+       "adam_bytes": trainer.tx.state_bytes(),
+       "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+replicated = hashlib.sha256()
+for n, p in model.named_parameters():
+    if n not in trainer.placements:
+        replicated.update(p.detach().cpu().numpy().tobytes())
+res["replicated_sha256"] = replicated.hexdigest()
+local = hashlib.sha256()
+for p in model.parameters():
+    local.update(p.detach().cpu().numpy().tobytes())
+res["local_sha256"] = local.hexdigest()
+if os.environ.get("SMOKE_PROFILE"):
+    # A fit of 2 × window steps (one eager, one capture, replays); rank 0
+    # profiles the last window.
+    window = cs.TP_4_WINDOW
+
+    def fit(cbs):
+        trainer.fit(dataset=batches[:2 * window], epochs=1,
+                    steps_per_epoch=2 * window, callbacks=cbs, verbose=0)
+
+    if r == 0:
+        prof, host_ms = cs.profiled_fit(torch, fit, window, window)
+        per, _ = cs._per_step(torch, prof, window, host_ms)
+        res["profile"] = dict(per, host_ms_per_step=host_ms)
+    else:
+        fit([])
+full = trainer.state.full_model_state()
+if r == 0:
+    np.savez(os.path.join(out, "full.npz"),
+             **{n: t.detach().float().cpu().numpy() for n, t in full.items()})
+print("tp_child", json.dumps(res), flush=True)
+"""
+
+# The bench LM as 20b-d train it.
+TP_MODEL = dict(MODEL, compute_dtype="bfloat16", fused_head_chunks=8)
+
+
+def tp_batches(steps):
+    """20b-d's global batches: TRAIN_BATCH rows of copy_task(4096,
+    TRAIN_SEQ) drawn with replacement from RandomState(20) a step."""
+    import numpy as np
+
+    from horovod_tpu_torch.data.datasets import copy_task
+
+    x, y = copy_task(4096, TRAIN_SEQ, MODEL["vocab_size"])
+    rng = np.random.RandomState(20)
+    out = []
+    for _ in range(steps):
+        idx = rng.randint(0, len(x), size=TRAIN_BATCH)
+        out.append((x[idx], y[idx]))
+    return out
+
+
+def tp_kernels(torch, card):
+    """20a: B1, B2 and B3 at TP_ATTN_SHAPE bf16 causal on the tensor-core
+    route, each against its plain version on the same inputs and timed
+    beside its plain version, its bound and SDPA."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = TP_ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+    masks = dict(causal=True, window=None, sinks=0, q_offset=None)
+    tol, gtol = TOL["bfloat16"], GRAD_TOL["bfloat16"]
+    checks = {}
+    with torch.inference_mode():
+        tc0 = (fa.launches_tc, fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
+        out, lse = fa._launch(q, k, v, None, None, **masks)
+        delta = fa._delta(out, dout, None)
+        got = (fa._launch_dq(q, k, v, dout, lse, delta, None, None, masks),
+               *fa._launch_dkv(q, k, v, dout, lse, delta, None, None, masks))
+        torch.cuda.synchronize()
+        check((fa.launches_tc, fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
+              == tuple(n + 1 for n in tc0), "20a: B1-B3 not on tc")
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
+        o_err = (out.float() - ref_o.float()).abs()
+        check(bool((o_err <= tol["o_atol"] + tol["o_rtol"]
+                    * ref_o.float().abs()).all()),
+              f"20a: O differs from the plain version (max abs "
+              f"{float(o_err.max()):.3g})")
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= tol["lse"], f"20a: lse err {lse_err:.3g}")
+        checks["flash_fwd_sm90"] = {"o_max_abs_err": float(o_err.max()),
+                                    "lse_max_abs_err": lse_err}
+        want = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta),
+                *fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta))
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = w.float()
+            err = (g.float() - w).abs()
+            atol = gtol["atol_of_max"] * float(w.abs().max())
+            check(bool((err <= atol + gtol["rtol"] * w.abs()).all()),
+                  f"20a: {gname} differs from the plain version (max abs "
+                  f"{float(err.max()):.3g})")
+            key = ("flash_bwd_dq_sm90" if gname == "dq"
+                   else "flash_bwd_dkv_sm90")
+            checks.setdefault(key, {})[gname] = float(err.max())
+    calls = {
+        "flash_fwd_sm90": ("flash_fwd", lambda: fa._launch(
+            q, k, v, None, None, **masks),
+            lambda: fa.flash_attention_reference(q, k, v, **masks)),
+        "flash_bwd_dq_sm90": ("flash_bwd_dq", lambda: fa._launch_dq(
+            q, k, v, dout, lse, delta, None, None, masks),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta)),
+        "flash_bwd_dkv_sm90": ("flash_bwd_dkv", lambda: fa._launch_dkv(
+            q, k, v, dout, lse, delta, None, None, masks),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta)),
+    }
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    with torch.inference_mode():
+        sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 20)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), gh)
+
+    sdpa_bwd = device_ms(torch, fwd_bwd, 20) - sdpa_fwd
+    timings = {}
+    with torch.inference_mode():
+        for name, (work, kernel, plain) in calls.items():
+            bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
+                                           causal=True, kernel=work)
+            timings[name] = {
+                "shape": f"B{b} T{t} H{h} D{d} causal bf16 (model = 2)",
+                "ms": device_ms(torch, kernel, 20),
+                "plain_ms": device_ms(torch, plain, 3),
+                "library_ms": sdpa_fwd if work == "flash_fwd" else sdpa_bwd,
+                "bound_ms": bound, "bound_by": by,
+                "max_abs_err": max(checks[name].values())}
+            r = timings[name]
+            log(f"time {name} B{b} T{t} H{h} D{d} causal bf16 [tc, model=2 "
+                f"local heads]: kernel_ms {r['ms']:.5f} plain_ms "
+                f"{r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} "
+                f"bound_ms {r['bound_ms']:.5f} ({by})")
+    return {"checks": checks, "timings": timings}
+
+
+def tp_emulated(torch, card):
+    """20a's f32 check: a 2-layer model at the bench width, model = 2
+    emulated in this process — two models, each built on a one-rank view
+    of a model = 2 mesh whose `model` group is this rank alone (so f and g
+    are the identity and each holds one rank's cut of the same seeded
+    weights), run layer by layer with the two ranks' row-parallel partial
+    products summed here and the LM head's logits joined — against the
+    unsharded model on the card."""
+    import numpy as np
+
+    from horovod_tpu_torch.data.datasets import copy_task
+    from horovod_tpu_torch.models import transformer as ttr
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import collectives, mesh as tmesh
+
+    cfg = dict(MODEL, n_layers=2)
+    shape = tmesh.MeshSpec(data=1, model=2).resolve(2)
+    ranks = [ttr.TransformerLM(**cfg, device=DEVICE, seed=6,
+                               sharding=ttr.ShardingConfig(mesh=tmesh.Mesh(
+                                   shape, i, {"model": collectives.SELF})))
+             for i in range(2)]
+    plain = ttr.TransformerLM(**cfg, device=DEVICE, seed=6)
+    x, _ = copy_task(TP_SMALL_ROWS, TP_SMALL_T, cfg["vocab_size"], seed=6)
+    tokens = torch.from_numpy(np.asarray(x)).to(DEVICE)
+    b, t = tokens.shape
+    tc0, n0 = fa.launches_tc, fa.launches
+    with torch.no_grad():
+        want = plain(tokens)
+        m0 = ranks[0]
+        positions = m0._positions(tokens, None)
+        h = m0._embed(tokens)
+        for layer in range(cfg["n_layers"]):
+            blks = [m.blocks[layer] for m in ranks]
+            a = blks[0].ln_attn(h)
+            parts = []
+            for blk in blks:
+                q, k, v = blk._qkv(a)
+                q, k = ttr.rope(q, positions), ttr.rope(k, positions)
+                o = fa.flash_attention(q, k, v, causal=True)
+                parts.append(blk._row(blk.attn_out, o.reshape(b, t, -1)))
+            h = h + parts[0] + parts[1]
+            m = blks[0].ln_mlp(h)
+            h = h + sum(blk._mlp(m, train=False, decode=False)
+                        for blk in blks)
+        got = torch.cat([m.lm_head(m0.ln_f(h)) for m in ranks], dim=-1)
+    err = float((got - want).abs().max())
+    res = {"rows": b, "seq": t, "layers": cfg["n_layers"],
+           "heads_a_rank": ranks[0].blocks[0].heads,
+           "logits_max_abs_err": err,
+           "b1_launches": fa.launches - n0, "b1_launches_tc": fa.launches_tc
+           - tc0, "card": card}
+    log("phase20a_f32", json.dumps(res))
+    check(err <= LOGITS_ATOL,
+          f"20a: model = 2 emulated differs from the unsharded model: {res}")
+    return res
+
+
+def tp_child_run(name, nprocs, mesh, steps, backend, profile=False):
+    """One launch of TP_CHILD; returns (per-rank records, rank 0's whole
+    parameters, wall seconds)."""
+    import numpy as np
+
+    out = os.path.join(WORK, name + "_out")
+    os.makedirs(out, exist_ok=True)
+    knobs = {"SMOKE_STEPS": str(steps), "SMOKE_MESH": mesh,
+             "SMOKE_OUT": out, "HVT_BACKEND": backend,
+             "SMOKE_PROFILE": "1" if profile else "",
+             "PYTHONUNBUFFERED": "1"}
+    lines, wall, _, _ = _launch(name, nprocs, None, knobs, code=TP_CHILD,
+                                timeout=900)
+    recs = [json.loads(_rank_line(lines, "tp_child ", r))
+            for r in range(nprocs)]
+    return recs, dict(np.load(os.path.join(out, "full.npz"))), wall
+
+
+def tp_start():
+    """20b and 20c, launched in threads (two gloo ranks each, all four
+    sharing the card); `tp_phase` joins them."""
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    futs = {"b": pool.submit(tp_child_run, "tp_model2", 2, "data=1,model=2",
+                             TP_STEPS, "gloo"),
+            "c": pool.submit(tp_child_run, "tp_fsdp2", 2, "data=1,fsdp=2",
+                             TP_STEPS, "gloo")}
+    pool.shutdown(wait=False)
+    return futs
+
+
+def tp_one_rank(torch):
+    """The one-rank run 20b and 20c are held against: TP_STEPS eager steps
+    of the same batches from the same weights. Returns (losses, the seed-0
+    weights, the trained weights, parameter and Adam bytes)."""
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(**TP_MODEL, device=DEVICE, seed=0)
+    start = {n: p.detach().float().cpu().numpy().copy()
+             for n, p in model.named_parameters()}
+    trainer = Trainer(model, DistributedOptimizer(adamw(3e-4)),
+                      loss="module", seed=0, device=DEVICE)
+    hist = trainer.fit(dataset=tp_batches(TP_STEPS), epochs=TP_STEPS,
+                       steps_per_epoch=1, verbose=0, _eager=True)
+    end = {n: p.detach().float().cpu().numpy()
+           for n, p in model.named_parameters()}
+    nbytes = (sum(p.numel() * p.element_size() for p in model.parameters()),
+              trainer.tx.state_bytes())
+    return [e["loss"] for e in hist], start, end, nbytes
+
+
+def _tp_held(name, recs, full, one, nprocs, heads):
+    """20b/20c against the one-rank run: losses, parameters, launches."""
+    import numpy as np
+
+    losses, start, end, nbytes = one
+    # The global batch's loss: the mean of the batch shards' (equal rows);
+    # the ranks of a model group hold equal ones.
+    glob = [float(np.mean([r["losses"][i] for r in recs]))
+            for i in range(TP_STEPS)]
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(glob, losses))
+    ratios = {}
+    for n, p in end.items():
+        moved = float(np.linalg.norm(p - start[n]))
+        ratios[n] = float(np.linalg.norm(full[n] - p)) / max(moved, 1e-30)
+    want = MODEL["n_layers"] * TP_STEPS
+    launches_ok = all(
+        r["launches"][k] == r["launches"][k + "_tc"] == want
+        for r in recs for k in ("flash_fwd", "flash_bwd_dq",
+                                "flash_bwd_dkv"))
+    res = {"ranks": nprocs, "losses": glob,
+           "one_rank_losses": losses, "loss_max_rel_err": worst_loss,
+           "update_rel_err_max": max(ratios.values()),
+           "update_rel_err_median": sorted(ratios.values())[len(ratios) // 2],
+           "worst_parameter": max(ratios, key=ratios.get),
+           "launches": [r["launches"] for r in recs],
+           "heads_a_launch": [r["heads"] for r in recs],
+           "eager_steps": [r["eager_steps"] for r in recs],
+           "step_ms_median_gloo_staging_not_speed": [
+               r["step_ms_median"] for r in recs],
+           "param_bytes_per_rank": [r["param_bytes"] for r in recs],
+           "adam_bytes_per_rank": [r["adam_bytes"] for r in recs],
+           "one_rank_param_bytes": nbytes[0],
+           "one_rank_adam_bytes": nbytes[1],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in recs]}
+    check(worst_loss <= TP_LOSS_RTOL,
+          f"{name}: the losses differ from one rank's: {res}")
+    check(res["update_rel_err_max"] <= TP_UPDATE_RTOL,
+          f"{name}: the parameters differ from one rank's: {res}")
+    check(launches_ok, f"{name}: B1-B3 launched other than n_layers × steps "
+          f"= {want} on tc a rank: {res['launches']}")
+    check(all(r["heads"] == [heads] for r in recs),
+          f"{name}: B1 ran at {res['heads_a_launch']} heads, want {heads}")
+    check(all(r["eager_steps"] == TP_STEPS for r in recs),
+          f"{name}: want {TP_STEPS} eager steps a rank (gloo)")
+    return res
+
+
+def tp_phase(torch, card, futs=None):
+    """Phase 20: tensor parallelism and FSDP. 20a's kernels are timed
+    alone; 20b and 20c run in launched processes (``futs``, from an
+    earlier `tp_start`, or started here), held against their one-rank
+    reference, which runs here with 20a's f32 check."""
+    t0 = time.perf_counter()
+    res = {"a": tp_kernels(torch, card)}
+    futs = futs or tp_start()
+    res["a_f32"] = tp_emulated(torch, card)
+    torch.cuda.empty_cache()
+    one = tp_one_rank(torch)
+    torch.cuda.empty_cache()
+    heads = {"b": MODEL["n_heads"] // 2, "c": MODEL["n_heads"]}
+    for part, fut in futs.items():
+        recs, full, wall = fut.result()
+        res[part] = dict(_tp_held(f"20{part}", recs, full, one, 2,
+                                  heads[part]), launch_wall_s=wall,
+                         card=card)
+        log(f"phase20{part}", json.dumps(res[part]))
+    c = res["c"]
+    share = [p / c["one_rank_param_bytes"] for p in c["param_bytes_per_rank"]]
+    log("phase20c_bytes", json.dumps({
+        "param_plus_adam_bytes_per_rank": [
+            p + a for p, a in zip(c["param_bytes_per_rank"],
+                                  c["adam_bytes_per_rank"])],
+        "one_rank_param_plus_adam_bytes": c["one_rank_param_bytes"]
+        + c["one_rank_adam_bytes"], "param_share_per_rank": share,
+        "card": card}))
+    check(all(s < 0.55 for s in share),
+          f"20c: a rank holds {share} of the one-rank parameters, want about "
+          "half (the LayerNorm scales stay whole)")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase20 seconds: {res['seconds']:.1f}")
+    return res
+
+
+def tp_multi_card(torch, card, ranks):
+    """20d (``--ranks 4``): fsdp = 2, model = 2 at four NCCL ranks, each
+    step after the first a replay of one captured graph holding f, g, the
+    weight gathers and reduce-scatters; the replicated parameters (the
+    LayerNorm scales, on every rank) bit-equal; step ms, tokens/s a card
+    and the busy share of TP_4_WINDOW replays; the dense LM on one card
+    from the same call; then the twin at ``seq=2,model=2``."""
+    check(ranks == 4, "20d runs at --ranks 4")
+    t0 = time.perf_counter()
+    recs, _, wall = tp_child_run("tp_4card", 4, "data=1,fsdp=2,model=2",
+                                 TP_4_STEPS, "nccl", profile=True)
+    dense, _, _, _, _ = moe_child_run(torch, "dense_1card", 1, "data=1",
+                                      TP_MODEL, TP_4_STEPS, "nccl")
+    res = {"mesh": "data=1,fsdp=2,model=2", "losses": recs[0]["losses"],
+           "eager_steps": [r["eager_steps"] for r in recs],
+           "captures": [r["captures"] for r in recs],
+           "replays": [r["replays"] for r in recs],
+           "step_ms_median": [r["step_ms_median"] for r in recs],
+           "tokens_per_s_per_card": min(r["tokens_per_s"]
+                                        for r in recs) / ranks,
+           "profile": recs[0].get("profile"),
+           "launches": recs[0]["launches"], "heads_a_launch": recs[0]["heads"],
+           "param_bytes_per_rank": [r["param_bytes"] for r in recs],
+           "adam_bytes_per_rank": [r["adam_bytes"] for r in recs],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in recs],
+           "dense_1card_tokens_per_s": dense[0]["tokens_per_s_per_card"],
+           "dense_1card_step_ms_median": dense[0]["step_ms_median"],
+           "launch_wall_s": wall, "card": card}
+    losses = [sum(r["losses"][i] for r in recs) / ranks
+              for i in range(TP_4_STEPS)]
+    res["losses"] = losses
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"20d: the loss did not fall: {losses}")
+    check(len({r["replicated_sha256"] for r in recs}) == 1,
+          "20d: the replicated parameters differ between the ranks")
+    check(all(r["captures"] == 1 and r["eager_steps"] == 1 for r in recs),
+          f"20d: want one eager step and one capture a rank: {res}")
+    log("phase20d", json.dumps(res))
+    twin_lines, twin_wall, _, _ = _launch(
+        "tp_twin", 4, "lm_long_context",
+        {"HVT_MESH": "seq=2,model=2", "HVT_BACKEND": "nccl",
+         "PYTHONUNBUFFERED": "1"}, timeout=900)
+    report = [ln for ln in twin_lines if ln.startswith("[rank 0] ") and any(
+        k in ln for k in ("first-half", "recall-half", "long-range recall",
+                          "greedy-decode"))]
+    check(len(report) == 4, f"20d: the twin printed no full report: {report}")
+    res["twin"] = {"mesh": "seq=2,model=2", "report": report,
+                   "epochs": [ln for ln in twin_lines
+                              if ln.startswith("[rank 0] Epoch")],
+                   "launch_wall_s": twin_wall, "card": card}
+    log("phase20d_twin", json.dumps(res["twin"]))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -5724,23 +6243,27 @@ def reduction_multi_card(torch, card, ranks: int):
 
 
 def multi_card(torch, ranks: int, reduction_only: bool = False,
-               moe_only: bool = False) -> int:
+               moe_only: bool = False, tp_only: bool = False) -> int:
     """``--ranks N``: only the MNIST twins and the CIFAR ResNet-20 twin
     with its breakdown and graph-against-eager check, phase 15b's runs and
     phase 17e, at N NCCL ranks, one card each (the multi-rank NCCL path one
     card cannot host: the gradient all-reduce and, in the ResNet, the BN
     all-reduces inside each rank's captured step; the expert group's sums
     inside the MoE step), then the result line. ``reduction_only``: phase
-    15b's runs alone; ``moe_only``: phase 17e alone."""
+    15b's runs alone; ``moe_only``: phase 17e alone; ``tp_only``: phase
+    20d alone."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
               f"--ranks {ranks} needs {ranks} cards, this host has "
               f"{torch.cuda.device_count()}")
         card = toolchain(torch)
-        if moe_only:
+        if moe_only or tp_only:
             build_kernels()
-            moe_multi_card(torch, card, ranks)
+            if moe_only:
+                moe_multi_card(torch, card, ranks)
+            else:
+                tp_multi_card(torch, card, ranks)
         elif not reduction_only:
             mnist_tf2(torch, ranks, cut={})
             mnist_tf1(torch, ranks, cut={})
@@ -5751,13 +6274,14 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
             cifar_graph_vs_eager(torch, ranks)
             log("phase16", json.dumps(dict(
                 pod_twin(["127.0.0.1"], ranks, "nccl"), card=card)))
-        if not moe_only:
+        if not (moe_only or tp_only):
             reduction_multi_card(torch, card, ranks)
-        if not (reduction_only or moe_only):
+        if not (reduction_only or moe_only or tp_only):
             moe = moe_multi_card(torch, card, ranks)
             if ranks == 4:
                 seq_multi_card(torch, card, ranks,
                                moe["dense_tokens_per_s_per_card"])
+                tp_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5784,6 +6308,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--moe-only", action="store_true",
         help="with --ranks 4: only phase 17e (expert parallelism on NCCL)")
+    parser.add_argument(
+        "--tp-only", action="store_true",
+        help="with --ranks 4: only phase 20d (tensor parallelism and FSDP "
+             "on NCCL, then the long-context twin)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -5799,7 +6327,7 @@ def main(argv=None) -> int:
     os.makedirs(WORK)
     if args.ranks > 1:
         return multi_card(torch, args.ranks, args.reduction_only,
-                          args.moe_only)
+                          args.moe_only, args.tp_only)
     t_start = time.perf_counter()
     laps, last = {}, [t_start]
 
@@ -5839,14 +6367,16 @@ def main(argv=None) -> int:
                                                card=card)))
         lap("12a cifar")
         # 12b, 12c, 12d and phase 10 (checks, not timings) share the card
-        # at once.
+        # at once, beside 20b and 20c's launches (checks; their gloo step
+        # ms are host staging, not speed), which phase 20 joins.
+        tp_futs = tp_start()
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             for fut in [pool.submit(cifar_graph_vs_eager, torch),
                         pool.submit(sync_bn_on_card, torch),
                         pool.submit(cifar_vit, torch),
                         pool.submit(mnist_2rank, torch)]:
                 fut.result()
-        lap("12b-d cifar, 10 mnist_2rank")
+        lap("12b-d cifar, 10 mnist_2rank, 20b-c launched")
         decode = decode_phase(torch)
         lap("13 decode")
         tier = serve_tier(torch, card)
@@ -5864,6 +6394,8 @@ def main(argv=None) -> int:
         s2s = seq2seq_phase(torch, card, twin,
                             train_launches["step_ms_median"])
         lap("19 seq2seq")
+        tp = tp_phase(torch, card, tp_futs)
+        lap("20 tp/fsdp")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5971,6 +6503,14 @@ def main(argv=None) -> int:
             entry["ring_hops"] = {
                 hop: t_[name] for hop, t_ in seq["a"]["timings"].items()
                 if name in t_}
+            # Phase 20b/20c: the bench LM at model = 2 (4 local heads) and
+            # fsdp = 2, two gloo ranks each, n_layers × TP_STEPS a rank,
+            # all on the tensor-core route; 20a: this kernel at the model
+            # = 2 rank's attention shape.
+            entry["launches_tp"] = {
+                part: [r[key] for r in tp[part]["launches"]]
+                for part in ("b", "c")}
+            entry["tp_local_heads"] = tp["a"]["timings"][name]
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]

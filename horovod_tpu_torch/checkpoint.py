@@ -254,18 +254,24 @@ def _per_rank_state(optimizer) -> bool:
 
 def _broadcast_model(state, root_rank: int) -> None:
     """Every rank adopts the root's parameters and buffers, in place. A
-    sharded model's placed parameters come from the first rank of each
-    batch group instead (its data coordinate 0), the one holding the same
-    part."""
+    sharded model's placed parameters come instead from the first rank of
+    the group of ranks that hold the same part, never across the axes it
+    is placed on: an ``fsdp`` part within the shard gradient group (the
+    ranks that differ on ``data`` or ``seq``), a ``model`` or expert part
+    within the gradient group (``data``, ``fsdp``, ``seq``)."""
     sd = state.model.state_dict()
-    placed = set(state.placements)
+    placed = state.placements
     synced = collectives.broadcast_pytree(
         {k: v for k, v in sd.items() if k not in placed}, root=root_rank)
-    group = state.mesh.batch_group if placed else None
     with torch.no_grad():
         for k, v in sd.items():
-            v.copy_(collectives.broadcast_in_group(v.detach(), group)
-                    if k in placed else synced[k])
+            if k not in placed:
+                v.copy_(synced[k])
+                continue
+            group = (state.mesh.shard_grad_group
+                     if "fsdp" in placed[k].values()
+                     else state.mesh.grad_group)
+            v.copy_(collectives.broadcast_in_group(v.detach(), group))
     state.model_changed()
 
 
@@ -380,6 +386,19 @@ PROGRAM_FILE = "model.pt2"
 EXPORT_FORMAT = registry.knob("HVT_EXPORT_FORMAT").default
 
 
+def refuse_sharded_export(module, what: str) -> None:
+    """Raise `ValueError` for a module that holds parameter shards over a
+    mesh (`model`/`fsdp` parts, expert shards): its forward runs
+    collectives and its state is this rank's part, neither of which an
+    export can hold."""
+    if any(getattr(m, "cuts", None) or getattr(m, "ep", 1) > 1
+           for m in module.modules()):
+        raise ValueError(
+            f"{what}: the module holds parameter shards over a mesh and its "
+            "forward runs collectives; export module.unsharded() (a "
+            "collective: every rank calls it, the primary exports)")
+
+
 class _Predict(torch.nn.Module):
     """``x → softmax(module(x, train=False))``: the serving signature."""
 
@@ -398,7 +417,11 @@ def export_serving(export_dir: str, module, input_shape: tuple,
     ``export_dir/<YYYYmmdd-HHMMSS>/``: a ``torch.export`` program with a
     dynamic batch dimension, traced on the module's device, plus
     ``signature.json``. Primary-rank-only by convention (the caller gates,
-    like the reference's ``if hvd.rank() == 0``)."""
+    like the reference's ``if hvd.rank() == 0``). A model that holds
+    parameter shards raises: its forward runs collectives over the mesh,
+    which an exported program cannot; export its `unsharded` clone (every
+    rank gathers, the primary exports)."""
+    refuse_sharded_export(module, "export_serving")
     if format != EXPORT_FORMAT:
         raise NotImplementedError(
             f"export format {format!r} is not ported — the port exports "

@@ -21,8 +21,9 @@ Run:
 On a live ``seq`` axis the twin passes ``batch_specs`` (every part's dim 1
 over ``seq``): the JAX script passes none, since its default layout
 computes the same global arithmetic, while the port keeps that default
-refused (ROADMAP queue A item 12.4). A live ``model`` axis (the JAX
-script's ``HVT_MESH="data=4,model=2"``) raises naming the same item.
+refused (ROADMAP queue A item 12.4). A live ``model`` or ``fsdp`` axis
+(the JAX script's ``HVT_MESH="data=4,model=2"``) raises naming ROADMAP
+queue A item 18.
 
 Knobs: DOCS, DRIVE_EPOCHS, DMODEL, PS_MODEL_PATH, HVT_MESH, as in the JAX
 script, plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``). ``main()``
@@ -44,6 +45,7 @@ from horovod_tpu_torch.models.seq2seq import (
     param_specs,
 )
 from horovod_tpu_torch.models.transformer import (
+    ITEM_18_AXES,
     ShardingConfig,
     refuse_unported_axes,
 )
@@ -94,7 +96,8 @@ class _Spec:
 
 def main():
     spec = mesh_lib.MeshSpec.from_string(os.environ.get("HVT_MESH"))
-    refuse_unported_axes(_Spec(spec), "the seq2seq twin's HVT_MESH")
+    refuse_unported_axes(_Spec(spec), "the seq2seq twin's HVT_MESH",
+                         also=ITEM_18_AXES)
     hvt.init(device=registry.get_str("HVT_DEVICE"))
     device = runtime.device()
     mesh = mesh_lib.build_mesh(spec)

@@ -19,8 +19,11 @@ side:
   ``moe_down`` as they are.
 
 `shard_state_dict` cuts a full state dict to one rank's placements
-(`models.transformer.param_specs` on a `parallel.mesh.Mesh`) and
-`gather_state_dict` gathers them back.
+(`models.transformer.param_specs` on a `parallel.mesh.Mesh`; the fused
+``qkv``/``kv_proj`` rows per part by heads, `parallel.sharding`) and
+`gather_state_dict` gathers them back; `params_from_flax` of a tree and
+`shard_state_dict` of the result give a rank its shard, and
+`params_to_flax` takes the gathered state.
 
 The torch side keeps `nn.Linear`'s ``[out, in]`` weights. `params_to_flax`
 is the exact inverse (pure reshapes and transposes). `ema_from_flax`
@@ -120,40 +123,27 @@ def params_to_flax(state_dict, *, n_heads: int) -> dict:
     return tree
 
 
-def _live(mesh, specs) -> dict:
-    return {name: {d: ax for d, ax in spec.items() if mesh.shape[ax] > 1}
-            for name, spec in specs.items()}
-
-
 def shard_state_dict(state_dict, mesh, specs) -> dict:
     """This rank's part of a full state dict: each tensor cut along every
     placement of ``specs`` (`models.transformer.param_specs`) on a live
-    axis of ``mesh``, at this rank's coordinate there; the rest as it
-    is."""
-    out = {}
-    for name, t in state_dict.items():
-        for dim, ax in _live(mesh, specs).get(name, {}).items():
-            per = t.shape[dim] // mesh.shape[ax]
-            t = t.narrow(dim, per * mesh.coords[ax], per)
-        out[name] = t
-    return out
+    axis of ``mesh``, at this rank's coordinate there, ``qkv``/``kv_proj``
+    per part by heads on ``model`` (`parallel.sharding.shard_tensor`); the
+    rest as it is."""
+    from horovod_tpu_torch.parallel import sharding
+
+    return {name: sharding.shard_tensor(t, name, specs.get(name, {}), mesh)
+            for name, t in state_dict.items()}
 
 
 def gather_state_dict(state_dict, mesh, specs) -> dict:
     """Inverse of `shard_state_dict`: every sharded tensor all-gathered
-    over its axis's subgroup (a collective of that group; every rank of
-    the mesh calls it at one point)."""
-    from horovod_tpu_torch.parallel import collectives
+    over its axis's subgroup (`parallel.sharding.gather_tensor`; a
+    collective of that group, every rank of the mesh calls it at one
+    point)."""
+    from horovod_tpu_torch.parallel import sharding
 
-    out = {}
-    for name, t in state_dict.items():
-        for dim, ax in sorted(_live(mesh, specs).get(name, {}).items(),
-                              reverse=True):
-            parts = collectives.all_gather_tensor(t.detach(),
-                                                  mesh.group(ax))
-            t = torch.cat(list(parts), dim=dim)
-        out[name] = t
-    return out
+    return {name: sharding.gather_tensor(t, name, specs.get(name, {}), mesh)
+            for name, t in state_dict.items()}
 
 
 # -- MnistCNN -----------------------------------------------------------------

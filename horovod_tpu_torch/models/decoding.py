@@ -140,10 +140,13 @@ class StepGraph:
     CPU, ``body`` runs eagerly on the caller's tensors and generator.
     """
 
-    def __init__(self, body, device, *, sampled: bool = False):
+    def __init__(self, body, device, *, sampled: bool = False,
+                 host_collectives: bool = False):
         self.body = body
         self.device = torch.device(device)
-        self.graphs = self.device.type == "cuda"
+        # A step whose forward communicates through host memory (a
+        # model-parallel model under gloo) cannot sit in a graph.
+        self.graphs = self.device.type == "cuda" and not host_collectives
         self.generator = (torch.Generator(device=self.device)
                           if self.graphs and sampled else None)
         self.eager_steps = self.captures = self.replays = 0
@@ -371,7 +374,12 @@ def make_generate_fn(model, *, max_new_tokens: int, temperature: float = 0.0,
     dmodel, pmodel = decode_models(model, quantized_cache=quantized_cache,
                                    int8_compute=int8_compute)
     unpack = quant.make_unpack(quantized)
-    runner = StepGraph(None, model.device, sampled=temperature > 0.0)
+    from horovod_tpu_torch.training.graphs import (
+        forward_communicates_over_host,
+    )
+
+    runner = StepGraph(None, model.device, sampled=temperature > 0.0,
+                       host_collectives=forward_communicates_over_host(model))
     width = max(1, max_new_tokens - 1)
 
     @torch.inference_mode()

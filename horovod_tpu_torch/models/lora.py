@@ -122,8 +122,13 @@ class LoRAModel(nn.Module):
         self.base = inner
         self.rank, self.alpha, self.targets = int(rank), float(alpha), targets
         self.kernels = convert.flax_kernels(inner)
-        from horovod_tpu_torch.models.transformer import _full_shapes
+        from horovod_tpu_torch.models.transformer import (
+            ITEM_18_AXES, _full_shapes, refuse_unported_axes,
+        )
 
+        sharding = getattr(inner, "sharding", None)
+        refuse_unported_axes(getattr(sharding, "mesh", None), "LoRAModel",
+                             also=ITEM_18_AXES)
         full = _full_shapes(inner)
         adapters = init_adapters(inner, self.rank, targets, seed=seed,
                                  kernels=self.kernels)

@@ -86,7 +86,16 @@ def quantize_params(model, *, min_size: int = 4096) -> dict:
     ``{name: {"int8_q": int8 [weight's shape], "scale": f32}}`` for every
     ≥2-D weight of at least ``min_size`` elements (symmetric, reduced over
     the flax kernel's axis 0 — see `_grouped`), the other tensors (the
-    LayerNorm scales) passed through. `dequantize_params` inverts it."""
+    LayerNorm scales) passed through. `dequantize_params` inverts it. A
+    model on a live ``model`` or ``fsdp`` axis raises naming ROADMAP item
+    18."""
+    from horovod_tpu_torch.models.transformer import (
+        ITEM_18_AXES, refuse_unported_axes,
+    )
+
+    sharding = getattr(model, "sharding", None)
+    refuse_unported_axes(getattr(sharding, "mesh", None), "quantize_params",
+                         also=ITEM_18_AXES)
     out = {}
     n_heads = model.n_heads
     for name, p in model.state_dict().items():

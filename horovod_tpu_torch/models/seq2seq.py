@@ -55,8 +55,8 @@ from horovod_tpu_torch.models.decoding import (
 )
 from horovod_tpu_torch.models.moe import lecun_normal_
 from horovod_tpu_torch.models.transformer import (
-    LayerNorm, LMHead, ShardingConfig, _cache_write, _dtype, _matmul_f32,
-    param_specs as lm_param_specs, refuse_unported_axes, rope,
+    ITEM_18_AXES, LayerNorm, LMHead, ShardingConfig, _cache_write, _dtype,
+    _matmul_f32, param_specs as lm_param_specs, refuse_unported_axes, rope,
 )
 from horovod_tpu_torch.ops.attention import (
     _BIG_NEG, dense_attention, ring_cross_attention, ring_flash_attention,
@@ -367,8 +367,8 @@ class Seq2SeqTransformer(nn.Module):
     tables.
 
     Parameters are created on ``device`` (default ``"cuda"``) from a seeded
-    CPU generator. A live ``model``, ``fsdp`` or ``pipe`` axis raises
-    naming ROADMAP queue A item 12.4."""
+    CPU generator. A live ``model`` or ``fsdp`` axis raises naming ROADMAP
+    queue A item 18, a live ``pipe`` axis item 12.4."""
 
     def __init__(self, vocab_size: int = 256, d_model: int = 256,
                  n_heads: int = 8, n_enc_layers: int = 4,
@@ -379,7 +379,8 @@ class Seq2SeqTransformer(nn.Module):
                  device="cuda", seed: int = 0):
         super().__init__()
         sharding = sharding or ShardingConfig()
-        refuse_unported_axes(sharding.mesh, "Seq2SeqTransformer(sharding=...)")
+        refuse_unported_axes(sharding.mesh, "Seq2SeqTransformer(sharding=...)",
+                             also=ITEM_18_AXES)
         dev = resolve_device(device)
         self.vocab_size, self.d_model, self.n_heads = vocab_size, d_model, n_heads
         self.n_enc_layers, self.n_dec_layers = n_enc_layers, n_dec_layers
@@ -426,7 +427,8 @@ class Seq2SeqTransformer(nn.Module):
                 f"parameters; it may change {list(_CLONE_KNOBS)}"
             )
         sharding = overrides.get("sharding", self.sharding) or ShardingConfig()
-        refuse_unported_axes(sharding.mesh, "Seq2SeqTransformer(sharding=...)")
+        refuse_unported_axes(sharding.mesh, "Seq2SeqTransformer(sharding=...)",
+                             also=ITEM_18_AXES)
         memo = {id(t): t for t in (*self.parameters(), *self.buffers())}
         new = copy.deepcopy(self, memo)
         new.dropout = overrides.get("dropout", self.dropout)
@@ -469,8 +471,8 @@ def param_specs(module_or_state_dict, mesh) -> dict:
     """The LM's placements (`models.transformer.param_specs`) plus the
     cross-attention projections: ``cross_q`` and ``cross_kv``
     column-parallel, ``cross_out`` row-parallel (dims of the port's
-    ``[out, in]`` weights). A live ``model`` axis is refused where the
-    placements are used (`transformer.live_placements`, item 12.4)."""
+    ``[out, in]`` weights). A live ``model`` or ``fsdp`` axis is refused
+    where the model is built (ROADMAP queue A item 18)."""
     return lm_param_specs(module_or_state_dict, mesh,
                           extra_tp_dim={"cross_q": 0, "cross_kv": 0,
                                         "cross_out": 1})

@@ -49,9 +49,29 @@ auxiliary loss and drop-rate metric are sown (`sown_losses`,
 on a `parallel.mesh.Mesh`: the MoE layers shard their experts over the
 mesh's ``expert`` axis, and attention is the flash path (or the dense one,
 ``attn="dense"``). `param_specs` gives each parameter's placement by the
-JAX model's rules. A live ``model``, ``fsdp`` or ``pipe`` axis raises
-naming its ROADMAP item (sharded layouts and the pipeline, queue A item
-12.4).
+JAX model's rules. A live ``pipe`` axis raises naming ROADMAP queue A
+item 12.4 (the pipeline).
+
+Tensor parallelism and FSDP, as in the JAX model: on a mesh with a live
+``model`` axis of tp ranks each rank holds its `param_specs` part of the
+Megatron layout — ``n_heads/tp`` q heads and ``n_kv_heads/tp`` kv heads
+(``qkv``/``kv_proj`` cut per part by heads, `parallel.sharding`), ``4·d/tp``
+MLP features and ``vocab/tp`` LM-head rows. The column-parallel
+projections sit behind Megatron's f (`collectives.enter_group`: identity
+forward, a sum over ``model`` backward), the row-parallel ``attn_out`` and
+``mlp_down`` behind g (`collectives.leave_group`: the sum forward), and
+attention runs the flash kernels (or the ``seq`` ring) on the local heads.
+The LM head's logits are gathered over ``model``; the fused-CE head
+gathers the head weight instead, with a slicing backward (every model rank
+computes the same loss on the same rows). On a live ``fsdp`` axis every
+≥2-D parameter holds its ``fsdp`` shard and is gathered where it is used,
+its gradient reduce-scattered back (`parallel.sharding.weight`). The
+weights are drawn whole from the seed and cut, so a sharded model starts
+from the one-rank model's weights; `unsharded` gathers them back into a
+plain model (a collective). The decode cache holds the local kv heads,
+``[B, L, H_kv/tp, D]``. MoE layers and int8 weights or caches on a live
+``model`` axis, and MoE layers and ``int8_compute`` on a live ``fsdp``
+axis, raise naming ROADMAP queue A item 18.
 
 Sequence parallelism, as in the JAX model: on a mesh with a live ``seq``
 axis of n ranks, the model takes this rank's ``[B, T/n]`` shard of the
@@ -87,25 +107,27 @@ from horovod_tpu_torch.ops.attention import (
 from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
-from horovod_tpu_torch.parallel import collectives
+from horovod_tpu_torch.parallel import collectives, sharding as shard_lib
 from horovod_tpu_torch.parallel.mesh import (
     EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
 )
 from horovod_tpu_torch.runtime import resolve_device
 from horovod_tpu_torch.training import train_state
 
-# Live mesh axes this slice does not carry, with the ROADMAP item of each.
-_AXIS_ITEMS = {
-    MODEL_AXIS: "queue A item 12.4 (sharded layouts: tensor parallelism)",
-    FSDP_AXIS: "queue A item 12.4 (sharded layouts: FSDP)",
-    PIPE_AXIS: "queue A item 12.4 (the pipeline)",
-}
+#: The ROADMAP items of what the port does not carry on a mesh yet.
+PIPE_ITEM = "queue A item 12.4 (the pipeline)"
+ITEM_18 = ("queue A item 18 (the model axis in MoE, seq2seq, LoRA and "
+           "int8)")
+#: The axes item 18's modules refuse (``also=`` of `refuse_unported_axes`).
+ITEM_18_AXES = (MODEL_AXIS, FSDP_AXIS)
 
 
-def refuse_unported_axes(mesh, what: str) -> None:
-    """Raise `NotImplementedError` naming the ROADMAP item of the first
-    live axis of ``mesh`` that the port does not carry yet."""
-    for ax, item in _AXIS_ITEMS.items():
+def refuse_unported_axes(mesh, what: str, also=()) -> None:
+    """Raise `NotImplementedError` naming its ROADMAP item for the first
+    live axis of ``mesh`` that ``what`` does not carry: ``pipe`` (item
+    12.4) and each axis of ``also`` (item 18)."""
+    items = {PIPE_AXIS: PIPE_ITEM, **{ax: ITEM_18 for ax in also}}
+    for ax, item in items.items():
         if mesh is not None and mesh.shape.get(ax, 1) > 1:
             raise NotImplementedError(
                 f"{what} on a mesh with a live {ax!r} axis "
@@ -121,8 +143,7 @@ class ShardingConfig:
     ``seq`` axis, where ``"dense"`` raises; on a mesh without one,
     ``"dense"`` takes `ops.attention.dense_attention` (the numerics
     reference) and the others the local flash path, as in the JAX model.
-    A live ``model``, ``fsdp`` or ``pipe`` axis raises naming its ROADMAP
-    item."""
+    A live ``pipe`` axis raises naming its ROADMAP item."""
 
     mesh: object = None
     attn: str = "ring"
@@ -136,6 +157,19 @@ class ShardingConfig:
         """The ranks sharing this one's batch rows, one sequence shard
         each (`collectives.SELF` without a live ``seq`` axis)."""
         return (self.mesh.group(SEQ_AXIS) if self.seq_parallel
+                else collectives.SELF)
+
+    @property
+    def tp(self) -> int:
+        """The size of the ``model`` axis (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.shape.get(MODEL_AXIS, 1)
+
+    @property
+    def model_group(self):
+        """The ranks that hold this one's batch rows and tokens, one
+        Megatron part each (`collectives.SELF` without a live ``model``
+        axis)."""
+        return (self.mesh.group(MODEL_AXIS) if self.tp > 1
                 else collectives.SELF)
 
 
@@ -198,7 +232,10 @@ class LayerNorm(nn.Module):
 class Block(nn.Module):
     """Pre-LN attention + MLP block. MHA uses one fused ``qkv`` projection
     (rows ordered q heads, k heads, v heads); GQA (``n_kv_heads`` <
-    ``n_heads``) uses ``q_proj`` and ``kv_proj`` (k heads, then v heads)."""
+    ``n_heads``) uses ``q_proj`` and ``kv_proj`` (k heads, then v heads).
+    Its layers are built whole; on a live ``model`` axis the model cuts
+    them to this rank's heads and features (``heads``, ``kv_heads``
+    local)."""
 
     def __init__(self, d_model: int, n_heads: int, dropout: float,
                  compute_dtype: torch.dtype, *, n_kv_heads: int | None = None,
@@ -214,6 +251,19 @@ class Block(nn.Module):
                 f"n_heads ({n_heads}) must be a multiple of n_kv_heads "
                 f"({h_kv})"
             )
+        tp = (sharding or ShardingConfig()).tp
+        if sharding is not None and sharding.mesh is not None:
+            if n_heads % tp != 0:
+                raise ValueError(
+                    f"n_heads ({n_heads}) must divide over the model "
+                    f"axis ({tp}) for sharded attention"
+                )
+            if h_kv % tp != 0:
+                raise ValueError(
+                    f"n_kv_heads ({h_kv}) must divide over the model axis "
+                    f"({tp}) — the kv projection and decode cache "
+                    f"shard their head dim"
+                )
         if attention_sinks < 0:
             raise ValueError("attention_sinks must be >= 0")
         if attention_sinks and window is None:
@@ -223,6 +273,7 @@ class Block(nn.Module):
                 "every sink)"
             )
         self.d_model, self.n_heads, self.h_kv = d_model, n_heads, h_kv
+        self.heads, self.kv_heads = n_heads // tp, h_kv // tp  # this rank's
         self.head_dim = d_model // n_heads
         self.dropout = dropout
         self.compute_dtype = compute_dtype
@@ -253,17 +304,24 @@ class Block(nn.Module):
         cd = self.compute_dtype
         if self.int8_compute:
             return quant.int8_linear(layer, x, cd)
-        return F.linear(x.to(cd), layer.weight.to(cd))
+        return F.linear(x.to(cd), shard_lib.weight(layer).to(cd))
 
     def _qkv(self, h):
         b, t, _ = h.shape
-        hd = self.head_dim
+        hd, nh, nkv = self.head_dim, self.heads, self.kv_heads
+        h = collectives.enter_group(h, self.sharding.model_group)  # f
         if self.h_kv == self.n_heads:
-            q, k, v = self._dense(self.qkv, h).split(self.n_heads * hd, -1)
-            return (x.view(b, t, self.n_heads, hd) for x in (q, k, v))
-        q = self._dense(self.q_proj, h).view(b, t, self.n_heads, hd)
-        k, v = self._dense(self.kv_proj, h).split(self.h_kv * hd, -1)
-        return q, k.view(b, t, self.h_kv, hd), v.view(b, t, self.h_kv, hd)
+            q, k, v = self._dense(self.qkv, h).split(nh * hd, -1)
+            return (x.view(b, t, nh, hd) for x in (q, k, v))
+        q = self._dense(self.q_proj, h).view(b, t, nh, hd)
+        k, v = self._dense(self.kv_proj, h).split(nkv * hd, -1)
+        return q, k.view(b, t, nkv, hd), v.view(b, t, nkv, hd)
+
+    def _row(self, layer: nn.Linear, x):
+        """A row-parallel projection: this rank's partial product, summed
+        over ``model`` (Megatron's g)."""
+        return collectives.leave_group(self._dense(layer, x),
+                                       self.sharding.model_group)
 
     def forward(self, x, positions, *, train: bool = False, segment_ids=None,
                 dropout_seed: int | None = None, dropout_site: int = 0,
@@ -300,7 +358,7 @@ class Block(nn.Module):
                 q, k, v, causal=True, window=self.window, sinks=self.sinks,
                 q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             )
-        out = self._dense(self.attn_out, out.reshape(b, t, -1))
+        out = self._row(self.attn_out, out.reshape(b, t, -1))
         if drop:
             out = dropout(out, self.dropout, dropout_seed, dropout_site)
         x = x + out
@@ -354,8 +412,9 @@ class Block(nn.Module):
                     "moe_router='top_k'"
                 )
             return self.moe(h, train=train, whole_batch=decode)
+        h = collectives.enter_group(h, self.sharding.model_group)  # f
         h = self._dense(self.mlp_up, h)
-        return self._dense(self.mlp_down, F.gelu(h, approximate="tanh"))
+        return self._row(self.mlp_down, F.gelu(h, approximate="tanh"))
 
     def _decode_attention(self, q, k, v, cache, idx, fresh):
         b, t, h, d = q.shape
@@ -518,26 +577,41 @@ class LMHead(nn.Module):
     """The LM head: ``[vocab, d_model]`` weight (flax ``lm_head/kernel``
     transposed), a compute-dtype matmul, logits cast to ``logits_dtype``
     (with ``int8_compute``: `quant.int8_dot_general` straight to
-    ``logits_dtype``)."""
+    ``logits_dtype``). On a live ``model`` axis (``sharding``) it holds
+    ``vocab/tp`` rows: the logits are this rank's columns, gathered over
+    ``model``; the fused loss gathers the weight instead."""
 
     def __init__(self, d_model: int, vocab_size: int,
-                 compute_dtype: torch.dtype, logits_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, logits_dtype: torch.dtype,
+                 sharding: ShardingConfig | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab_size, d_model))
         self.compute_dtype = compute_dtype
         self.logits_dtype = logits_dtype
         self.int8_compute = False  # set by TransformerLM._propagate
+        self.sharding = sharding or ShardingConfig()
 
     def forward(self, x):
         cd = self.compute_dtype
         if self.int8_compute:
             return quant.int8_linear(self, x, cd, out_dtype=self.logits_dtype)
-        return F.linear(x.to(cd), self.weight.to(cd)).to(self.logits_dtype)
+        group = self.sharding.model_group
+        x = collectives.enter_group(x, group)  # f
+        logits = F.linear(x.to(cd), shard_lib.weight(self).to(cd))
+        # Each model rank computes the same loss on the gathered logits:
+        # the gather's backward keeps this rank's columns.
+        return collectives.all_gather_tiled(logits.to(self.logits_dtype),
+                                            group, -1)
 
     def fused_loss(self, x, labels, n_chunks: int):
-        """(per-token loss, per-token correct) without full logits."""
+        """(per-token loss, per-token correct) without full logits; on a
+        live ``model`` axis over the weight gathered whole, whose backward
+        keeps this rank's rows (every model rank computes the same loss on
+        the same rows: `collectives.gather_weight`, ``"slice"``)."""
+        w = collectives.gather_weight(shard_lib.weight(self), 0,
+                                      self.sharding.model_group, "slice")
         return fused_linear_cross_entropy(
-            x.to(self.compute_dtype), self.weight, labels, max(1, n_chunks)
+            x.to(self.compute_dtype), w, labels, max(1, n_chunks)
         )
 
 
@@ -573,6 +647,8 @@ class TransformerLM(nn.Module):
         super().__init__()
         sharding = sharding or ShardingConfig()
         refuse_unported_axes(sharding.mesh, "TransformerLM(sharding=...)")
+        _refuse_item_18(sharding.mesh, moe_every, int8_compute,
+                        quantized_cache)
         if int8_compute and moe_every:
             quant.refuse_moe_int8_compute()
         dev = resolve_device(device)
@@ -605,11 +681,45 @@ class TransformerLM(nn.Module):
         )
         self.ln_f = LayerNorm(d_model, self.compute_dtype)
         self.lm_head = LMHead(
-            d_model, vocab_size, self.compute_dtype, self.logits_dtype
+            d_model, vocab_size, self.compute_dtype, self.logits_dtype,
+            sharding
         )
         self._propagate()
+        self._cut_parameters()
         self.reset_parameters(seed)
         self.to(dev)
+
+    def _cut_parameters(self) -> None:
+        """Replace each parameter placed on a live ``model`` or ``fsdp``
+        axis (`param_specs`) by this rank's part (``cuts``: name →
+        placement); its owner keeps the whole shape (``full_shapes``) and,
+        for an ``fsdp`` part, the dim to gather it along at use
+        (``fsdp_dims``, ``fsdp_mesh``)."""
+        mesh = self.sharding.mesh
+        self.cuts: dict = {}
+        self.reduces_over_ranks = False
+        if mesh is None or max(mesh.shape[MODEL_AXIS],
+                               mesh.shape[FSDP_AXIS]) == 1:
+            return
+        self.reduces_over_ranks = True  # the forward's collectives
+        for name, spec in param_specs(self, mesh).items():
+            on = {d: ax for d, ax in spec.items()
+                  if ax in (MODEL_AXIS, FSDP_AXIS) and mesh.shape[ax] > 1}
+            if not on:
+                continue
+            owner, leaf = name.rsplit(".", 1)
+            mod = self.get_submodule(owner)
+            whole = getattr(mod, leaf).detach()
+            mod.full_shapes = {**getattr(mod, "full_shapes", {}),
+                               leaf: tuple(whole.shape)}
+            setattr(mod, leaf, nn.Parameter(
+                shard_lib.shard_tensor(whole, name, on, mesh).clone()))
+            for dim, ax in on.items():
+                if ax == FSDP_AXIS:
+                    mod.fsdp_dims = {**getattr(mod, "fsdp_dims", {}),
+                                     leaf: dim}
+                    mod.fsdp_mesh = mesh
+            self.cuts[name] = on
 
     def _propagate(self) -> None:
         """Hand the model-level knobs down to the submodules that read
@@ -651,6 +761,8 @@ class TransformerLM(nn.Module):
             if name in ("compute_dtype", "logits_dtype"):
                 value = _dtype(value)
             setattr(new, name, value)
+        _refuse_item_18(new.sharding.mesh, new.moe_every, new.int8_compute,
+                        new.quantized_cache)
         if new.int8_compute and new.moe_every:
             quant.refuse_moe_int8_compute()
         if new.attention_sinks < 0:
@@ -703,23 +815,45 @@ class TransformerLM(nn.Module):
     def reset_parameters(self, seed: int = 0) -> None:
         """flax's initializers from a seeded CPU generator: lecun-normal
         (truncated at 2σ) matmul weights, N(0, 1/d) embedding, unit
-        LayerNorm scales."""
+        LayerNorm scales. A parameter this rank holds a part of is drawn
+        whole and cut (the MoE layers' experts, with the expert axis a
+        batch axis of fan-in dim 1; the ``model``/``fsdp`` cuts), so every
+        mesh starts from the one-rank weights."""
         g = torch.Generator().manual_seed(seed)
+        full = _full_shapes(self)
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
-            elif name == "embed.weight":
-                p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1]))
-            elif ".moe." in name:
-                # The full E experts are drawn (their fan-in is dim 1 with
-                # the expert axis a batch axis), and this rank's kept.
-                owner, leaf = name.split(".moe.")
-                moe = self.get_submodule(owner + ".moe")
-                w = torch.empty(moe.full_shape(leaf))
-                lecun_normal_(w, g, w.shape[1])
-                p.copy_(moe.local_part(leaf, w))
+                continue
+            w = torch.empty(full[name])
+            if name == "embed.weight":
+                w = torch.randn(w.shape, generator=g) / math.sqrt(w.shape[1])
             else:
-                lecun_normal_(p, g, p.shape[1])
+                lecun_normal_(w, g, w.shape[1])
+            if ".moe." in name:
+                owner, leaf = name.split(".moe.")
+                w = self.get_submodule(owner + ".moe").local_part(leaf, w)
+            elif name in self.cuts:
+                w = shard_lib.shard_tensor(w, name, self.cuts[name],
+                                           self.sharding.mesh)
+            p.copy_(w)
+
+    def unsharded(self) -> "TransformerLM":
+        """A model of this configuration without a mesh, on this model's
+        device, holding its whole weights: gathered over the mesh's
+        groups, a collective every rank of the mesh calls at one point.
+        The port runs one process a rank, so this is how a sharded model
+        is exported or decoded alone on one rank."""
+        mesh = self.sharding.mesh
+        sd = self.state_dict()
+        if mesh is not None:
+            from horovod_tpu_torch.models.convert import gather_state_dict
+
+            sd = gather_state_dict(
+                sd, mesh, live_placements(param_specs(self, mesh), mesh))
+        plain = TransformerLM(**self.config(), device=self.device)
+        plain.load_state_dict(sd)
+        return plain
 
     def _positions(self, tokens, segment_ids):
         """``[B, T]`` RoPE positions of this rank's tokens: global ones on
@@ -738,7 +872,8 @@ class TransformerLM(nn.Module):
         return packed_positions(full)[:, c * t:(c + 1) * t]
 
     def _embed(self, tokens):
-        return self.embed(tokens.long()).to(self.compute_dtype)
+        return F.embedding(tokens.long(), shard_lib.weight(self.embed)).to(
+            self.compute_dtype)
 
     def forward(self, tokens, *, train: bool = False, segment_ids=None,
                 labels=None, dropout_seed: int | None = None):
@@ -799,7 +934,7 @@ class TransformerLM(nn.Module):
                 "ring path keeps full-width slots) — pick one"
             )
         dev = self.device if device is None else device
-        h_kv = self.n_kv_heads or self.n_heads
+        h_kv = (self.n_kv_heads or self.n_heads) // self.sharding.tp
         hd = self.d_model // self.n_heads
         length = (self.attention_sinks + min(self.window, max_decode_len)
                   if self.sliding_cache else max_decode_len)
@@ -869,15 +1004,17 @@ _MOE_DIMS = {"moe_up": {0: EXPERT_AXIS, 2: MODEL_AXIS},
 
 def _full_shapes(module_or_state_dict) -> dict:
     """Parameter name → unsharded shape: a state dict's as they are; a
-    module's with each MoE layer's experts counted whole."""
+    module's with each MoE layer's experts counted whole and each
+    ``model``/``fsdp`` part at its owner's ``full_shapes``."""
     if not isinstance(module_or_state_dict, nn.Module):
         return {k: tuple(v.shape) for k, v in module_or_state_dict.items()}
     shapes = {}
     for name, p in module_or_state_dict.named_parameters():
         owner, _, leaf = name.rpartition(".")
-        mod = module_or_state_dict.get_submodule(owner) if owner else None
+        mod = module_or_state_dict.get_submodule(owner)
         shapes[name] = (mod.full_shape(leaf) if isinstance(mod, MoEMlp)
-                        else tuple(p.shape))
+                        else getattr(mod, "full_shapes", {}).get(
+                            leaf, tuple(p.shape)))
     return shapes
 
 
@@ -927,15 +1064,25 @@ def param_specs(module_or_state_dict, mesh, extra_tp_dim=None) -> dict:
 
 def live_placements(specs: dict, mesh) -> dict:
     """``specs`` restricted to the placements on axes larger than 1,
-    refusing those this slice does not carry (any but ``expert``)."""
+    refusing a placement on ``pipe`` (ROADMAP item 12.4)."""
     live = {}
     for name, spec in specs.items():
         on = {d: ax for d, ax in spec.items() if mesh.shape.get(ax, 1) > 1}
-        for ax in on.values():
-            if ax != EXPERT_AXIS:
-                raise NotImplementedError(
-                    f"the placement of {name!r} on the live {ax!r} axis is "
-                    f"not ported yet — ROADMAP {_AXIS_ITEMS[ax]}")
+        if PIPE_AXIS in on.values():
+            raise NotImplementedError(
+                f"the placement of {name!r} on the live 'pipe' axis is "
+                f"not ported yet — ROADMAP {PIPE_ITEM}")
         if on:
             live[name] = on
     return live
+
+
+def _refuse_item_18(mesh, moe_every, int8_compute, quantized_cache) -> None:
+    """The `TransformerLM` knobs a live ``model``/``fsdp`` axis does not
+    carry yet, refused naming ROADMAP item 18."""
+    if moe_every:
+        refuse_unported_axes(mesh, "a MoE TransformerLM", also=ITEM_18_AXES)
+    if int8_compute:
+        refuse_unported_axes(mesh, "int8_compute", also=ITEM_18_AXES)
+    if quantized_cache:
+        refuse_unported_axes(mesh, "quantized_cache", also=(MODEL_AXIS,))

@@ -611,13 +611,52 @@ def all_gather_tiled(x, group, dim: int = 1):
     return _GatherKeepSlice.apply(x, group, dim)
 
 
+class _GatherReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(all_gather_tensor(x.contiguous(), group).unbind(0),
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Member i's block of the flat order of `grad` moved to dim 0 is
+        # its slice along `dim`.
+        moved = grad.movedim(ctx.dim, 0).contiguous()
+        part = reduce_scatter_sum(moved, ctx.group)
+        part = part.view((moved.shape[0] // group_size(ctx.group),)
+                         + tuple(moved.shape[1:]))
+        return part.movedim(0, ctx.dim), None, None
+
+
+def gather_weight(t, dim: int, group, backward: str):
+    """A weight sharded along ``dim`` over ``group``, whole: the members'
+    parts joined along ``dim`` in member order (one autograd node). Its
+    backward is ``"reduce_scatter"`` — the members' gradients of the whole
+    weight summed and this member's slice kept, for weight-gathered FSDP,
+    where each member's loss is over other batch rows — or ``"slice"`` —
+    this member's slice of its own gradient (`all_gather_tiled`), where
+    every member computed the same function on the same rows (the fused-CE
+    head on a ``model`` group). The wrong choice scales the gradient by
+    the group's size, up or down."""
+    if backward not in ("reduce_scatter", "slice"):
+        raise ValueError("gather_weight backward must be 'reduce_scatter' "
+                         f"or 'slice', got {backward!r}")
+    if _trivial(group):
+        return t
+    if backward == "slice":
+        return _GatherKeepSlice.apply(t, group, dim)
+    return _GatherReduceScatter.apply(t, group, dim)
+
+
 # --- Entering and leaving a sharded region --------------------------------------
 #
 # The Megatron pair around compute that each member of a group does on its
-# own part (an MoE layer's local experts): the region's inputs are the same
-# on every member, and its output is the sum of the members' parts. Without
-# `enter_group` the inputs' gradients would be each member's partial
-# gradient only.
+# own part (an MoE layer's local experts, a tensor-parallel block's heads
+# and MLP features): the region's inputs are the same on every member, and
+# its output is the sum of the members' parts. `enter_group` is Megatron's
+# f, `leave_group` its g. Without `enter_group` the inputs' gradients would
+# be each member's partial gradient only.
 
 
 class _EnterGroup(torch.autograd.Function):

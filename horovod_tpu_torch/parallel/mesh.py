@@ -9,12 +9,16 @@ one host — and gives each rank its coordinate on every axis and one
 `torch.distributed` subgroup per live axis (the ranks that differ from it
 only on that axis), plus the **batch group**: the ranks that differ only on
 ``data``/``fsdp``, over which metrics reduce and the feeding and dropout
-seeds are cut, and the **gradient group**: the ranks that differ on
+seeds are cut, the **gradient group**: the ranks that differ on
 ``data``, ``fsdp`` or ``seq``, over which a replicated parameter's gradient
-sums when tokens are sharded on ``seq``. On a pure-data mesh both are the
-world itself (None to the collectives), so every data-parallel path keeps
-its arithmetic. `P` is the JAX ``PartitionSpec`` form of a batch layout
-(``Trainer(batch_specs=...)``). The data axis's (dcn outer,
+sums when tokens are sharded on ``seq`` (never ``model``: under Megatron's
+operators every rank of a ``model`` group holds the same replicated
+gradient), and the **shard gradient group**: the ranks that differ on
+``data`` or ``seq`` only, over which an ``fsdp`` shard's gradient sums
+after its reduce-scatter over ``fsdp``. On a pure-data mesh the first two
+are the world itself (None to the collectives), so every data-parallel
+path keeps its arithmetic. `P` is the JAX ``PartitionSpec`` form of a
+batch layout (``Trainer(batch_specs=...)``). The data axis's (dcn outer,
 ici inner) factoring for the two-hop reduction is `hier_groups`.
 
 Axis names, as in the JAX package:
@@ -127,6 +131,9 @@ class P(tuple):
 #: The axes a gradient sums over when a replicated parameter meets tokens
 #: sharded on them.
 GRAD_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+#: The axes an ``fsdp`` shard's gradient sums over once the reduce-scatter
+#: over ``fsdp`` has summed it there.
+SHARD_GRAD_AXES = (DATA_AXIS, SEQ_AXIS)
 
 
 def axis_rank_lists(shape: dict, axes) -> list[list[int]]:
@@ -207,6 +214,21 @@ class Mesh:
         return self._group("grad", n)
 
     @property
+    def shard_grad_group(self):
+        """The ranks that share this one's coordinates but on ``data`` and
+        ``seq``: what an ``fsdp`` shard's gradient sums over after its
+        reduce-scatter over ``fsdp``, and the ranks that hold the same
+        ``fsdp`` shard. None (the world) where those axes span the mesh,
+        `collectives.SELF` when they are both 1; the gradient group
+        without a live ``fsdp`` axis."""
+        if self.shape[FSDP_AXIS] == 1:
+            return self.grad_group
+        n = self.shape[DATA_AXIS] * self.shape[SEQ_AXIS]
+        if n == self.size and self._groups is not None:
+            return None
+        return self._group("shard_grad", n)
+
+    @property
     def seq_shards(self) -> int:
         """The size of the ``seq`` axis."""
         return self.shape[SEQ_AXIS]
@@ -242,6 +264,9 @@ def _make_groups(shape: dict, rank: int) -> dict:
         grad = dp * shape[SEQ_AXIS]
         if shape[SEQ_AXIS] > 1 and 1 < grad < math.prod(shape.values()):
             plan.append(("grad", GRAD_AXES))
+        shard = shape[DATA_AXIS] * shape[SEQ_AXIS]
+        if shape[FSDP_AXIS] > 1 and 1 < shard < math.prod(shape.values()):
+            plan.append(("shard_grad", SHARD_GRAD_AXES))
         for name, axes in plan:
             for ranks in axis_rank_lists(shape, axes):
                 g = torch.distributed.new_group(ranks)

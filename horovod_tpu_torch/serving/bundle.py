@@ -138,6 +138,9 @@ def export_generate(
         )
     if isinstance(tokenizer, str) and not os.path.isfile(tokenizer):
         raise FileNotFoundError(f"no tokenizer file {tokenizer}")
+    from horovod_tpu_torch.checkpoint import refuse_sharded_export
+
+    refuse_sharded_export(model, "export_generate")
     # The generator builders validate the knobs (chunk | max_new_tokens,
     # sampling ranges) — build them once for that. Every check runs before
     # the output directory exists.

@@ -459,6 +459,22 @@ def env_callbacks() -> list:
     return out
 
 
+class MetricsPushCallback(Callback):
+    """Push the epoch-end logs to the platform metrics sink
+    (`horovod_tpu_torch.metrics`, whose JSONL stream the CI gate reads),
+    each scalar at step ``epoch + 1``. Place it after
+    `MetricAverageCallback` so the values pushed are the ranks' mean."""
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        from horovod_tpu_torch import metrics
+
+        for k, v in (logs or {}).items():
+            try:
+                metrics.push(k, float(v), step=epoch + 1)
+            except (TypeError, ValueError):
+                continue
+
+
 # Keras-name alias: the reference registers this under TensorBoard.
 TensorBoard = ScalarLogger
 

@@ -34,17 +34,19 @@ graph copies the eagerly all-gathered shards into the parameters. Every
 buffer the eager stages read or write (buckets, residuals, reduced
 buckets, gathered shards) was allocated by a graph, at a fixed address.
 A module whose forward itself reduces over the ranks (the global-batch
-BatchNorm, an MoE layer's expert-group sums) steps eagerly there
-(`eager_steps` counts it). The backend and
-the module decide, never a failure. Buffers a step updates (BN's running
+BatchNorm, an MoE layer's expert-group sums, a `TransformerLM` on a live
+``model`` or ``fsdp`` axis) steps eagerly there (`eager_steps` counts
+it); under NCCL its collectives are captured with the step. The backend
+and the module decide, never a failure. Buffers a step updates (BN's running
 statistics) are written in place, so their addresses hold.
 
 ``overlap_reduction`` issues each bucket's reduction from the backward of
 the last microbatch (`DistributedOptimizer.arm_overlap`) in eager steps
 and in one-graph captures; where the collectives sit between graphs
-(gloo), and on a live ``seq`` axis (`StepRunner._overlap_here`), it
-changes nothing. Under gloo a step on a live ``seq`` axis runs eagerly:
-its attention and its loss communicate through the host.
+(gloo), and on a live ``seq``, ``model`` or ``fsdp`` axis
+(`StepRunner._overlap_here`), it changes nothing. Under gloo a step on a
+live ``seq`` axis runs eagerly: its attention and its loss communicate
+through the host.
 
 Before a runner captures for the first time, and again after `feed`
 brought rows of another shape, one step runs eagerly on the capture
@@ -287,10 +289,14 @@ class StepRunner:
     def _overlap_here(self) -> bool:
         """Whether a bucket's reduction may issue inside the backward: in
         eager steps, and in captures that hold the collectives — never on
-        a live ``seq`` axis, where the ring's backward shifts would
-        interleave with the bucket sums in an order that can differ by
-        rank (on one NCCL stream that order is a deadlock)."""
-        if self.trainer.seq_shards > 1:
+        a live ``seq``, ``model`` or ``fsdp`` axis, where the backward's
+        own collectives (the ring's shifts, Megatron's f, FSDP's
+        reduce-scatters) would interleave with the bucket sums in an order
+        that can differ by rank (on one NCCL stream that order is a
+        deadlock)."""
+        mesh = self.trainer.mesh
+        if mesh is not None and max(mesh.shape["seq"], mesh.shape["model"],
+                                    mesh.shape["fsdp"]) > 1:
             return False
         return not self.graphs or runtime.backend() != "gloo"
 

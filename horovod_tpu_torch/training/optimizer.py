@@ -52,7 +52,7 @@ import torch
 
 from horovod_tpu_torch import runtime
 from horovod_tpu_torch.analysis import registry
-from horovod_tpu_torch.parallel import collectives
+from horovod_tpu_torch.parallel import collectives, sharding
 from horovod_tpu_torch.parallel.mesh import scale_lr  # noqa: F401 (re-export)
 from horovod_tpu_torch.training import zero1
 
@@ -110,28 +110,33 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 def _placed(v, p, spec: dict, gather: bool):
     """One state value of placed parameter ``p`` (its local part shaped
     like ``p``, or whole): gathered along each placed dim over its group,
-    or cut to this rank's part there; a value of another shape (a step
-    count) as it is."""
+    or cut to this rank's part there (``spec``: dim -> `sharding.Cut`,
+    fused rows per part); a value of another shape (a step count) as it
+    is."""
     if not isinstance(v, torch.Tensor) or v.dim() != p.dim():
         return v
-    for dim, group in sorted(spec.items(), reverse=gather):
-        n = collectives.group_size(group)
+    for dim, cut in sorted(spec.items(), reverse=gather):
+        n = collectives.group_size(cut.group)
         if gather and v.shape[dim] == p.shape[dim]:
-            v = torch.cat(list(collectives.all_gather_tensor(v, group)),
-                          dim=dim)
+            v = sharding.join_dim(
+                collectives.all_gather_tensor(v, cut.group).unbind(0), dim,
+                cut.parts)
         elif not gather and v.shape[dim] == p.shape[dim] * n:
-            v = v.narrow(dim, p.shape[dim] * collectives.group_rank(group),
-                         p.shape[dim]).clone()
+            v = sharding.cut_dim(v, dim, n, collectives.group_rank(cut.group),
+                                 cut.parts).clone()
     return v
 
 
 class _Step(typing.NamedTuple):
     """One step's reduction: the parameters whose gradients it reduces (in
-    its leaf order) and the staged `collectives.Reduction`."""
+    its leaf order) and the staged `collectives.Reduction`; ``shard``, the
+    reduction of the ``fsdp`` shards' gradients over their own group (or
+    None)."""
 
     params: list
     index: dict
     reduction: collectives.Reduction
+    shard: "_Step | None" = None
 
 
 class DistributedOptimizer:
@@ -199,17 +204,21 @@ class DistributedOptimizer:
         self.bucket_reverse = order == "reverse"
         self.overlap = False
         self.dcn = None  # the two-hop factor; mesh.dcn_factor() at first use
-        # The mesh's batch group the gradients reduce over (None: the
-        # world), its size (None: the world's), and the parameters placed
-        # on live mesh axes, {param: {dim: group}} (the `Trainer` sets all
-        # three on a mesh).
+        # The mesh's group the gradients reduce over (None: the world),
+        # the number of batch shards (None: the world's size), the
+        # parameters placed on live mesh axes, {param: {dim: sharding.Cut}},
+        # and the `fsdp` shards, whose gradients (reduce-scattered over
+        # `fsdp` in the backward) sum over `shard_group` instead (the
+        # `Trainer` sets them all on a mesh).
         self.group = None
         self.dp = None
         self.placements: dict = {}
+        self.shard_group = None
+        self.shard_params: set = set()
         self.zero1 = None
         self.residual = None  # per bound parameter, this rank's f32 remainder
         self._model_params: list = []
-        self._plan = None
+        self._plans: dict = {}
         self._armed = None
         self._snapshot = None
         self._hooked = False
@@ -509,14 +518,16 @@ class DistributedOptimizer:
         scatter = self.zero1.dp if self.zero1 is not None else None
         key = (tuple((tuple(p.shape), self._grad_dtype(p)) for p in params),
                self.bucket_bytes, self.bucket_reverse, scatter)
-        if self._plan is None or self._plan[0] != key:
-            self._plan = (key, collectives.BucketPlan(
+        if key not in self._plans:
+            if len(self._plans) > 1:  # the main and the shard plans
+                self._plans.clear()
+            self._plans[key] = collectives.BucketPlan(
                 [s for s, _ in key[0]], [d for _, d in key[0]],
                 self.bucket_bytes, reverse=self.bucket_reverse,
-                scatter=scatter, wire_dtype=self.wire_dtype))
-        return self._plan[1]
+                scatter=scatter, wire_dtype=self.wire_dtype)
+        return self._plans[key]
 
-    def _new_step(self, params, grads) -> _Step:
+    def _new_step(self, params, grads, group=None) -> _Step:
         if self.dcn is None:
             from horovod_tpu_torch.parallel import mesh
 
@@ -530,7 +541,8 @@ class DistributedOptimizer:
         red = collectives.Reduction(
             self._plan_for(params), grads, residuals, dcn=self.dcn,
             wire_dtype=self.wire_dtype, ici_wire_dtype=self.ici_wire_dtype,
-            donate=True, device=params[0].device, group=self.group)
+            donate=True, device=params[0].device,
+            group=self.group if group is None else group)
         return _Step(params, {id(p): i for i, p in enumerate(params)}, red)
 
     def arm_overlap(self) -> None:
@@ -542,7 +554,7 @@ class DistributedOptimizer:
         those first). The arithmetic is the serialized reduction's, bit for
         bit."""
         self._armed = None
-        if (not self.overlap or runtime.size() == 1
+        if (not self.overlap or runtime.size() == 1 or self.shard_params
                 or self.group is collectives.SELF):
             return
         params = [p for p in self._model_params if p.requires_grad]
@@ -573,6 +585,14 @@ class DistributedOptimizer:
                 and self._exact_and_plain()):
             return None
         params = [p for p in self._model_params if p.grad is not None]
+        shard = [p for p in params if id(p) in self.shard_params]
+        if shard:
+            params = [p for p in params if id(p) not in self.shard_params]
+            step = self._pack(params) if params else None
+            held = self._pack(shard, self.shard_group)
+            if step is None:
+                return held
+            return step._replace(shard=held)
         if not params:
             return None
         if armed is not None:
@@ -585,7 +605,11 @@ class DistributedOptimizer:
                     red.assemble(k)
                 return armed
             armed.reduction.wait()  # a gradient never came: start over
-        step = self._new_step(params, [self._grad_of(p) for p in params])
+        return self._pack(params)
+
+    def _pack(self, params, group=None) -> _Step:
+        step = self._new_step(params, [self._grad_of(p) for p in params],
+                              group)
         for k in range(len(step.reduction.buckets)):
             step.reduction.assemble(k)
         return step
@@ -595,8 +619,9 @@ class DistributedOptimizer:
         """The second stage: every bucket not yet issued is reduced over the
         ranks (the identity sum without a process group; a quantized wire
         still quantizes), and the asynchronous ones are collected."""
-        if packed is not None:
+        while packed is not None:
             packed.reduction.communicate()
+            packed = packed.shard
 
     @torch.no_grad()
     def unpack_gradients(self, packed) -> None:
@@ -604,6 +629,10 @@ class DistributedOptimizer:
         ZeRO-1's shard gradients), and the new residual into place."""
         if packed is None:
             return
+        if packed.shard is not None:
+            torch._foreach_copy_([p.grad for p in packed.shard.params],
+                                 packed.shard.reduction.unpack(
+                                     self._divisor())[0])
         local, new_res = packed.reduction.unpack(self._divisor())
         if new_res is not None:
             torch._foreach_copy_(packed.reduction.residuals, new_res)

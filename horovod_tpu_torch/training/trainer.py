@@ -37,11 +37,17 @@ JAX's errors.
 ``mesh=`` (a `parallel.mesh.Mesh`) and ``param_specs=`` (a function
 ``(module, mesh) -> {name: {dim: axis}}`` such as
 `models.transformer.param_specs`, or such a dict) place the model: the
-port carries live ``data``, ``seq`` and ``expert`` axes. The batch is
-sharded over ``(data, fsdp)``, so every rank of an expert or ``seq`` group
-feeds the same rows, and gradients (expert shards and replicated
-parameters alike) sum over the mesh's gradient group (the ranks that
-differ on ``data``, ``fsdp`` or ``seq``) divided by ``dp``.
+port carries live ``data``, ``fsdp``, ``seq``, ``model`` and ``expert``
+axes; a live ``pipe`` axis raises naming ROADMAP item 12.4 (the
+pipeline). The batch is sharded over ``(data, fsdp)`` (JAX's default
+layout), so every rank of a
+``model``, expert or ``seq`` group feeds the same rows, and gradients
+(``model`` and expert shards and replicated parameters alike) sum over
+the mesh's gradient group (the ranks that differ on ``data``, ``fsdp`` or
+``seq``) divided by ``dp``, once. An ``fsdp`` shard's gradient, already
+summed over ``fsdp`` by the reduce-scatter in its gather's backward, sums
+over the shard gradient group instead (the ranks that differ on ``data``
+or ``seq``), divided by ``dp`` alike.
 
 Sequence parallelism (a live ``seq`` axis of n ranks): ``batch_specs=``
 gives each batch part's layout in the JAX form, ``P(("data", "fsdp"),
@@ -88,6 +94,7 @@ from horovod_tpu_torch.models.transformer import (
 )
 from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.parallel import mesh as mesh_lib
+from horovod_tpu_torch.parallel import sharding as shard_lib
 from horovod_tpu_torch.runtime import derive_seed, resolve_device
 from horovod_tpu_torch.training import feeding, train_state
 from horovod_tpu_torch.training.graphs import StepRunner
@@ -162,11 +169,11 @@ class Trainer:
         reverse: the leaves last-first, the order the backward finishes
         them) or ``"forward"``.
       mesh: a `parallel.mesh.Mesh` (default: every rank on ``data``). A
-        live ``model``, ``fsdp`` or ``pipe`` axis raises naming ROADMAP
-        queue A item 12.4.
-      param_specs: the placements of the parameters on ``mesh``; only
-        ``expert`` placements may be live (others raise naming item 12.4).
-        A module whose MoE layers hold expert shards needs them.
+        live ``pipe`` axis raises naming ROADMAP queue A item 12.4.
+      param_specs: the placements of the parameters on ``mesh``
+        (``model``, ``fsdp`` and ``expert``). A module that holds parameter
+        shards (MoE experts, a `TransformerLM` built on a ``model`` or
+        ``fsdp`` mesh) needs them.
       batch_specs: one layout a batch part, ``(x_spec, y_spec)``, in the
         JAX form (module docstring); required on a live ``seq`` axis.
     """
@@ -380,21 +387,24 @@ class Trainer:
 
     def _place(self) -> None:
         """The parameters' placements on the mesh: each live one must be
-        what the module holds (its MoE layers shard their experts at
-        construction, from the model's own mesh)."""
+        what the module holds (its MoE layers shard their experts and a
+        `TransformerLM` cuts its ``model``/``fsdp`` parts at construction,
+        from the model's own mesh)."""
         mesh = self.mesh
-        sharded = [m for m in self.module.modules()
-                   if getattr(m, "ep", 1) > 1]
-        for m in sharded:
-            if mesh is None or m.mesh.shape != mesh.shape:
+        held = {type(m).__name__: m.mesh if hasattr(m, "ep")
+                else m.sharding.mesh for m in self.module.modules()
+                if getattr(m, "ep", 1) > 1 or getattr(m, "cuts", None)}
+        for kind, m_mesh in held.items():
+            if mesh is None or m_mesh.shape != mesh.shape:
                 raise ValueError(
-                    f"{type(m).__name__} holds its experts sharded over the "
-                    f"mesh {m.mesh!r}: pass that mesh as Trainer(mesh=...)")
+                    f"{kind} holds parameter shards over the mesh "
+                    f"{m_mesh!r}: pass that mesh as Trainer(mesh=...)")
         if self.param_specs is None:
-            if sharded:
+            if held:
                 raise ValueError(
-                    "the module's MoE layers hold expert shards: pass "
-                    "param_specs= (models.transformer.param_specs)")
+                    "the module holds parameter shards (MoE experts, model "
+                    "or fsdp parts): pass param_specs= "
+                    "(models.transformer.param_specs)")
         elif mesh is not None:  # on the pure-data mesh nothing is live
             specs = (self.param_specs(self.module, mesh)
                      if callable(self.param_specs) else self.param_specs)
@@ -414,11 +424,15 @@ class Trainer:
             if hasattr(m, "data_shards"):
                 m.data_shards = self.dp
         if self.placements:
+            named = [(n, p) for n, p in self.module.named_parameters()
+                     if n in self.placements]
             self.tx.placements = {
-                p: {d: mesh.group(ax)
-                    for d, ax in self.placements[name].items()}
-                for name, p in self.module.named_parameters()
-                if name in self.placements}
+                p: shard_lib.rank_cuts(n, self.placements[n], mesh)
+                for n, p in named}
+            self.tx.shard_params = {
+                id(p) for n, p in named
+                if mesh_lib.FSDP_AXIS in self.placements[n].values()}
+            self.tx.shard_group = mesh.shard_grad_group
 
     def discover_metrics(self, sample_x, sample_y=None) -> tuple:
         """The names of the module's sown metrics, from an eval-mode

@@ -449,3 +449,41 @@ def test_seq2seq_slice_refuses_cpu_fallback(no_cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         twin.main()
     assert not horovod_tpu_torch.is_initialized()
+
+
+@pytest.mark.parametrize("mod", [
+    "horovod_tpu_torch.parallel.sharding",
+    "horovod_tpu_torch.parallel.collectives",
+    "horovod_tpu_torch.examples.lm_long_context",
+    "horovod_tpu_torch.models.decoding",
+    "horovod_tpu_torch.training.callbacks",
+])
+def test_tensor_parallel_and_fsdp_slice_is_scanned(mod):
+    """The tensor-parallel and FSDP slice's modules are in both scans."""
+    assert mod in _modules()
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    assert path in _port_files()
+
+
+def test_long_context_twin_refuses_cpu_fallback(no_cuda, monkeypatch):
+    """The long-context twin and a model on a ``model`` mesh default to
+    the card (``HVT_DEVICE`` unset) and raise without CUDA."""
+    from horovod_tpu_torch.examples import lm_long_context as twin
+    from horovod_tpu_torch.models.transformer import (
+        ShardingConfig, TransformerLM,
+    )
+    from horovod_tpu_torch.parallel import mesh
+
+    layout = mesh.build_mesh(mesh.MeshSpec(data=1, model=2), n_ranks=2,
+                             rank=0)
+    kw = dict(vocab_size=16, d_model=8, n_heads=2, n_layers=1,
+              sharding=ShardingConfig(mesh=layout))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerLM(**kw)
+    assert TransformerLM(**kw, device="cpu").device.type == "cpu"
+    for name in ("HVT_COORDINATOR_ADDRESS", "HVT_NUM_PROCESSES",
+                 "HVT_PROCESS_ID", "HVT_DEVICE", "HVT_MESH"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        twin.main()
+    assert not horovod_tpu_torch.is_initialized()

@@ -9,7 +9,7 @@ on the same knobs from the same weights (the twin's seed-0 weights through
 * its tokenizer file and its encoded ``(src, tgt_in, labels)`` arrays are
   byte-equal to the JAX script's;
 * its first step's loss (before any update) equals the JAX script's;
-* ``HVT_MESH="data=4,model=2"`` raises naming ROADMAP 12.4, and the twin
+* ``HVT_MESH="data=4,model=2"`` raises naming ROADMAP item 18, and the twin
   refuses to fall back to the CPU silently (`tests/test_torch_isolation.py`).
 
 Tolerance: both scripts compute in f32; the first loss within 1e-5
@@ -198,5 +198,5 @@ def test_twin_prints_the_jax_lines_from_the_same_data(tmp_path):
 def test_a_live_model_axis_is_refused(monkeypatch):
     monkeypatch.setenv("HVT_MESH", "data=4,model=2")
     monkeypatch.setenv("HVT_DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match="12.4"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         twin_mod.main()
