@@ -321,7 +321,23 @@ Phases (any failed check exits non-zero before the result line):
       (about half);
    (b and c, checks with no timing read, are launched beside 12b-d and
    joined here);
-21. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
+21. the pipeline (no new kernel: the handoffs are point-to-point sends
+   and the output and input-cotangent broadcasts collectives around
+   B1-B3), each part a ``phase21*`` line with the card:
+   a. B1, B2 and B3 at a microbatch's attention ([2, 1024, 8, 64] bf16
+      causal, tc) against their plain versions at phases 3/4's
+      tolerances, timed beside the bound and SDPA;
+   b. the bench LM as a bf16 ``PipelinedLM`` at ``data=1,pipe=2``, two
+      gloo ranks sharing the card (launched beside 12b-d, joined here),
+      GPipe, 1F1B and the interleaved schedule in one launch, 4 eager
+      steps of 8 × 1024 in 4 microbatches each: the first batch's
+      gradient before any step within a tenth of the one-rank gradient's
+      norm, leaf by leaf, the losses within one bf16 ulp of one rank's on
+      the same batches and weights, each parameter within 0.06 of the
+      one-rank update's norm, (L/S) × n_micro launches of each kernel a
+      step a rank (1F1B: B1 twice that), all tc, the tick counts, each rank's peak memory by
+      schedule;
+22. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
@@ -356,6 +372,14 @@ profiled replays beside the dense LM on one card; the replicated
 parameters bit-equal on every rank; then the twin of
 ``examples/lm_long_context.py`` at its defaults on ``HVT_MESH=
 "seq=2,model=2"``, its recall report and greedy exact match printed.
+21c (``--ranks 4`` after 20d; alone with ``--pp-only``) trains the
+bench-width ``PipelinedLM`` at ``data=1,pipe=4`` on NCCL under each
+schedule, 8 microbatches, eager steps (rank 0 says so in one line): ms
+a step, tokens/s a card, and
+each stage's busy share (its kernels but NCCL's, which spin while they
+wait for the peer) and idle share over 5 profiled steps beside the tick
+model's bubble (S − 1)/(v·T + S − 1); then the twin at ``HVT_MESH=
+"data=1,pipe=2,model=2" SCHEDULE=1f1b``, its recall report printed.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -5843,14 +5867,16 @@ print("tp_child", json.dumps(res), flush=True)
 TP_MODEL = dict(MODEL, compute_dtype="bfloat16", fused_head_chunks=8)
 
 
-def tp_batches(steps):
-    """20b-d's global batches: TRAIN_BATCH rows of copy_task(4096,
-    TRAIN_SEQ) drawn with replacement from RandomState(20) a step."""
+def tp_batches(steps, seq=None, vocab=None):
+    """20b-d's and 21's global batches: TRAIN_BATCH rows of
+    copy_task(4096, TRAIN_SEQ) drawn with replacement from RandomState(20)
+    a step (``seq``/``vocab`` other than the bench's rehearse on the
+    CPU)."""
     import numpy as np
 
     from horovod_tpu_torch.data.datasets import copy_task
 
-    x, y = copy_task(4096, TRAIN_SEQ, MODEL["vocab_size"])
+    x, y = copy_task(4096, seq or TRAIN_SEQ, vocab or MODEL["vocab_size"])
     rng = np.random.RandomState(20)
     out = []
     for _ in range(steps):
@@ -5860,15 +5886,22 @@ def tp_batches(steps):
 
 
 def tp_kernels(torch, card):
-    """20a: B1, B2 and B3 at TP_ATTN_SHAPE bf16 causal on the tensor-core
-    route, each against its plain version on the same inputs and timed
-    beside its plain version, its bound and SDPA."""
+    """20a: B1, B2 and B3 at TP_ATTN_SHAPE (a model = 2 rank's local
+    heads), `shape_kernels`."""
+    return shape_kernels(torch, TP_ATTN_SHAPE, "20a", "model=2 local heads",
+                         20)
+
+
+def shape_kernels(torch, shape, phase, note, seed):
+    """B1, B2 and B3 at ``shape`` bf16 causal on the tensor-core route,
+    each against its plain version on the same inputs (phases 3/4's
+    tolerances) and timed beside its plain version, its bound and SDPA."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    b, t, h, d = TP_ATTN_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(20)
+    b, t, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                      .to(torch.bfloat16) for _ in range(4))
     masks = dict(causal=True, window=None, sinks=0, q_offset=None)
@@ -5882,15 +5915,15 @@ def tp_kernels(torch, card):
                *fa._launch_dkv(q, k, v, dout, lse, delta, None, None, masks))
         torch.cuda.synchronize()
         check((fa.launches_tc, fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
-              == tuple(n + 1 for n in tc0), "20a: B1-B3 not on tc")
+              == tuple(n + 1 for n in tc0), f"{phase}: B1-B3 not on tc")
         ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
         o_err = (out.float() - ref_o.float()).abs()
         check(bool((o_err <= tol["o_atol"] + tol["o_rtol"]
                     * ref_o.float().abs()).all()),
-              f"20a: O differs from the plain version (max abs "
+              f"{phase}: O differs from the plain version (max abs "
               f"{float(o_err.max()):.3g})")
         lse_err = float((lse - ref_lse).abs().max())
-        check(lse_err <= tol["lse"], f"20a: lse err {lse_err:.3g}")
+        check(lse_err <= tol["lse"], f"{phase}: lse err {lse_err:.3g}")
         checks["flash_fwd_sm90"] = {"o_max_abs_err": float(o_err.max()),
                                     "lse_max_abs_err": lse_err}
         want = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta),
@@ -5900,7 +5933,7 @@ def tp_kernels(torch, card):
             err = (g.float() - w).abs()
             atol = gtol["atol_of_max"] * float(w.abs().max())
             check(bool((err <= atol + gtol["rtol"] * w.abs()).all()),
-                  f"20a: {gname} differs from the plain version (max abs "
+                  f"{phase}: {gname} differs from the plain version (max abs "
                   f"{float(err.max()):.3g})")
             key = ("flash_bwd_dq_sm90" if gname == "dq"
                    else "flash_bwd_dkv_sm90")
@@ -5933,15 +5966,15 @@ def tp_kernels(torch, card):
             bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
                                            causal=True, kernel=work)
             timings[name] = {
-                "shape": f"B{b} T{t} H{h} D{d} causal bf16 (model = 2)",
+                "shape": f"B{b} T{t} H{h} D{d} causal bf16 ({note})",
                 "ms": device_ms(torch, kernel, 20),
                 "plain_ms": device_ms(torch, plain, 3),
                 "library_ms": sdpa_fwd if work == "flash_fwd" else sdpa_bwd,
                 "bound_ms": bound, "bound_by": by,
                 "max_abs_err": max(checks[name].values())}
             r = timings[name]
-            log(f"time {name} B{b} T{t} H{h} D{d} causal bf16 [tc, model=2 "
-                f"local heads]: kernel_ms {r['ms']:.5f} plain_ms "
+            log(f"time {name} B{b} T{t} H{h} D{d} causal bf16 [tc, {note}]: "
+                f"kernel_ms {r['ms']:.5f} plain_ms "
                 f"{r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} "
                 f"bound_ms {r['bound_ms']:.5f} ({by})")
     return {"checks": checks, "timings": timings}
@@ -6193,6 +6226,426 @@ def tp_multi_card(torch, card, ranks):
     return res
 
 
+# -- phase 21 ----------------------------------------------------------------
+
+# Phase 21: the pipeline (no new kernel: the handoffs are point-to-point
+# sends and the output and input-cotangent broadcasts collectives; every
+# stage runs B1 forward and B2/B3 backward a layer and a microbatch, and
+# 1F1B's recompute runs B1 a second time).
+# 21a: B1-B3 at a microbatch's attention ([2, 1024, 8, 64]: the 8 × 1024
+# rows of a step in PP_MICRO microbatches) bf16 causal (tc), against their
+# plain versions at phases 3/4's tolerances and timed beside the bound and
+# SDPA.
+PP_ATTN_SHAPE = (2, 1024, 8, 64)
+# 21b: the bench LM as a bf16 `PipelinedLM` (the JAX model: f32 logits
+# head, sparse cross-entropy; AdamW 3e-4) at data=1,pipe=2, two gloo ranks
+# sharing the card, under GPipe, 1F1B and the interleaved schedule
+# (n_virtual 2) in one launch, PP_STEPS eager steps of 8 × 1024
+# (`tp_batches`) in PP_MICRO microbatches, against one rank on the same
+# batches from the same seed-0 weights (in logical order for the
+# interleaved placement): the first batch's gradient before any step
+# within PP_GRAD_RTOL of the one-rank gradient's norm, leaf by leaf (AdamW's
+# m/√v takes out any per-leaf scale, so a gradient S× or 1/S too large
+# shows here and nowhere after: a relative error of 1 or 1/2); the losses
+# within one bf16 ulp (2^-8) of the one-rank loss (a microbatch's GEMMs
+# round as the whole batch's may not); each parameter within PP_UPDATE_RTOL
+# of the one-rank update's norm (a wrong stage order or handoff leaves the
+# updates uncorrelated, about √2; sound runs read 0.0152-0.0154 on the
+# card, so the limit is four times that); each kernel launched (L/S) ×
+# PP_MICRO times a step a rank (1F1B: B1 twice that), all tc; each rank's
+# peak memory under each schedule. The gloo step ms are host staging, not
+# speed.
+PP_MODEL = dict(vocab_size=MODEL["vocab_size"], d_model=MODEL["d_model"],
+                n_heads=MODEL["n_heads"], n_layers=MODEL["n_layers"],
+                compute_dtype="bfloat16")
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PP_VIRTUAL = 2  # the PipelinedLM default
+PP_STEPS, PP_MICRO = 4, 4
+PP_LOSS_RTOL, PP_UPDATE_RTOL, PP_GRAD_RTOL = 2.0 ** -8, 0.06, 0.1
+# 21c (--ranks 4; alone with --pp-only): the same model at data=1,pipe=4
+# on NCCL under each schedule, PP_4_MICRO microbatches, PP_4_STEPS eager
+# steps (the pipelined step is not captured), then PP_4_WINDOW more
+# profiled on every rank: step ms, tokens/s a card, and each stage's busy
+# and idle share beside the tick model's bubble (S − 1)/(v·T + S − 1); the
+# stages' losses equal, 1F1B's within PP_LOSS_RTOL of GPipe's (ten steps
+# at 3e-4 move the loss by less than the batches do: no "falls" gate);
+# then the twin of examples/lm_long_context.py at HVT_MESH="data=1,pipe=2,
+# model=2" SCHEDULE=1f1b.
+PP_4_MICRO, PP_4_STEPS, PP_4_WINDOW = 8, 10, 5
+
+PP_CHILD = r"""
+import hashlib, json, os, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import callbacks, runtime
+from horovod_tpu_torch.models import pipelined_lm as tpl
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import collectives, pipeline as tpipe
+from horovod_tpu_torch.parallel import mesh as tmesh, sharding
+
+# SMOKE_DEVICE / SMOKE_MODEL / SMOKE_SEQ rehearse this child on the CPU at a
+# tiny size; the smoke itself runs it on the card at the bench LM's width.
+ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
+r = ht.rank()
+dev = runtime.device()
+cuda = dev.type == "cuda"
+cfg = json.loads(os.environ.get("SMOKE_MODEL") or "null") or cs.PP_MODEL
+steps, n_micro = int(os.environ["SMOKE_STEPS"]), int(os.environ["SMOKE_MICRO"])
+out = os.environ["SMOKE_OUT"]
+mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string(os.environ["SMOKE_MESH"]))
+batches = [sharding.shard_batch(b, mesh) for b in cs.tp_batches(
+    steps, int(os.environ.get("SMOKE_SEQ") or 0), cfg["vocab_size"])]
+COUNTS = {"flash_fwd": "launches", "flash_fwd_tc": "launches_tc",
+          "flash_bwd_dq": "launches_bwd_dq",
+          "flash_bwd_dq_tc": "launches_bwd_dq_tc",
+          "flash_bwd_dkv": "launches_bwd_dkv",
+          "flash_bwd_dkv_tc": "launches_bwd_dkv_tc"}
+
+
+class Clock(callbacks.Callback):
+    def on_train_begin(self, logs=None):
+        self.t, self.logs = [time.perf_counter()], []
+
+    def on_batch_end(self, batch, logs=None):
+        self.logs.append({k: float(v) for k, v in logs.items()})
+        self.t.append(time.perf_counter())
+
+
+res = {"rank": r, "stage": mesh.stage, "coords": mesh.coords}
+for sched in os.environ["SMOKE_SCHEDULES"].split(","):
+    model = tpl.PipelinedLM(**cfg, n_micro=n_micro, mesh=mesh,
+                            schedule=sched, device=dev, seed=0)
+    trainer = ht.Trainer(model, ht.DistributedOptimizer(ht.adamw(3e-4)),
+                         seed=0, mesh=mesh, param_specs=tpl.param_specs,
+                         device=dev)
+    trainer.build()
+    if os.environ.get("SMOKE_GRADS"):
+        grads = cs.pp_first_grads(torch, trainer, batches[0])
+        if r == 0:
+            np.savez(os.path.join(out, f"grads_{sched}.npz"),
+                     **{n: t.numpy() for n, t in grads.items()})
+        del grads
+    clock = Clock()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for attr in COUNTS.values():
+        setattr(fa, attr, 0)
+    sent = collectives.pipe_traffic["bytes"]
+    trainer.fit(dataset=batches, epochs=1, steps_per_epoch=steps,
+                callbacks=[clock, callbacks.MetricAverageCallback()],
+                verbose=0)
+    step_ms = sorted(1e3 * (b - a) for a, b in zip(clock.t[2:], clock.t[3:]))
+    median = step_ms[len(step_ms) // 2] if step_ms else None
+    rec = {"losses": [e["loss"] for e in clock.logs],
+           "launches": {k: getattr(fa, a) for k, a in COUNTS.items()},
+           "eager_steps": trainer._runner.eager_steps,
+           "captures": trainer._runner.captures,
+           "step_ms_median": median,
+           "tokens_per_s": (cs.TRAIN_BATCH * cs.TRAIN_SEQ / (median / 1e3)
+                            if median else None),
+           "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                               if cuda else None),
+           "ticks": tpipe.stats["ticks"],
+           "backward_ticks": tpipe.stats["backward_ticks"],
+           "passes_a_step": [len(tpipe.stats["forward"]),
+                             len(tpipe.stats["backward"])],
+           "handoff_bytes_per_step":
+               (collectives.pipe_traffic["bytes"] - sent) / steps}
+    if os.environ.get("SMOKE_PROFILE"):
+        window = cs.PP_4_WINDOW
+
+        def fit(cbs):
+            trainer.fit(dataset=batches[:2 * window], epochs=1,
+                        steps_per_epoch=2 * window, callbacks=cbs, verbose=0)
+
+        prof, host_ms = cs.profiled_fit(torch, fit, window, window)
+        per, by_name = cs._per_step(torch, prof, window, host_ms)
+        # NCCL's kernels spin while they wait for the peer stage: their
+        # time is the stage's wait, not its work.
+        nccl = sum(ms for k, ms in by_name.items() if "nccl" in k) / window
+        rec["profile"] = dict(per, host_ms_per_step=host_ms,
+                              nccl_ms_per_step=nccl)
+    # The replicated leaves (embedding, ln_f, head) take their whole
+    # gradient on every stage: they must stay bit-equal across the stages.
+    rec["replicated_sha256"] = hashlib.sha256(b"".join(
+        p.detach().float().cpu().numpy().tobytes()
+        for n, p in model.named_parameters()
+        if n not in trainer.placements)).hexdigest()
+    full = trainer.state.full_model_state()
+    if r == 0:
+        np.savez(os.path.join(out, f"full_{sched}.npz"),
+                 **{n: t.detach().float().cpu().numpy()
+                    for n, t in full.items()})
+    res[sched] = rec
+    del model, trainer, full
+    if cuda:
+        torch.cuda.empty_cache()
+print("pp_child", json.dumps(res), flush=True)
+"""
+
+
+def pp_child_run(name, nprocs, mesh, steps, n_micro, backend,
+                 schedules=PP_SCHEDULES, profile=False, grads=False):
+    """One launch of PP_CHILD; returns (per-rank records, by schedule rank
+    0's whole ``params`` after the fit and, with ``grads``, the first
+    batch's whole ``grads`` before it, wall seconds, the eager-step log
+    lines)."""
+    import numpy as np
+
+    out = os.path.join(WORK, name + "_out")
+    os.makedirs(out, exist_ok=True)
+    knobs = {"SMOKE_STEPS": str(steps), "SMOKE_MICRO": str(n_micro),
+             "SMOKE_MESH": mesh, "SMOKE_SCHEDULES": ",".join(schedules),
+             "SMOKE_OUT": out, "HVT_BACKEND": backend,
+             "SMOKE_PROFILE": "1" if profile else "",
+             "SMOKE_GRADS": "1" if grads else "",
+             "PYTHONUNBUFFERED": "1"}
+    lines, wall, _, _ = _launch(name, nprocs, None, knobs, code=PP_CHILD,
+                                timeout=900)
+    recs = [json.loads(_rank_line(lines, "pp_child ", r))
+            for r in range(nprocs)]
+    fulls = {s: {what: dict(np.load(os.path.join(out, f"{f}_{s}.npz")))
+                 for what, f in (("params", "full"), ("grads", "grads"))
+                 if what == "params" or grads}
+             for s in schedules}
+    eager = [ln for ln in lines if "pipelined step runs eagerly" in ln]
+    return recs, fulls, wall, eager
+
+
+def pp_start():
+    """21b, launched in a thread (two gloo ranks sharing the card);
+    `pp_phase` joins it."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(pp_child_run, "pp_pipe2", 2, "data=1,pipe=2", PP_STEPS,
+                      PP_MICRO, "gloo", grads=True)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def pp_first_grads(torch, trainer, batch):
+    """The gradient of ``trainer``'s loss on ``batch`` (the global batch:
+    data = 1) before any step, by parameter name as f32 CPU tensors: on a
+    pipe mesh the stacks gathered over it (a collective), the replicated
+    leaves as every stage holds them (whole). The module's gradients are
+    cleared before and after."""
+    from horovod_tpu_torch.models.convert import gather_state_dict
+
+    model = trainer.module
+    x, y = (torch.as_tensor(a, device=trainer.device) for a in batch)
+    model.zero_grad(set_to_none=True)
+    trainer.loss_fn(model(x), y).mean().backward()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    if model.cuts:
+        grads = gather_state_dict(grads, model.mesh, model.cuts)
+    model.zero_grad(set_to_none=True)
+    return {n: g.float().cpu() for n, g in grads.items()}
+
+
+def pp_one_rank(torch):
+    """The one-rank runs 21b is held against: the first batch's gradient,
+    then PP_STEPS eager steps of the same batches from the seed-0 weights,
+    as stored (GPipe, 1F1B) and in logical order (the interleaved
+    placement at pipe = 2). Returns ``{order: (losses, start, end,
+    grads)}``, parameters and gradients in the stored order."""
+    from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw
+    from horovod_tpu_torch.models import pipelined_lm as tpl
+
+    L = PP_MODEL["n_layers"]
+    stored = tpl.PipelinedLM(**PP_MODEL, n_micro=PP_MICRO, device="cpu",
+                             seed=0).state_dict()
+    out = {}
+    for order in ("stored", "logical"):
+        sd = (stored if order == "stored"
+              else tpl.to_logical_order(stored, L, 2, PP_VIRTUAL))
+        model = tpl.PipelinedLM(**PP_MODEL, n_micro=PP_MICRO, device=DEVICE)
+        model.load_state_dict(sd)
+        trainer = Trainer(model, DistributedOptimizer(adamw(3e-4)), seed=0,
+                          device=DEVICE)
+        grads = pp_first_grads(torch, trainer, tp_batches(
+            1, vocab=PP_MODEL["vocab_size"])[0])
+        hist = trainer.fit(dataset=tp_batches(
+            PP_STEPS, vocab=PP_MODEL["vocab_size"]), epochs=PP_STEPS,
+            steps_per_epoch=1, verbose=0, _eager=True)
+        end = {n: p.detach().float().cpu()
+               for n, p in model.named_parameters()}
+        if order == "logical":
+            end = tpl.to_interleaved_order(end, L, 2, PP_VIRTUAL)
+            grads = tpl.to_interleaved_order(grads, L, 2, PP_VIRTUAL)
+        out[order] = ([e["loss"] for e in hist],
+                      {n: t.numpy() for n, t in stored.items()},
+                      {n: t.numpy() for n, t in end.items()},
+                      {n: t.numpy() for n, t in grads.items()})
+        del model, trainer
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _pp_held(sched, recs, full, one, stages):
+    """21b's schedule ``sched`` against the one-rank run: the first
+    gradients, losses, parameters, launches, ticks. ``full``: rank 0's
+    whole ``params`` and ``grads`` (`pp_child_run`)."""
+    import numpy as np
+
+    losses, start, end, grads = one
+    g_err, g_ratio = {}, {}
+    for n, g in grads.items():
+        norm = max(float(np.linalg.norm(g)), 1e-30)
+        g_err[n] = float(np.linalg.norm(full["grads"][n] - g)) / norm
+        g_ratio[n] = float(np.linalg.norm(full["grads"][n])) / norm
+    glob = [float(np.mean([r[sched]["losses"][i] for r in recs]))
+            for i in range(PP_STEPS)]
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(glob, losses))
+    ratios = {}
+    for n, p in end.items():
+        moved = float(np.linalg.norm(p - start[n]))
+        ratios[n] = (float(np.linalg.norm(full["params"][n] - p))
+                     / max(moved, 1e-30))
+    per_step = PP_MODEL["n_layers"] // stages * PP_MICRO
+    want = {k: PP_STEPS * per_step * (2 if sched == "1f1b" and k ==
+                                      "flash_fwd" else 1)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    v = PP_VIRTUAL if sched == "interleaved" else 1
+    res = {"schedule": sched, "ranks": len(recs), "losses": glob,
+           "one_rank_losses": losses, "loss_max_rel_err": worst_loss,
+           "grad_rel_err_max": max(g_err.values()),
+           "grad_rel_err_median": sorted(g_err.values())[len(g_err) // 2],
+           "grad_worst_parameter": max(g_err, key=g_err.get),
+           "grad_norm_ratio_range": [min(g_ratio.values()),
+                                     max(g_ratio.values())],
+           "update_rel_err_max": max(ratios.values()),
+           "update_rel_err_median": sorted(ratios.values())[len(ratios) // 2],
+           "worst_parameter": max(ratios, key=ratios.get),
+           "launches": [r[sched]["launches"] for r in recs],
+           "launches_want_a_rank": want,
+           "ticks": [r[sched]["ticks"] for r in recs],
+           "passes_a_step": [r[sched]["passes_a_step"] for r in recs],
+           "handoff_bytes_per_step": [r[sched]["handoff_bytes_per_step"]
+                                      for r in recs],
+           "eager_steps": [r[sched]["eager_steps"] for r in recs],
+           "step_ms_median_gloo_staging_not_speed": [
+               r[sched]["step_ms_median"] for r in recs],
+           "peak_memory_gib": [r[sched]["peak_memory_gib"] for r in recs]}
+    check(res["grad_rel_err_max"] <= PP_GRAD_RTOL,
+          f"21b {sched}: the first gradients differ from one rank's: {res}")
+    check(worst_loss <= PP_LOSS_RTOL,
+          f"21b {sched}: the losses differ from one rank's: {res}")
+    check(res["update_rel_err_max"] <= PP_UPDATE_RTOL,
+          f"21b {sched}: the parameters differ from one rank's: {res}")
+    check(all(r[sched]["launches"][k] == r[sched]["launches"][k + "_tc"]
+              == n for r in recs for k, n in want.items()),
+          f"21b {sched}: B1-B3 launched other than {want} on tc a rank: "
+          f"{res['launches']}")
+    check(all(t == v * PP_MICRO + stages - 1 for t in res["ticks"]),
+          f"21b {sched}: ticks {res['ticks']}, want v·T + S − 1")
+    check(all(n == PP_STEPS for n in res["eager_steps"]),
+          f"21b {sched}: want {PP_STEPS} eager steps a rank")
+    check(len({r[sched]["replicated_sha256"] for r in recs}) == 1,
+          f"21b {sched}: the replicated parameters differ between stages")
+    return res
+
+
+def pp_phase(torch, card, fut=None):
+    """Phase 21: the pipeline. 21a's kernels are timed alone; 21b runs in
+    a launched process (``fut``, from an earlier `pp_start`, or started
+    here), held against its one-rank references, which run here."""
+    t0 = time.perf_counter()
+    res = {"a": shape_kernels(torch, PP_ATTN_SHAPE, "21a",
+                              "a pipeline microbatch", 21)}
+    log("phase21a", json.dumps(dict(res["a"], card=card)))
+    fut = fut or pp_start()
+    one = pp_one_rank(torch)
+    recs, fulls, wall, _ = fut.result()
+    res["b"] = {}
+    for sched in PP_SCHEDULES:
+        order = "logical" if sched == "interleaved" else "stored"
+        res["b"][sched] = dict(_pp_held(sched, recs, fulls[sched],
+                                        one[order], 2),
+                               launch_wall_s=wall, card=card)
+        log(f"phase21b {sched}", json.dumps(res["b"][sched]))
+    log("phase21b_memory", json.dumps({
+        sched: res["b"][sched]["peak_memory_gib"] for sched in PP_SCHEDULES}
+        | {"card": card}))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase21 seconds: {res['seconds']:.1f}")
+    return res
+
+
+def pp_multi_card(torch, card, ranks):
+    """21c (``--ranks 4``): the bench-width PipelinedLM at data=1,pipe=4
+    on NCCL under each schedule — step ms, tokens/s a card, each stage's
+    busy and idle share beside the tick model's bubble — then the twin at
+    ``data=1,pipe=2,model=2`` with ``SCHEDULE=1f1b``."""
+    check(ranks == 4, "21c runs at --ranks 4")
+    t0 = time.perf_counter()
+    recs, _, wall, eager = pp_child_run("pp_4card", 4, "data=1,pipe=4",
+                                        PP_4_STEPS, PP_4_MICRO, "nccl",
+                                        profile=True)
+    # Under NCCL a step would be captured: the pipelined one runs eagerly
+    # and rank 0 says so once (under gloo every such step is eager).
+    check(len(eager) == 1, f"21c: want one eager-step log line, got {eager}")
+    res = {"mesh": "data=1,pipe=4", "n_micro": PP_4_MICRO,
+           "eager_line": eager[0], "launch_wall_s": wall, "card": card}
+    for sched in PP_SCHEDULES:
+        v = PP_VIRTUAL if sched == "interleaved" else 1
+        runs = [r[sched] for r in sorted(recs, key=lambda r: r["stage"])]
+        losses = runs[0]["losses"]
+        prof = [r["profile"] for r in runs]
+        work = [(p["device_busy_ms_per_step"] - p["nccl_ms_per_step"])
+                / p["host_ms_per_step"] for p in prof]
+        step = max(r["step_ms_median"] for r in runs)
+        res[sched] = {
+            "losses": losses, "step_ms_median": step,
+            "tokens_per_s_per_card": TRAIN_BATCH * TRAIN_SEQ / (step / 1e3)
+            / ranks,
+            "host_ms_per_step_profiled": [p["host_ms_per_step"]
+                                          for p in prof],
+            "device_busy_share_nccl_waits_included_by_stage": [
+                p["device_busy_share"] for p in prof],
+            "nccl_ms_per_step_by_stage": [p["nccl_ms_per_step"]
+                                          for p in prof],
+            "busy_share_by_stage": work,
+            "idle_share_by_stage": [1.0 - w for w in work],
+            "tick_model_bubble": (ranks - 1) / (v * PP_4_MICRO + ranks - 1),
+            "peak_memory_gib_by_stage": [r["peak_memory_gib"] for r in runs],
+            "handoff_bytes_per_step_by_stage": [
+                r["handoff_bytes_per_step"] for r in runs],
+            "top_kernels_stage0": prof[0]["top_kernels_ms_per_step"],
+            "eager_steps": [r["eager_steps"] for r in runs]}
+        check(all(map(math.isfinite, losses))
+              and all(r["losses"] == losses for r in runs),
+              f"21c {sched}: the stages' losses differ or are not finite: "
+              f"{[r['losses'] for r in runs]}")
+        check(len({r["replicated_sha256"] for r in runs}) == 1,
+              f"21c {sched}: the replicated parameters differ between "
+              "stages")
+        log(f"phase21c {sched}", json.dumps(dict(res[sched], card=card)))
+    # GPipe and 1F1B compute one function from one start: a step apart by
+    # rounding only (the interleaved stacks are another layer order).
+    worst = max(abs(a - b) / abs(b) for a, b in zip(
+        res["1f1b"]["losses"], res["gpipe"]["losses"]))
+    check(worst <= PP_LOSS_RTOL,
+          f"21c: 1F1B's losses are {worst:.3g} from GPipe's")
+    twin_lines, twin_wall, _, _ = _launch(
+        "pp_twin", 4, "lm_long_context",
+        {"HVT_MESH": "data=1,pipe=2,model=2", "SCHEDULE": "1f1b",
+         "HVT_BACKEND": "nccl", "PYTHONUNBUFFERED": "1"}, timeout=900)
+    report = [ln for ln in twin_lines if ln.startswith("[rank 0] ") and any(
+        k in ln for k in ("first-half", "recall-half", "long-range recall"))]
+    check(len(report) == 3, f"21c: the twin printed no full report: {report}")
+    res["twin"] = {"mesh": "data=1,pipe=2,model=2", "schedule": "1f1b",
+                   "report": report,
+                   "epochs": [ln for ln in twin_lines
+                              if ln.startswith("[rank 0] Epoch")],
+                   "launch_wall_s": twin_wall, "card": card}
+    log("phase21c_twin", json.dumps(res["twin"]))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
 KERNELS = {
@@ -6243,7 +6696,8 @@ def reduction_multi_card(torch, card, ranks: int):
 
 
 def multi_card(torch, ranks: int, reduction_only: bool = False,
-               moe_only: bool = False, tp_only: bool = False) -> int:
+               moe_only: bool = False, tp_only: bool = False,
+               pp_only: bool = False) -> int:
     """``--ranks N``: only the MNIST twins and the CIFAR ResNet-20 twin
     with its breakdown and graph-against-eager check, phase 15b's runs and
     phase 17e, at N NCCL ranks, one card each (the multi-rank NCCL path one
@@ -6251,19 +6705,22 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
     all-reduces inside each rank's captured step; the expert group's sums
     inside the MoE step), then the result line. ``reduction_only``: phase
     15b's runs alone; ``moe_only``: phase 17e alone; ``tp_only``: phase
-    20d alone."""
+    20d alone; ``pp_only``: phase 21c alone."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
               f"--ranks {ranks} needs {ranks} cards, this host has "
               f"{torch.cuda.device_count()}")
         card = toolchain(torch)
-        if moe_only or tp_only:
+        only = moe_only or tp_only or pp_only
+        if only:
             build_kernels()
             if moe_only:
                 moe_multi_card(torch, card, ranks)
-            else:
+            elif tp_only:
                 tp_multi_card(torch, card, ranks)
+            else:
+                pp_multi_card(torch, card, ranks)
         elif not reduction_only:
             mnist_tf2(torch, ranks, cut={})
             mnist_tf1(torch, ranks, cut={})
@@ -6274,14 +6731,15 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
             cifar_graph_vs_eager(torch, ranks)
             log("phase16", json.dumps(dict(
                 pod_twin(["127.0.0.1"], ranks, "nccl"), card=card)))
-        if not (moe_only or tp_only):
+        if not only:
             reduction_multi_card(torch, card, ranks)
-        if not (reduction_only or moe_only or tp_only):
+        if not (reduction_only or only):
             moe = moe_multi_card(torch, card, ranks)
             if ranks == 4:
                 seq_multi_card(torch, card, ranks,
                                moe["dense_tokens_per_s_per_card"])
                 tp_multi_card(torch, card, ranks)
+                pp_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6312,6 +6770,11 @@ def main(argv=None) -> int:
         "--tp-only", action="store_true",
         help="with --ranks 4: only phase 20d (tensor parallelism and FSDP "
              "on NCCL, then the long-context twin)")
+    parser.add_argument(
+        "--pp-only", action="store_true",
+        help="with --ranks 4: only phase 21c (the pipeline at pipe = 4 on "
+             "NCCL under each schedule, then the long-context twin's pipe "
+             "branch)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -6327,7 +6790,7 @@ def main(argv=None) -> int:
     os.makedirs(WORK)
     if args.ranks > 1:
         return multi_card(torch, args.ranks, args.reduction_only,
-                          args.moe_only, args.tp_only)
+                          args.moe_only, args.tp_only, args.pp_only)
     t_start = time.perf_counter()
     laps, last = {}, [t_start]
 
@@ -6370,13 +6833,14 @@ def main(argv=None) -> int:
         # at once, beside 20b and 20c's launches (checks; their gloo step
         # ms are host staging, not speed), which phase 20 joins.
         tp_futs = tp_start()
+        pp_fut = pp_start()
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             for fut in [pool.submit(cifar_graph_vs_eager, torch),
                         pool.submit(sync_bn_on_card, torch),
                         pool.submit(cifar_vit, torch),
                         pool.submit(mnist_2rank, torch)]:
                 fut.result()
-        lap("12b-d cifar, 10 mnist_2rank, 20b-c launched")
+        lap("12b-d cifar, 10 mnist_2rank, 20b-c and 21b launched")
         decode = decode_phase(torch)
         lap("13 decode")
         tier = serve_tier(torch, card)
@@ -6396,6 +6860,8 @@ def main(argv=None) -> int:
         lap("19 seq2seq")
         tp = tp_phase(torch, card, tp_futs)
         lap("20 tp/fsdp")
+        pp = pp_phase(torch, card, pp_fut)
+        lap("21 pipeline")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6511,6 +6977,14 @@ def main(argv=None) -> int:
                 part: [r[key] for r in tp[part]["launches"]]
                 for part in ("b", "c")}
             entry["tp_local_heads"] = tp["a"]["timings"][name]
+            # Phase 21b: the bench-width PipelinedLM at pipe = 2, two gloo
+            # ranks, PP_STEPS eager steps a schedule: (L/S) × n_micro a
+            # step a rank (1F1B's recompute: B1 twice that), all on the
+            # tensor-core route; 21a: this kernel at a microbatch's shape.
+            entry["launches_pipeline"] = {
+                sched: [r[key] for r in pp["b"][sched]["launches"]]
+                for sched in PP_SCHEDULES}
+            entry["pipeline_microbatch"] = pp["a"]["timings"][name]
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]

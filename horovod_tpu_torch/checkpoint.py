@@ -386,17 +386,26 @@ PROGRAM_FILE = "model.pt2"
 EXPORT_FORMAT = registry.knob("HVT_EXPORT_FORMAT").default
 
 
-def refuse_sharded_export(module, what: str) -> None:
-    """Raise `ValueError` for a module that holds parameter shards over a
-    mesh (`model`/`fsdp` parts, expert shards): its forward runs
-    collectives and its state is this rank's part, neither of which an
-    export can hold."""
-    if any(getattr(m, "cuts", None) or getattr(m, "ep", 1) > 1
-           for m in module.modules()):
+def gather_for_export(module, what: str, timestamp: str | None):
+    """``(module, timestamp, writes)`` for an export. A module that holds
+    parameter shards over a mesh (``pipe``/``model``/``fsdp`` parts,
+    expert shards), whose forward runs collectives, is gathered into its
+    `unsharded` clone — a collective, as JAX's ``gather_to_host``: every
+    rank calls the export, the ranks agree on the primary's timestamp, and
+    only the primary writes (``writes``). Any other module is exported as
+    it is by whoever calls (the caller gates the rank). A sharded module
+    with no ``unsharded`` raises `ValueError`."""
+    stamp = timestamp or time.strftime("%Y%m%d-%H%M%S")
+    if not any(getattr(m, "cuts", None) or getattr(m, "ep", 1) > 1
+               for m in module.modules()):
+        return module, stamp, True
+    if not hasattr(module, "unsharded"):
         raise ValueError(
-            f"{what}: the module holds parameter shards over a mesh and its "
-            "forward runs collectives; export module.unsharded() (a "
-            "collective: every rank calls it, the primary exports)")
+            f"{what}: the module holds parameter shards over a mesh and has "
+            "no unsharded() to gather them whole")
+    whole = module.unsharded()
+    return (whole, collectives.broadcast_object(stamp, root=0),
+            runtime.is_primary())
 
 
 class _Predict(torch.nn.Module):
@@ -418,10 +427,9 @@ def export_serving(export_dir: str, module, input_shape: tuple,
     dynamic batch dimension, traced on the module's device, plus
     ``signature.json``. Primary-rank-only by convention (the caller gates,
     like the reference's ``if hvd.rank() == 0``). A model that holds
-    parameter shards raises: its forward runs collectives over the mesh,
-    which an exported program cannot; export its `unsharded` clone (every
-    rank gathers, the primary exports)."""
-    refuse_sharded_export(module, "export_serving")
+    parameter shards over a mesh is exported gathered: every rank calls,
+    the primary writes (`gather_for_export`); every rank returns the
+    bundle's directory."""
     if format != EXPORT_FORMAT:
         raise NotImplementedError(
             f"export format {format!r} is not ported — the port exports "
@@ -429,8 +437,11 @@ def export_serving(export_dir: str, module, input_shape: tuple,
             "savedmodel formats stay refused, since writing them needs jax "
             "or TensorFlow, which the port does not import"
         )
-    stamp = timestamp or time.strftime("%Y%m%d-%H%M%S")
+    module, stamp, writes = gather_for_export(module, "export_serving",
+                                              timestamp)
     out_dir = os.path.join(export_dir, stamp)
+    if not writes:
+        return out_dir
     os.makedirs(out_dir, exist_ok=True)
     dev = next(module.parameters()).device
     dtype = getattr(torch, np.dtype(input_dtype).name)

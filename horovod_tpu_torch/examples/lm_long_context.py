@@ -1,6 +1,5 @@
 """Long-context LM training with sequence + tensor parallelism — the twin
-of the JAX package's ``examples/lm_long_context.py`` (its `TransformerLM`
-branch).
+of the JAX package's ``examples/lm_long_context.py``.
 
 A decoder-only transformer whose activations are sharded along the mesh's
 ``seq`` axis (attention as the flash ring, or Ulysses), whose projections
@@ -27,20 +26,34 @@ Run (one process a rank, through the port's launcher):
         horovod_tpu_torch.launch run --nprocs 8 -- \\
         python -m horovod_tpu_torch.examples.lm_long_context
 
+Pipeline parallelism: a ``pipe`` axis switches to the pipelined model
+(`models.pipelined_lm.PipelinedLM`: stage stacks over ``pipe``, the GPipe
+schedule or ``SCHEDULE=1f1b``, ``N_MICRO`` microbatches, Megatron TP
+inside each stage when ``model`` > 1), as the JAX script does:
+
+    HVT_MESH="data=2,pipe=4" N_MICRO=8 python -m horovod_tpu_torch.launch \\
+        run --nprocs 8 -- python -m horovod_tpu_torch.examples.lm_long_context
+    HVT_MESH="data=2,pipe=2,model=2" SCHEDULE=1f1b python -m \\
+        horovod_tpu_torch.launch run --nprocs 8 -- \\
+        python -m horovod_tpu_torch.examples.lm_long_context
+
 Knobs, as in the JAX script: HVT_MESH, SEQ_LEN, VOCAB, DMODEL, NLAYERS,
 ATTN (ring|ulysses), REMAT=1, LOGITS=bf16, FUSED_CE=<n_chunks>, MOE_EVERY
 and N_EXPERTS (with the mesh's ``expert`` axis), DRIVE_STEPS,
 DRIVE_EPOCHS, and HVT_DEVICE_CACHE (the device-staged fit, under JAX's
-rule: only where no pipe/seq/model/expert axis is live); plus
-``HVT_DEVICE`` (``cuda``, the default, or ``cpu``). A ``pipe`` axis (the
-JAX script's pipelined model) raises naming ROADMAP queue A item 12.4;
+rule: only where no pipe/seq/model/expert axis is live), and on a ``pipe``
+mesh N_MICRO (default 4) and SCHEDULE (``gpipe``, the default, or
+``1f1b``); plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``). A
+``pipe`` axis with a live ``seq`` axis (the JAX script's pp × sp mesh)
+raises naming ROADMAP queue A item 12.4, the pipeline's second half;
 ``MOE_EVERY`` with a live ``model`` axis raises naming item 18.
 
-The greedy decode: JAX runs it only at ``process_count() == 1``, where its
-params are addressable. The port runs one process a rank, so every rank
-gathers the parameters into an unsharded clone (`TransformerLM.unsharded`,
-a collective) and rank 0 decodes alone. ``main()`` returns the fit's
-history and the report's numbers.
+The greedy decode (the `TransformerLM` branch only, as in JAX): JAX runs it
+only at ``process_count() == 1``, where its params are addressable. The
+port runs one process a rank, so every rank gathers the parameters into an
+unsharded clone (`TransformerLM.unsharded`, a collective) and rank 0
+decodes alone. ``main()`` returns the fit's history and the report's
+numbers (``exact_match`` None where no decode ran).
 """
 
 import os
@@ -52,9 +65,9 @@ import horovod_tpu_torch as hvt
 from horovod_tpu_torch import metrics, runtime
 from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import datasets
+from horovod_tpu_torch.models import pipelined_lm
 from horovod_tpu_torch.models.decoding import generate
 from horovod_tpu_torch.models.transformer import (
-    PIPE_ITEM,
     ShardingConfig,
     TransformerLM,
     param_specs,
@@ -64,11 +77,10 @@ from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 def main():
     spec = mesh_lib.MeshSpec.from_string(os.environ.get("HVT_MESH"))
-    if spec.pipe > 1:
-        raise NotImplementedError(
-            f"HVT_MESH with a live 'pipe' axis ({spec.pipe}) switches the "
-            "JAX script to its pipelined model, which is not ported yet — "
-            f"ROADMAP {PIPE_ITEM}")
+    if spec.pipe > 1 and spec.seq > 1:
+        pipelined_lm.refuse_second_half(
+            f"HVT_MESH with live 'pipe' ({spec.pipe}) and 'seq' "
+            f"({spec.seq}) axes (pp x sp)")
     hvt.init(device=registry.get_str("HVT_DEVICE"))
     metrics.init()
     device = runtime.device()
@@ -76,7 +88,40 @@ def main():
     seq_len = int(os.environ.get("SEQ_LEN", 512))
     vocab = int(os.environ.get("VOCAB", 64))
     attn = os.environ.get("ATTN", "ring")
+    batch_spec = mesh_lib.P(
+        (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS), mesh_lib.SEQ_AXIS
+    )
 
+    if mesh.shape[mesh_lib.PIPE_AXIS] > 1:
+        # pipe > 1 switches to the pipelined model: stage stacks over
+        # `pipe`, the GPipe (or SCHEDULE=1f1b) microbatch schedule,
+        # Megatron TP inside each stage when `model` > 1.
+        model = pipelined_lm.PipelinedLM(
+            vocab_size=vocab,
+            d_model=int(os.environ.get("DMODEL", 256)),
+            n_heads=8,
+            n_layers=int(os.environ.get("NLAYERS", 4)),
+            n_micro=int(os.environ.get("N_MICRO", 4)),
+            mesh=mesh,
+            schedule=os.environ.get("SCHEDULE", "gpipe"),
+            device=device,
+        )
+        trainer = hvt.Trainer(
+            model,
+            hvt.DistributedOptimizer(hvt.adam(3e-3)),
+            loss="sparse_categorical_crossentropy",
+            mesh=mesh,
+            param_specs=pipelined_lm.param_specs,
+            batch_specs=(batch_spec, batch_spec),
+            device=device,
+        )
+    else:
+        trainer = _transformer_trainer(mesh, vocab, attn, batch_spec,
+                                       device)
+    return _train_and_report(trainer, mesh, seq_len, vocab, device)
+
+
+def _transformer_trainer(mesh, vocab, attn, batch_spec, device):
     model = TransformerLM(
         vocab_size=vocab,
         d_model=int(os.environ.get("DMODEL", 256)),
@@ -95,10 +140,7 @@ def main():
         fused_head_chunks=int(os.environ.get("FUSED_CE", 0)),
         device=device,
     )
-    batch_spec = mesh_lib.P(
-        (mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS), mesh_lib.SEQ_AXIS
-    )
-    trainer = hvt.Trainer(
+    return hvt.Trainer(
         model,
         hvt.DistributedOptimizer(hvt.adam(3e-3)),
         loss="module" if int(os.environ.get("FUSED_CE", 0))
@@ -109,6 +151,8 @@ def main():
         device=device,
     )
 
+
+def _train_and_report(trainer, mesh, seq_len, vocab, device):
     x, y = datasets.copy_task(4096, seq_len, vocab_size=vocab, seed=0)
     epochs = int(os.environ.get("DRIVE_EPOCHS", 0)) or 4
     steps = int(os.environ.get("DRIVE_STEPS", 0)) or 64
@@ -157,7 +201,7 @@ def main():
     # must reproduce the repeated half — the recall the loss measures,
     # through the prefill and the captured decode steps (models/decoding).
     exact = None
-    if half > 1:
+    if isinstance(trainer.module, TransformerLM) and half > 1:
         plain = trainer.module.unsharded()  # every rank: a collective
         if hvt.rank() == 0:
             prompt = torch.as_tensor(xt[:8, : half + 1], device=device)

@@ -18,9 +18,17 @@ side:
   ``blocks.i.moe.router.weight [E, d]`` (transposed) and ``moe_up``/
   ``moe_down`` as they are.
 
+`pipelined_params_from_flax` / `pipelined_params_to_flax` carry the JAX
+``PipelinedLM``'s tree across: its stacks (``ln1``, ``qkv [L, d, 3d]``,
+``attn_out``, ``ln2``, ``mlp_up``, ``mlp_down``), ``embed``, ``ln_f`` and
+``lm_head`` keep their names and layouts in `models.pipelined_lm`, so the
+conversion copies arrays.
+
 `shard_state_dict` cuts a full state dict to one rank's placements
-(`models.transformer.param_specs` on a `parallel.mesh.Mesh`; the fused
-``qkv``/``kv_proj`` rows per part by heads, `parallel.sharding`) and
+(`models.transformer.param_specs` or `models.pipelined_lm.param_specs` on
+a `parallel.mesh.Mesh`: a pipelined stack's dim 0 over ``pipe`` and its
+Megatron dim over ``model``; the fused ``qkv``/``kv_proj`` rows of the
+`TransformerLM` per part by heads, `parallel.sharding`) and
 `gather_state_dict` gathers them back; `params_from_flax` of a tree and
 `shard_state_dict` of the result give a rank its shard, and
 `params_to_flax` takes the gathered state.
@@ -121,6 +129,19 @@ def params_to_flax(state_dict, *, n_heads: int) -> dict:
         _put(tree, fk.path,
              np.ascontiguousarray(weight_to_kernel(sd[name], fk)))
     return tree
+
+
+def pipelined_params_from_flax(tree) -> dict:
+    """The JAX ``PipelinedLM``'s (dense) params tree, as numpy arrays →
+    the `models.pipelined_lm.PipelinedLM` state_dict (f32 tensors)."""
+    return {name: _t(a) for name, a in tree.items()}
+
+
+def pipelined_params_to_flax(state_dict) -> dict:
+    """The exact inverse of `pipelined_params_from_flax`: f32 numpy
+    arrays."""
+    return {name: t.detach().cpu().float().numpy()
+            for name, t in state_dict.items()}
 
 
 def shard_state_dict(state_dict, mesh, specs) -> dict:

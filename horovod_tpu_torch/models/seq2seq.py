@@ -368,7 +368,8 @@ class Seq2SeqTransformer(nn.Module):
 
     Parameters are created on ``device`` (default ``"cuda"``) from a seeded
     CPU generator. A live ``model`` or ``fsdp`` axis raises naming ROADMAP
-    queue A item 18, a live ``pipe`` axis item 12.4."""
+    queue A item 18; a live ``pipe`` axis replicates the model over its
+    ranks, as GSPMD does with the JAX model."""
 
     def __init__(self, vocab_size: int = 256, d_model: int = 256,
                  n_heads: int = 8, n_enc_layers: int = 4,

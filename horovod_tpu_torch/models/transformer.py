@@ -49,8 +49,9 @@ auxiliary loss and drop-rate metric are sown (`sown_losses`,
 on a `parallel.mesh.Mesh`: the MoE layers shard their experts over the
 mesh's ``expert`` axis, and attention is the flash path (or the dense one,
 ``attn="dense"``). `param_specs` gives each parameter's placement by the
-JAX model's rules. A live ``pipe`` axis raises naming ROADMAP queue A
-item 12.4 (the pipeline).
+JAX model's rules. On a live ``pipe`` axis the model is replicated over
+its ranks, as the JAX model is under GSPMD (no parameter is placed there);
+the pipelined model is `models.pipelined_lm`.
 
 Tensor parallelism and FSDP, as in the JAX model: on a mesh with a live
 ``model`` axis of tp ranks each rank holds its `param_specs` part of the
@@ -109,13 +110,12 @@ from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from horovod_tpu_torch.parallel import collectives, sharding as shard_lib
 from horovod_tpu_torch.parallel.mesh import (
-    EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+    EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS, SEQ_AXIS,
 )
 from horovod_tpu_torch.runtime import resolve_device
 from horovod_tpu_torch.training import train_state
 
-#: The ROADMAP items of what the port does not carry on a mesh yet.
-PIPE_ITEM = "queue A item 12.4 (the pipeline)"
+#: The ROADMAP item of what the port does not carry on a mesh yet.
 ITEM_18 = ("queue A item 18 (the model axis in MoE, seq2seq, LoRA and "
            "int8)")
 #: The axes item 18's modules refuse (``also=`` of `refuse_unported_axes`).
@@ -123,15 +123,13 @@ ITEM_18_AXES = (MODEL_AXIS, FSDP_AXIS)
 
 
 def refuse_unported_axes(mesh, what: str, also=()) -> None:
-    """Raise `NotImplementedError` naming its ROADMAP item for the first
-    live axis of ``mesh`` that ``what`` does not carry: ``pipe`` (item
-    12.4) and each axis of ``also`` (item 18)."""
-    items = {PIPE_AXIS: PIPE_ITEM, **{ax: ITEM_18 for ax in also}}
-    for ax, item in items.items():
+    """Raise `NotImplementedError` naming ROADMAP item 18 for the first
+    live axis of ``mesh`` among ``also`` that ``what`` does not carry."""
+    for ax in also:
         if mesh is not None and mesh.shape.get(ax, 1) > 1:
             raise NotImplementedError(
                 f"{what} on a mesh with a live {ax!r} axis "
-                f"({mesh.shape[ax]}) is not ported yet — ROADMAP {item}"
+                f"({mesh.shape[ax]}) is not ported yet — ROADMAP {ITEM_18}"
             )
 
 
@@ -143,7 +141,9 @@ class ShardingConfig:
     ``seq`` axis, where ``"dense"`` raises; on a mesh without one,
     ``"dense"`` takes `ops.attention.dense_attention` (the numerics
     reference) and the others the local flash path, as in the JAX model.
-    A live ``pipe`` axis raises naming its ROADMAP item."""
+    A live ``pipe`` axis replicates the model over its ranks, as GSPMD
+    does with the JAX model (the pipelined model is
+    `models.pipelined_lm`)."""
 
     mesh: object = None
     attn: str = "ring"
@@ -646,7 +646,6 @@ class TransformerLM(nn.Module):
                  device="cuda", seed: int = 0):
         super().__init__()
         sharding = sharding or ShardingConfig()
-        refuse_unported_axes(sharding.mesh, "TransformerLM(sharding=...)")
         _refuse_item_18(sharding.mesh, moe_every, int8_compute,
                         quantized_cache)
         if int8_compute and moe_every:
@@ -1063,15 +1062,11 @@ def param_specs(module_or_state_dict, mesh, extra_tp_dim=None) -> dict:
 
 
 def live_placements(specs: dict, mesh) -> dict:
-    """``specs`` restricted to the placements on axes larger than 1,
-    refusing a placement on ``pipe`` (ROADMAP item 12.4)."""
+    """``specs`` restricted to the placements on axes larger than 1 (a
+    pipelined model's stacks on ``pipe`` among them)."""
     live = {}
     for name, spec in specs.items():
         on = {d: ax for d, ax in spec.items() if mesh.shape.get(ax, 1) > 1}
-        if PIPE_AXIS in on.values():
-            raise NotImplementedError(
-                f"the placement of {name!r} on the live 'pipe' axis is "
-                f"not ported yet — ROADMAP {PIPE_ITEM}")
         if on:
             live[name] = on
     return live

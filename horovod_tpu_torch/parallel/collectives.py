@@ -461,15 +461,16 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return src.to(t.device)
 
 
-def broadcast_in_group(t: torch.Tensor, group) -> torch.Tensor:
-    """``t`` from the first member of ``group`` (its lowest rank) on every
-    member, out of place; the world's rank 0 for None."""
+@torch.no_grad()
+def broadcast_in_group(t: torch.Tensor, group, position: int = 0
+                       ) -> torch.Tensor:
+    """``t`` from the member of ``group`` at ``position`` (default the
+    first, its lowest rank) on every member, out of place; ranks of the
+    world for None."""
     if _trivial(group):
         return t.clone()
     src = _to_comm(t)
-    root = 0 if group is None else torch.distributed.get_global_rank(
-        group, 0)
-    torch.distributed.broadcast(src, src=root, group=group)
+    torch.distributed.broadcast(src, src=_peer(group, position), group=group)
     return src.to(t.device)
 
 
@@ -692,6 +693,102 @@ def enter_group(x: torch.Tensor, group) -> torch.Tensor:
 def leave_group(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``; its gradient passes unchanged."""
     return x if _trivial(group) else _LeaveGroup.apply(x, group)
+
+
+# --- Pipeline handoffs ---------------------------------------------------------
+#
+# What the JAX package's pipeline takes from `lax` over the ``pipe`` axis:
+# the ``ppermute`` that hands each stage's output to the next stage (and, in
+# the backward, each cotangent back), and the masked ``psum`` that
+# broadcasts the last stage's outputs to every stage. The port's schedules
+# (`parallel.pipeline`) run one rank a stage and move only what a tick
+# really hands over: `pipe_exchange` forward from stage s to s + 1 (and
+# over the interleaved schedule's wrap S − 1 → 0), and the same exchange
+# with the directions swapped in their backward tick loops, which is the
+# handoff's transpose. Under NCCL the tensors move on the card in one batch
+# of sends and receives; under gloo through the host, as `_shift` does.
+
+#: Bytes this rank sent in pipeline handoffs.
+pipe_traffic = {"bytes": 0}
+_p2p_ready: set = set()
+
+
+def pipe_ready(group) -> None:
+    """One collective over ``group`` before its first handoff, which every
+    member makes at one point (a schedule's start): NCCL's batched
+    point-to-point calls need the group's first call to involve every
+    member, and a tick's handoffs involve some only. Once per group."""
+    if _trivial(group) or id(group) in _p2p_ready:
+        return
+    all_reduce_sum(torch.zeros(1), group)
+    _p2p_ready.add(id(group))
+
+
+@torch.no_grad()
+def pipe_exchange(sends, recvs, group, tag: int = 0) -> list:
+    """One tick's handoffs over ``group``: ``sends`` ``[(position,
+    tensor)]`` go to the members at those positions, and ``recvs``
+    ``[(position, like)]`` come from them, into tensors shaped and typed
+    like ``like`` on its device, returned in order. A member sends at most
+    one tensor to each peer a call and receives at most one from each
+    (asserted), and every member makes its calls in tick order, so the
+    pairs match by peer and call; under gloo they also carry ``tag`` (the
+    tick), as `_shift`'s carry theirs. Sends and receives go in one batch,
+    so no send waits on a receive posted after it and the exchange cannot
+    deadlock."""
+    if not sends and not recvs:
+        return []
+    for ops in (sends, recvs):
+        peers = [pos for pos, _ in ops]
+        assert len(set(peers)) == len(peers), (
+            f"pipe_exchange: a peer twice in one call: {peers}")
+    dist = torch.distributed
+    on_card = runtime.backend() == "nccl"
+    out = [(_peer(group, pos),
+            t.contiguous() if on_card and t.is_cuda else _to_comm(t))
+           for pos, t in sends]
+    bufs = [(_peer(group, pos), torch.empty(like.shape, dtype=like.dtype,
+                                            device=_comm_device()))
+            for pos, like in recvs]
+    for _, t in out:
+        pipe_traffic["bytes"] += t.numel() * t.element_size()
+    if on_card:
+        works = dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, t, peer, group) for peer, t in out]
+            + [dist.P2POp(dist.irecv, b, peer, group) for peer, b in bufs])
+    else:
+        works = ([dist.isend(t, peer, group=group, tag=tag)
+                  for peer, t in out]
+                 + [dist.irecv(b, peer, group=group, tag=tag)
+                    for peer, b in bufs])
+    for w in works:
+        w.wait()
+    return [b.to(like.device) for (_, b), (_, like) in zip(bufs, recvs)]
+
+
+class _BroadcastLast(torch.autograd.Function):
+    """The last member's ``x`` on every member, forward. Backward, the last
+    member keeps its own cotangent and the others give zeros (the masked
+    ``psum``'s transpose): every member computes the same function of the
+    broadcast value (the pipelined model's head and loss, on the same
+    rows), so one member's cotangent is the whole gradient. The schedules
+    read this cotangent on the last stage only."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        last = group_size(group) - 1
+        ctx.keeps = group_rank(group) == last
+        return broadcast_in_group(x, group, last)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.keeps else torch.zeros_like(grad)), None
+
+
+def pipe_broadcast_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The masked ``psum`` of the JAX pipeline: the last member's ``x``
+    on every member of ``group``, differentiable (`_BroadcastLast`)."""
+    return x if _trivial(group) else _BroadcastLast.apply(x, group)
 
 
 # --- The sharded weight-update layout -----------------------------------------

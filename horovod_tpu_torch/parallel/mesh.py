@@ -15,7 +15,10 @@ sums when tokens are sharded on ``seq`` (never ``model``: under Megatron's
 operators every rank of a ``model`` group holds the same replicated
 gradient), and the **shard gradient group**: the ranks that differ on
 ``data`` or ``seq`` only, over which an ``fsdp`` shard's gradient sums
-after its reduce-scatter over ``fsdp``. On a pure-data mesh the first two
+after its reduce-scatter over ``fsdp``. A pipelined model's stages are
+the ranks that differ on ``pipe`` only (`Mesh.stage`, the ``pipe``
+subgroup), over which its activations cross from stage to stage. On a
+pure-data mesh the first two
 are the world itself (None to the collectives), so every data-parallel
 path keeps its arithmetic. `P` is the JAX ``PartitionSpec`` form of a
 batch layout (``Trainer(batch_specs=...)``). The data axis's (dcn outer,
@@ -237,6 +240,14 @@ class Mesh:
     def seq_index(self) -> int:
         """This rank's sequence shard: its coordinate on ``seq``."""
         return self.coords[SEQ_AXIS]
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage: its coordinate on ``pipe``. The
+        ranks of one stage differ on the other axes; a stage's layer
+        stacks sum their gradients over the gradient group, which leaves
+        ``pipe`` out."""
+        return self.coords[PIPE_AXIS]
 
     @property
     def data_shards(self) -> int:

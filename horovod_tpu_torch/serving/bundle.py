@@ -28,7 +28,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import time
 
 import numpy as np
 import torch
@@ -130,7 +129,9 @@ def export_generate(
 ) -> str:
     """Export a generation bundle of ``model`` into ``export_dir/<stamp>/``
     and return that directory. Knobs as in the JAX package; every knob is
-    validated before the directory exists."""
+    validated before the directory exists. A model that holds parameter
+    shards over a mesh is exported gathered: every rank calls, the primary
+    writes (`checkpoint.gather_for_export`)."""
     if prompt_len < 1 or batch_size < 1:
         raise ValueError(
             f"batch_size ({batch_size}) and prompt_len ({prompt_len}) "
@@ -138,9 +139,10 @@ def export_generate(
         )
     if isinstance(tokenizer, str) and not os.path.isfile(tokenizer):
         raise FileNotFoundError(f"no tokenizer file {tokenizer}")
-    from horovod_tpu_torch.checkpoint import refuse_sharded_export
+    from horovod_tpu_torch.checkpoint import gather_for_export
 
-    refuse_sharded_export(model, "export_generate")
+    model, stamp, writes = gather_for_export(model, "export_generate",
+                                             timestamp)
     # The generator builders validate the knobs (chunk | max_new_tokens,
     # sampling ranges) — build them once for that. Every check runs before
     # the output directory exists.
@@ -150,8 +152,9 @@ def export_generate(
                 quantized_cache=quantized_cache,
                 speculative_gamma=speculative_gamma,
                 streaming_chunk=streaming_chunk)
-    stamp = timestamp or time.strftime("%Y%m%d-%H%M%S")
     out_dir = os.path.join(export_dir, stamp)
+    if not writes:
+        return out_dir
     os.makedirs(out_dir, exist_ok=True)
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     tmp = os.path.join(out_dir, GEN_WEIGHTS_FILE + ".tmp")

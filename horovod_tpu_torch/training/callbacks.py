@@ -15,9 +15,11 @@
 * `HeartbeatCallback` and `env_callbacks` — what the launcher's
   environment asks for (``HVT_HEARTBEAT_DIR``, ``HVT_FAULT``), appended by
   ``fit()`` on every path.
+* `MetricsPushCallback` — the epoch-end logs to the platform metrics sink
+  (`horovod_tpu_torch.metrics`, the CI gate's JSONL).
 
-Not ported yet (ROADMAP queue A item 13.3): the metrics-push callback,
-asynchronous and sharded checkpoints.
+Not ported yet (ROADMAP queue A item 13.3): asynchronous and sharded
+checkpoints.
 """
 
 from __future__ import annotations

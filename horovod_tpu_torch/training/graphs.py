@@ -46,7 +46,9 @@ and in one-graph captures; where the collectives sit between graphs
 (gloo), and on a live ``seq``, ``model`` or ``fsdp`` axis
 (`StepRunner._overlap_here`), it changes nothing. Under gloo a step on a
 live ``seq`` axis runs eagerly: its attention and its loss communicate
-through the host.
+through the host. A pipelined model's step runs eagerly on every backend
+(`runs_eagerly`): its schedule's point-to-point handoffs and backward tick
+loop are not captured.
 
 Before a runner captures for the first time, and again after `feed`
 brought rows of another shape, one step runs eagerly on the capture
@@ -84,6 +86,23 @@ def forward_communicates_over_host(module) -> bool:
                     for m in module.modules()))
 
 
+def runs_eagerly(module) -> bool:
+    """Whether ``module``'s step runs without a graph on every backend: a
+    pipelined model (``eager_only``), whose schedule's point-to-point
+    handoffs and backward tick loop are not captured. Says so once a
+    process, on the primary rank."""
+    eager = any(getattr(m, "eager_only", False) for m in module.modules())
+    if eager and not _said_eager and runtime.is_primary():
+        print("training: the pipelined step runs eagerly (its "
+              "point-to-point handoffs are not captured in a CUDA graph)",
+              flush=True)
+        _said_eager.append(True)
+    return eager
+
+
+_said_eager: list = []
+
+
 def _host(a: np.ndarray, pinned: bool) -> torch.Tensor:
     """``a`` as a host tensor, in page-locked memory when it goes to the
     card: a copy from there does not make the host wait for the stream."""
@@ -116,7 +135,8 @@ class StepRunner:
         self.graphs = (dev.type == "cuda" and not eager
                        and not forward_communicates_over_host(trainer.module)
                        and not (trainer.seq_shards > 1
-                                and runtime.backend() == "gloo"))
+                                and runtime.backend() == "gloo")
+                       and not runs_eagerly(trainer.module))
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
         self._t_host = 0
         self.seeds = torch.zeros((self.max_steps, self.accum),
@@ -289,13 +309,14 @@ class StepRunner:
     def _overlap_here(self) -> bool:
         """Whether a bucket's reduction may issue inside the backward: in
         eager steps, and in captures that hold the collectives — never on
-        a live ``seq``, ``model`` or ``fsdp`` axis, where the backward's
-        own collectives (the ring's shifts, Megatron's f, FSDP's
-        reduce-scatters) would interleave with the bucket sums in an order
-        that can differ by rank (on one NCCL stream that order is a
-        deadlock)."""
+        a live ``pipe``, ``seq``, ``model`` or ``fsdp`` axis, where the
+        backward's own collectives (the pipeline's handoffs, the ring's
+        shifts, Megatron's f, FSDP's reduce-scatters) would interleave with
+        the bucket sums in an order that can differ by rank (on one NCCL
+        stream that order is a deadlock)."""
         mesh = self.trainer.mesh
-        if mesh is not None and max(mesh.shape["seq"], mesh.shape["model"],
+        if mesh is not None and max(mesh.shape["pipe"], mesh.shape["seq"],
+                                    mesh.shape["model"],
                                     mesh.shape["fsdp"]) > 1:
             return False
         return not self.graphs or runtime.backend() != "gloo"

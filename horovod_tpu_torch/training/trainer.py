@@ -36,15 +36,17 @@ JAX's errors.
 
 ``mesh=`` (a `parallel.mesh.Mesh`) and ``param_specs=`` (a function
 ``(module, mesh) -> {name: {dim: axis}}`` such as
-`models.transformer.param_specs`, or such a dict) place the model: the
-port carries live ``data``, ``fsdp``, ``seq``, ``model`` and ``expert``
-axes; a live ``pipe`` axis raises naming ROADMAP item 12.4 (the
-pipeline). The batch is sharded over ``(data, fsdp)`` (JAX's default
-layout), so every rank of a
+`models.transformer.param_specs` or `models.pipelined_lm.param_specs`, or
+such a dict) place the model: the port carries live ``data``, ``fsdp``,
+``pipe``, ``seq``, ``model`` and ``expert`` axes. The batch is sharded
+over ``(data, fsdp)`` (JAX's default layout), so every rank of a ``pipe``,
 ``model``, expert or ``seq`` group feeds the same rows, and gradients
 (``model`` and expert shards and replicated parameters alike) sum over
 the mesh's gradient group (the ranks that differ on ``data``, ``fsdp`` or
-``seq``) divided by ``dp``, once. An ``fsdp`` shard's gradient, already
+``seq``) divided by ``dp``, once — a pipelined model's stage stacks at
+their own ``pipe`` coordinate, its replicated leaves alike, since its
+schedule gives every stage the whole gradient of the embedding and of the
+head (`parallel.pipeline`). An ``fsdp`` shard's gradient, already
 summed over ``fsdp`` by the reduce-scatter in its gather's backward, sums
 over the shard gradient group instead (the ranks that differ on ``data``
 or ``seq``), divided by ``dp`` alike.
@@ -90,7 +92,7 @@ from horovod_tpu_torch import runtime
 from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import stream
 from horovod_tpu_torch.models.transformer import (
-    _full_shapes, live_placements, refuse_unported_axes,
+    _full_shapes, live_placements,
 )
 from horovod_tpu_torch.parallel import collectives
 from horovod_tpu_torch.parallel import mesh as mesh_lib
@@ -168,12 +170,12 @@ class Trainer:
       bucket_order: ``"reverse"`` (default ``HVT_BUCKET_ORDER``, else
         reverse: the leaves last-first, the order the backward finishes
         them) or ``"forward"``.
-      mesh: a `parallel.mesh.Mesh` (default: every rank on ``data``). A
-        live ``pipe`` axis raises naming ROADMAP queue A item 12.4.
+      mesh: a `parallel.mesh.Mesh` (default: every rank on ``data``).
       param_specs: the placements of the parameters on ``mesh``
-        (``model``, ``fsdp`` and ``expert``). A module that holds parameter
-        shards (MoE experts, a `TransformerLM` built on a ``model`` or
-        ``fsdp`` mesh) needs them.
+        (``pipe``, ``model``, ``fsdp`` and ``expert``). A module that holds
+        parameter shards (MoE experts, a `TransformerLM` built on a
+        ``model`` or ``fsdp`` mesh, a `PipelinedLM` on a ``pipe`` mesh)
+        needs them.
       batch_specs: one layout a batch part, ``(x_spec, y_spec)``, in the
         JAX form (module docstring); required on a live ``seq`` axis.
     """
@@ -188,7 +190,6 @@ class Trainer:
         self._seq_parts = _seq_parts(batch_specs)
         self.batch_specs = batch_specs
         if mesh is not None:
-            refuse_unported_axes(mesh, "Trainer(mesh=...)")
             if mesh.seq_shards > 1 and batch_specs is None:
                 raise NotImplementedError(
                     "Trainer(mesh=...) on a live 'seq' axis needs "
@@ -388,10 +389,11 @@ class Trainer:
     def _place(self) -> None:
         """The parameters' placements on the mesh: each live one must be
         what the module holds (its MoE layers shard their experts and a
-        `TransformerLM` cuts its ``model``/``fsdp`` parts at construction,
-        from the model's own mesh)."""
+        `TransformerLM` cuts its ``model``/``fsdp`` parts and a
+        `PipelinedLM` its ``pipe``/``model`` parts at construction, from
+        the model's own mesh)."""
         mesh = self.mesh
-        held = {type(m).__name__: m.mesh if hasattr(m, "ep")
+        held = {type(m).__name__: m.mesh if hasattr(m, "mesh")
                 else m.sharding.mesh for m in self.module.modules()
                 if getattr(m, "ep", 1) > 1 or getattr(m, "cuts", None)}
         for kind, m_mesh in held.items():

@@ -24,9 +24,10 @@ batch shard i).
   bit for bit; the
   one-rank run's checkpoint restores at ``(data=1, fsdp=2, model=2)`` to
   each rank's cut of it, moments included;
-* the serving export of the TP + FSDP-trained model (its `unsharded`
-  clone; the sharded model itself refuses) equal to the plain model's
-  predict, as JAX's ``test_tp_fsdp_sharded_export_matches_plain``;
+* the serving export of the TP + FSDP-trained model, called on the
+  sharded model by every rank (it gathers inside; rank 0 writes), equal to
+  the plain model's predict, as JAX's
+  ``test_tp_fsdp_sharded_export_matches_plain``;
 * ``BroadcastGlobalVariablesCallback`` on shards at ``(data=2, fsdp=2)``:
   every part comes from the rank of data coordinate 0 that holds the same
   part, never across ``fsdp``.
@@ -158,21 +159,11 @@ for tag in json.loads(os.environ["MESHES"]):
             res["restored." + pn] = p.detach().numpy()
             st = restored.tx.optimizer.state[p]
             res["restored.exp_avg." + pn] = st["exp_avg"].numpy()
-        # The export: the sharded model refuses; its unsharded clone (every
-        # rank gathers) exports on rank 0.
-        try:
-            checkpoint.export_serving(os.path.join(out, "nope"), model,
-                                      input_shape=(2, 8),
-                                      input_dtype=np.int32)
-            res["export_refusal"] = ""
-        except ValueError as e:
-            res["export_refusal"] = str(e)
-        plain = model.unsharded()
-        if r == 0:
-            checkpoint.export_serving(os.path.join(out, "export"), plain,
-                                      input_shape=(2, 8),
-                                      input_dtype=np.int32,
-                                      timestamp="19700101-000000")
+        # The export of the sharded model: every rank calls it (it
+        # gathers the model whole inside), rank 0 writes.
+        res["export_dir"] = checkpoint.export_serving(
+            os.path.join(out, "export"), model, input_shape=(2, 8),
+            input_dtype=np.int32, timestamp="19700101-000000")
 
 # BroadcastGlobalVariablesCallback at data=2,fsdp=2: the ranks at data 1
 # start from other weights; each part comes from its holder at data 0.
@@ -400,7 +391,9 @@ def test_checkpoint_round_trip_across_meshes(run):
 
 def test_tp_fsdp_export_matches_plain(run):
     res0 = run["ranks"][0]
-    assert "unsharded()" in str(res0["export_refusal"])
+    for res in run["ranks"]:
+        assert str(res["export_dir"]).endswith("19700101-000000")
+    assert os.listdir(run["tmp"] / "export") == ["19700101-000000"]
     plain = ttr.TransformerLM(**CFG, device="cpu")
     plain.load_state_dict({pn: torch.from_numpy(res0[f"{TP_FSDP}.full.{pn}"])
                            for pn in plain.state_dict()})

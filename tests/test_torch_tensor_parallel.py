@@ -28,8 +28,12 @@ second).
 * the decode cache at ``[B, L, H_kv/tp, D]``;
 * JAX's two ``ValueError``s word for word; MoE, int8 weights and caches,
   LoRA and seq2seq on a live ``model`` axis (and MoE, ``int8_compute``
-  and seq2seq on a live ``fsdp`` axis) refused naming ROADMAP item 18, a
-  live ``pipe`` axis naming item 12.4.
+  and seq2seq on a live ``fsdp`` axis) refused naming ROADMAP item 18; a
+  live ``pipe`` axis carried (the model replicated over it), pp × sp
+  refused naming item 12.4's second half;
+* the serving and generation exports of a model held in its
+  ``fsdp=2,model=2`` cut, gathered inside by every rank, equal to the
+  one-rank model (JAX's ``TestExportFromShardedState``).
 
 Tolerances: f32 on both sides. Against JAX's sharded apply rtol = atol =
 5e-4, JAX's ``test_matches_unsharded_forward``; against the port at one
@@ -54,6 +58,7 @@ from jax.sharding import NamedSharding, PartitionSpec as JP
 from horovod_tpu.models import transformer as jtr
 from horovod_tpu.parallel import mesh as jmesh
 from horovod_tpu_torch.models import lora, quant, seq2seq as tseq
+from horovod_tpu_torch.models import pipelined_lm as tpl
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.models.convert import (
     params_from_flax, params_to_flax, shard_state_dict,
@@ -168,6 +173,20 @@ for how in ("reduce_scatter", "slice"):
     coef = torch.arange(12, dtype=torch.float32).view(4, 3) * (1 + m)
     (c.gather_weight(w, 0, g, how) * coef).sum().backward()
     res["gather." + how] = w.grad.numpy()
+
+# The exports of a model held in its fsdp=2,model=2 cut: every rank calls
+# them (the gather is a collective) and rank 0 writes.
+from horovod_tpu_torch import checkpoint
+from horovod_tpu_torch.serving import export_generate
+mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string("fsdp=2,model=2"))
+model = ttr.TransformerLM(**cfg, device="cpu", seed=7,
+                          sharding=ttr.ShardingConfig(mesh=mesh))
+res["export.serving"] = checkpoint.export_serving(
+    os.path.join(out, "export"), model, input_shape=(2, 8),
+    input_dtype=np.int32, timestamp="19700101-000000")
+res["export.generate"] = export_generate(
+    os.path.join(out, "generate"), model, batch_size=2, prompt_len=8,
+    max_new_tokens=4, timestamp="19700101-000000")
 np.savez(os.path.join(out, f"rank{r}.npz"), **res)
 '''
 
@@ -269,7 +288,8 @@ def run(tmp_path_factory):
     except BaseException:
         os.killpg(proc.pid, signal.SIGKILL)
         raise
-    return dict(data=d, jax=jax_refs, one=one, ranks=_finish(proc, tmp))
+    return dict(data=d, jax=jax_refs, one=one, ranks=_finish(proc, tmp),
+                tmp=tmp)
 
 
 def _rel_close(got, want, what, tol=RTOL):
@@ -472,22 +492,53 @@ def test_item_18_refusals(name):
 
 
 def test_pipe_axis_refused_naming_12_4():
+    """A live ``pipe`` axis is carried: the `TransformerLM` is replicated
+    over it (no cut, the one-rank weights, as GSPMD runs JAX's), and a
+    placement on it is live (the pipelined model's stacks). What the
+    pipeline's second half carries — pp × sp here — is refused naming
+    item 12.4."""
+    tm = _lm("pipe=2")
+    assert tm.cuts == {}
+    one = ttr.TransformerLM(**CFG, device="cpu")
+    for name, t in tm.state_dict().items():
+        assert torch.equal(t, one.state_dict()[name]), name
+    assert ttr.live_placements({"w": {0: "pipe"}}, _layout("pipe=2", 2)) == {
+        "w": {0: "pipe"}}
     with pytest.raises(NotImplementedError, match=r"item 12\.4 \(the pipe"):
-        _lm("pipe=2")
-    with pytest.raises(NotImplementedError, match=r"item 12\.4 \(the pipe"):
-        ttr.live_placements({"w": {0: "pipe"}}, _layout("pipe=2", 2))
+        tpl.PipelinedLM(vocab_size=VOCAB, d_model=32, n_heads=4,
+                        mesh=_layout("data=1,pipe=2,seq=2", 4), device="cpu")
 
 
-def test_sharded_exports_refused(tmp_path):
-    """A model holding its cut exports through its `unsharded` clone: the
-    generate bundle and the serving export refuse the sharded one."""
+def test_sharded_exports_refused(run, tmp_path):
+    """JAX's ``TestExportFromShardedState``: the exports of a model held in
+    its ``fsdp=2,model=2`` cut gather it whole inside (every launched rank
+    called them and got the bundle's directory; rank 0 wrote one bundle
+    each). The serving bundle's probabilities equal the one-rank model's,
+    the generation bundle holds its weights exactly. A module that holds
+    shards with no ``unsharded()`` to gather them is still refused."""
     from horovod_tpu_torch import checkpoint
-    from horovod_tpu_torch.serving import export_generate
+    from horovod_tpu_torch.models.moe import MoEMlp
+    from horovod_tpu_torch.serving import bundle
 
-    with pytest.raises(ValueError, match=r"unsharded\(\)"):
-        export_generate(str(tmp_path), _lm("model=2"), batch_size=1,
-                        prompt_len=4, max_new_tokens=2)
-    with pytest.raises(ValueError, match=r"unsharded\(\)"):
-        checkpoint.export_serving(str(tmp_path), _lm("fsdp=2"),
-                                  input_shape=(2, 8), input_dtype=np.int32)
+    stamp = "19700101-000000"
+    for res in run["ranks"]:
+        assert str(res["export.serving"]).endswith(stamp)
+        assert str(res["export.generate"]).endswith(stamp)
+    assert os.listdir(run["tmp"] / "export") == [stamp]
+    plain = ttr.TransformerLM(**CFG, device="cpu", seed=7)
+    fn = checkpoint.load_serving(str(run["tmp"] / "export" / stamp),
+                                 device="cpu")
+    x = np.arange(16, dtype=np.int32).reshape(2, 8) % VOCAB
+    with torch.no_grad():
+        want = torch.softmax(plain(torch.from_numpy(x)).float(), -1).numpy()
+    np.testing.assert_allclose(fn(x), want, atol=1e-6, rtol=0)
+    gen = run["tmp"] / "generate" / stamp
+    weights = torch.load(gen / bundle.GEN_WEIGHTS_FILE, weights_only=True)
+    for name, t in plain.state_dict().items():
+        assert torch.equal(weights[name], t), name
+    assert bundle.load_generate(str(gen), device="cpu") is not None
+    moe = MoEMlp(32, n_experts=4, sharding=ttr.ShardingConfig(
+        mesh=_layout("expert=2", 2)))
+    with pytest.raises(ValueError, match=r"no unsharded\(\)"):
+        checkpoint.export_serving(str(tmp_path), moe, input_shape=(2, 8))
     assert not list(tmp_path.iterdir())

@@ -414,17 +414,21 @@ def _layout_mesh(**axes):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (lambda: {"mesh": _layout_mesh(data=1, pipe=2)}, "item 12.4"),
-    (lambda: {"mesh": _layout_mesh(data=1, pipe=2, model=2),
+    (lambda: {"mesh": _layout_mesh(data=1, pipe=2),
+              "batch_specs": (tmesh.P(("data", "fsdp"), "pipe"),)},
+     "item 12.4"),
+    (lambda: {"mesh": _layout_mesh(data=1, pipe=2, seq=2),
               "param_specs": ttr.param_specs}, "item 12.4"),
     (lambda: {"batch_specs": (tmesh.P("data", None, "seq"),)}, "item 12.4"),
 ], ids=["mesh", "param_specs", "batch_specs"])
 def test_trainer_unported_options_raise_naming_roadmap(kw, match):
-    """What the port does not carry raises naming its ROADMAP item: a live
-    ``pipe`` axis (12.4, the pipeline), with or without placements, and
-    batch layouts other than JAX's ``P(('data', 'fsdp'), 'seq', None)``
-    (12.4). Meshes, expert placements, the ``seq`` axis and the live
-    ``model``/``fsdp`` axes: tests/test_torch_mesh.py,
+    """What the port does not carry raises naming its ROADMAP item (12.4):
+    a batch layout over a live ``pipe`` axis, JAX's default batch layout on
+    a live ``seq`` axis (with placements or without), and any other layout
+    than JAX's ``P(('data', 'fsdp'), 'seq' or None, None)``. A live
+    ``pipe`` axis itself is carried
+    (tests/test_torch_pipeline.py). Meshes, expert placements, the ``seq``
+    axis and the live ``model``/``fsdp`` axes: tests/test_torch_mesh.py,
     tests/test_torch_expert_parallel.py, tests/test_torch_seq_parallel.py,
     tests/test_torch_tensor_parallel.py and tests/test_torch_fsdp.py."""
     tm = ttr.TransformerLM(**_cfg(), device="cpu")
