@@ -326,7 +326,12 @@ Phases (any failed check exits non-zero before the result line):
    B1-B3), each part a ``phase21*`` line with the card:
    a. B1, B2 and B3 at a microbatch's attention ([2, 1024, 8, 64] bf16
       causal, tc) against their plain versions at phases 3/4's
-      tolerances, timed beside the bound and SDPA;
+      tolerances, timed beside the bound and SDPA,
+      and, 21a+, with packed segment ids (two to four documents a row)
+      and under a window of 256, and the ring's hops at a ``seq=2``
+      microbatch's [2, 512, 8, 64] (the diagonal, a past block, a past
+      block under the window), all tc, each against its plain version and
+      timed beside its bound and SDPA with the boolean mask;
    b. the bench LM as a bf16 ``PipelinedLM`` at ``data=1,pipe=2``, two
       gloo ranks sharing the card (launched beside 12b-d, joined here),
       GPipe, 1F1B and the interleaved schedule in one launch, 4 eager
@@ -335,8 +340,21 @@ Phases (any failed check exits non-zero before the result line):
       norm, leaf by leaf, the losses within one bf16 ulp of one rank's on
       the same batches and weights, each parameter within 0.06 of the
       one-rank update's norm, (L/S) × n_micro launches of each kernel a
-      step a rank (1F1B: B1 twice that), all tc, the tick counts, each rank's peak memory by
-      schedule;
+      step a rank (1F1B: B1 twice that), all tc, the tick counts, each
+      rank's peak memory by schedule;
+   d. pp × sp: the same model with a window of 256 on packed rows
+      (``data/packing.py``, ids carried in the input) at
+      ``data=1,pipe=2,seq=2``, four gloo ranks sharing the card (launched
+      beside 12b-d), 1F1B and GPipe, 3 eager steps each: (b)'s gates, B1-B3
+      launched a layer a microbatch once on seq rank 0 and twice on rank
+      1 (the ring's hops), all tc;
+   e. the MoE pipeline at bench.py's MoE width (8 experts, top-2, capacity
+      1.25, groups of 1024), every block MoE: at ``data=1,pipe=2`` under
+      the three schedules in (b)'s launch, and at ``data=1,pipe=2,
+      expert=2`` under 1F1B in (d)'s (in f32, on the CUDA-core route), 3
+      eager steps each, against one rank running the same microbatches:
+      (b)'s gates, and the first batch's load-balance loss and every drop
+      rate within 1e-3 of one rank's;
 22. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -378,8 +396,11 @@ schedule, 8 microbatches, eager steps (rank 0 says so in one line): ms
 a step, tokens/s a card, and
 each stage's busy share (its kernels but NCCL's, which spin while they
 wait for the peer) and idle share over 5 profiled steps beside the tick
-model's bubble (S − 1)/(v·T + S − 1); then the twin at ``HVT_MESH=
-"data=1,pipe=2,model=2" SCHEDULE=1f1b``, its recall report printed.
+model's bubble (S − 1)/(v·T + S − 1); then the MoE pipeline at
+``data=1,pipe=2,expert=2`` under 1F1B (ms a step, tokens/s a card, the
+drop rates); then the twin at ``HVT_MESH="data=1,pipe=2,model=2"`` and at
+``"data=1,pipe=2,seq=2"``, both with ``SCHEDULE=1f1b``, each printing its
+recall report.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -4932,17 +4953,19 @@ def _ring_merge_cotangents(torch, hops, dout):
     return [(a.grad, b.grad) for a, b in zip(outs, lses)]
 
 
-def ring_hops(torch, card):
+def ring_hops(torch, card, shape=None, window=None, phase="18a", seed=18):
     """18a: B1 at the ring's hops and B2/B3 with the merge's lse cotangent,
     each against its plain version on the same inputs, at the twin's
-    full-width shard; the q_offset and non-causal hops timed beside their
-    bound and SDPA with the same mask."""
+    full-width shard (or ``shape``, the past hop's ``window``); the
+    q_offset and non-causal hops timed beside their bound and SDPA with
+    the same mask."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    b, t, h, d = SEQ_HOP_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(18)
+    b, t, h, d = shape or SEQ_HOP_SHAPE
+    window = window or SEQ_HOP_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(
@@ -4955,7 +4978,7 @@ def ring_hops(torch, card):
     hops = {"diagonal": (k0, v0, dict(none, causal=True)),
             "past_full": (k1, v1, dict(none, causal=False)),
             "past_window": (k1, v1, dict(none, causal=True,
-                                         window=SEQ_HOP_WINDOW, q_offset=t))}
+                                         window=window, q_offset=t))}
     tol, gtol = TOL["bfloat16"], GRAD_TOL["bfloat16"]
     res, outs = {}, {}
     with torch.inference_mode():
@@ -4963,15 +4986,16 @@ def ring_hops(torch, card):
             tc0 = fa.launches_tc
             out, lse = fa._launch(q, k, v, None, None, **masks)
             torch.cuda.synchronize()
-            check(fa.launches_tc == tc0 + 1, f"18a {name}: B1 not on tc")
+            check(fa.launches_tc == tc0 + 1, f"{phase} {name}: B1 not on tc")
             ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
             o_err = (out.float() - ref_o.float()).abs()
             check(bool((o_err <= tol["o_atol"] + tol["o_rtol"]
                         * ref_o.float().abs()).all()),
-                  f"18a {name}: O differs from the plain version (max abs "
+                  f"{phase} {name}: O differs from the plain version (max abs "
                   f"{float(o_err.max()):.3g})")
             lse_err = float((lse - ref_lse).abs().max())
-            check(lse_err <= tol["lse"], f"18a {name}: lse err {lse_err:.3g}")
+            check(lse_err <= tol["lse"],
+                  f"{phase} {name}: lse err {lse_err:.3g}")
             outs[name] = (out, lse)
             res[name] = {"o_max_abs_err": float(o_err.max()),
                          "lse_max_abs_err": lse_err}
@@ -4983,7 +5007,7 @@ def ring_hops(torch, card):
         merge_cot[past] = cots[1]
         for hop, (do, dlse) in zip(("diagonal", past), cots):
             check(float(dlse.abs().max()) > 0,
-                  f"18a {ring}/{hop}: the merge gave no lse cotangent")
+                  f"{phase} {ring}/{hop}: the merge gave no lse cotangent")
             k, v, masks = hops[hop]
             out, lse = outs[hop]
             with torch.inference_mode():
@@ -4996,7 +5020,7 @@ def ring_hops(torch, card):
                 torch.cuda.synchronize()
                 check((fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
                       == (tc0[0] + 1, tc0[1] + 1),
-                      f"18a {ring}/{hop}: B2/B3 not on tc")
+                      f"{phase} {ring}/{hop}: B2/B3 not on tc")
                 want = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
                                                   **masks),
                         *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -5007,7 +5031,7 @@ def ring_hops(torch, card):
                 err = (g.float() - w).abs()
                 atol = gtol["atol_of_max"] * float(w.abs().max())
                 check(bool((err <= atol + gtol["rtol"] * w.abs()).all()),
-                      f"18a {ring}/{hop}: {gname} differs from the plain "
+                      f"{phase} {ring}/{hop}: {gname} differs from the plain "
                       f"version (max abs {float(err.max()):.3g})")
                 errs[gname] = float(err.max())
             errs["dlse_max_abs"] = float(dlse.abs().max())
@@ -5072,13 +5096,13 @@ def ring_hops(torch, card):
                         "library_ms": lib_bwd, "bound_ms": bound,
                         "bound_by": by}
         timings[name] = entry
-        log(f"time ring hop {name} B{b} T{t} H{h} D{d} bf16 [tc]: "
+        log(f"time ring hop ({phase}) {name} B{b} T{t} H{h} D{d} bf16 [tc]: "
             + ", ".join(f"{k_} {v_['ms']:.5f} ms (plain {v_['plain_ms']:.5f}, "
                         f"sdpa {v_['library_ms']:.5f}, bound "
                         f"{v_['bound_ms']:.5f} {v_['bound_by']})"
                         for k_, v_ in entry.items() if isinstance(v_, dict)
                         and "ms" in v_))
-    log("phase18a", json.dumps({"checks": res, "card": card}))
+    log(f"phase{phase}", json.dumps({"checks": res, "card": card}))
     return {"checks": res, "timings": timings}
 
 
@@ -5892,10 +5916,28 @@ def tp_kernels(torch, card):
                          20)
 
 
-def shape_kernels(torch, shape, phase, note, seed):
-    """B1, B2 and B3 at ``shape`` bf16 causal on the tensor-core route,
-    each against its plain version on the same inputs (phases 3/4's
-    tolerances) and timed beside its plain version, its bound and SDPA."""
+def _packed_ids(torch, gen, b, t):
+    """``[b, t]`` int32 ids of two to four documents a row, the boundaries
+    drawn from ``gen``."""
+    n_docs = torch.randint(2, 5, (b,), generator=gen, device="cuda")
+    ids = torch.zeros((b, t), dtype=torch.int32, device="cuda")
+    for i in range(b):
+        cuts = torch.sort(torch.randperm(t - 1, generator=gen,
+                                         device="cuda")[:int(n_docs[i]) - 1]
+                          + 1).values
+        ids[i] = (torch.arange(t, device="cuda")[:, None]
+                  >= cuts[None, :]).sum(-1).to(torch.int32)
+    return ids
+
+
+def shape_kernels(torch, shape, phase, note, seed, packed=False,
+                  window=None):
+    """B1, B2 and B3 at ``shape`` bf16 causal on the tensor-core route —
+    with ``packed`` segment ids of two to four documents a row
+    (`_packed_ids`), with a ``window`` — each against its plain version on
+    the same inputs (phases 3/4's tolerances) and timed beside its plain
+    version, its bound (the pairs the masks keep) and SDPA (with the
+    boolean mask where the mask is not plain causal)."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -5904,19 +5946,22 @@ def shape_kernels(torch, shape, phase, note, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                      .to(torch.bfloat16) for _ in range(4))
-    masks = dict(causal=True, window=None, sinks=0, q_offset=None)
+    ids = _packed_ids(torch, gen, b, t) if packed else None
+    masks = dict(causal=True, window=window, sinks=0, q_offset=None)
+    seg = dict(q_segment_ids=ids, kv_segment_ids=ids) if packed else {}
+    ref_masks = dict(masks, **seg)
     tol, gtol = TOL["bfloat16"], GRAD_TOL["bfloat16"]
     checks = {}
     with torch.inference_mode():
         tc0 = (fa.launches_tc, fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
-        out, lse = fa._launch(q, k, v, None, None, **masks)
+        out, lse = fa._launch(q, k, v, ids, ids, **masks)
         delta = fa._delta(out, dout, None)
-        got = (fa._launch_dq(q, k, v, dout, lse, delta, None, None, masks),
-               *fa._launch_dkv(q, k, v, dout, lse, delta, None, None, masks))
+        got = (fa._launch_dq(q, k, v, dout, lse, delta, ids, ids, masks),
+               *fa._launch_dkv(q, k, v, dout, lse, delta, ids, ids, masks))
         torch.cuda.synchronize()
         check((fa.launches_tc, fa.launches_bwd_dq_tc, fa.launches_bwd_dkv_tc)
               == tuple(n + 1 for n in tc0), f"{phase}: B1-B3 not on tc")
-        ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v, **ref_masks)
         o_err = (out.float() - ref_o.float()).abs()
         check(bool((o_err <= tol["o_atol"] + tol["o_rtol"]
                     * ref_o.float().abs()).all()),
@@ -5926,8 +5971,10 @@ def shape_kernels(torch, shape, phase, note, seed):
         check(lse_err <= tol["lse"], f"{phase}: lse err {lse_err:.3g}")
         checks["flash_fwd_sm90"] = {"o_max_abs_err": float(o_err.max()),
                                     "lse_max_abs_err": lse_err}
-        want = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta),
-                *fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta))
+        want = (fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                          **ref_masks),
+                *fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                            **ref_masks))
         for gname, g, w in zip(("dq", "dk", "dv"), got, want):
             w = w.float()
             err = (g.float() - w).abs()
@@ -5940,40 +5987,59 @@ def shape_kernels(torch, shape, phase, note, seed):
             checks.setdefault(key, {})[gname] = float(err.max())
     calls = {
         "flash_fwd_sm90": ("flash_fwd", lambda: fa._launch(
-            q, k, v, None, None, **masks),
-            lambda: fa.flash_attention_reference(q, k, v, **masks)),
+            q, k, v, ids, ids, **masks),
+            lambda: fa.flash_attention_reference(q, k, v, **ref_masks)),
         "flash_bwd_dq_sm90": ("flash_bwd_dq", lambda: fa._launch_dq(
-            q, k, v, dout, lse, delta, None, None, masks),
-            lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta)),
+            q, k, v, dout, lse, delta, ids, ids, masks),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                              **ref_masks)),
         "flash_bwd_dkv_sm90": ("flash_bwd_dkv", lambda: fa._launch_dkv(
-            q, k, v, dout, lse, delta, None, None, masks),
-            lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta)),
+            q, k, v, dout, lse, delta, ids, ids, masks),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                               **ref_masks)),
     }
+    # The boolean mask SDPA takes where the masks are more than causal, and
+    # the pairs they keep (this run's ids) for the bound.
+    rows = torch.arange(t, device="cuda")[:, None]
+    cols = torch.arange(t, device="cuda")[None, :]
+    keep = cols <= rows
+    if window is not None:
+        keep = keep & (cols > rows - window)
+    keep = keep[None, None].expand(b, 1, t, t)
+    if packed:
+        keep = keep & (ids[:, None, :, None] == ids[:, None, None, :])
+    plain_causal = not packed and window is None
+    sdpa = (dict(is_causal=True) if plain_causal
+            else dict(attn_mask=keep))
+    kept = None if plain_causal else int(keep.sum()) * h
     qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
     with torch.inference_mode():
         sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), 20)
+            qh, kh, vh, **sdpa), 20)
     qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
 
     def fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        o = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
         torch.autograd.grad(o, (qg, kg, vg), gh)
 
     sdpa_bwd = device_ms(torch, fwd_bwd, 20) - sdpa_fwd
     timings = {}
+    what = "causal" + (" packed" if packed else "") + (
+        f" window {window}" if window is not None else "")
     with torch.inference_mode():
         for name, (work, kernel, plain) in calls.items():
             bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
-                                           causal=True, kernel=work)
+                                           causal=True, kernel=work,
+                                           window=window, kept=kept)
             timings[name] = {
-                "shape": f"B{b} T{t} H{h} D{d} causal bf16 ({note})",
+                "shape": f"B{b} T{t} H{h} D{d} {what} bf16 ({note})",
                 "ms": device_ms(torch, kernel, 20),
                 "plain_ms": device_ms(torch, plain, 3),
                 "library_ms": sdpa_fwd if work == "flash_fwd" else sdpa_bwd,
                 "bound_ms": bound, "bound_by": by,
                 "max_abs_err": max(checks[name].values())}
             r = timings[name]
-            log(f"time {name} B{b} T{t} H{h} D{d} causal bf16 [tc, {note}]: "
+            log(f"time {name} B{b} T{t} H{h} D{d} {what} bf16 [tc, {note}]: "
                 f"kernel_ms {r['ms']:.5f} plain_ms "
                 f"{r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} "
                 f"bound_ms {r['bound_ms']:.5f} ({by})")
@@ -6237,6 +6303,13 @@ def tp_multi_card(torch, card, ranks):
 # plain versions at phases 3/4's tolerances and timed beside the bound and
 # SDPA.
 PP_ATTN_SHAPE = (2, 1024, 8, 64)
+# 21a+: B1-B3 there with packed segment ids (two to four documents a row,
+# drawn from a seed) and under the window PP_WINDOW, and the ring's hops at
+# a seq = 2 microbatch's block [2, 512, 8, 64] (`ring_hops`: the diagonal,
+# a past block, a past block at q_offset 512 under the window), each
+# against its plain version at phases 3/4's tolerances, timed beside the
+# bound (the pairs the masks keep) and SDPA with the boolean mask.
+PP_HOP_SHAPE = (2, 512, 8, 64)
 # 21b: the bench LM as a bf16 `PipelinedLM` (the JAX model: f32 logits
 # head, sparse cross-entropy; AdamW 3e-4) at data=1,pipe=2, two gloo ranks
 # sharing the card, under GPipe, 1F1B and the interleaved schedule
@@ -6273,6 +6346,44 @@ PP_LOSS_RTOL, PP_UPDATE_RTOL, PP_GRAD_RTOL = 2.0 ** -8, 0.06, 0.1
 # model=2" SCHEDULE=1f1b.
 PP_4_MICRO, PP_4_STEPS, PP_4_WINDOW = 8, 10, 5
 
+# 21d: pp × sp at the bench width, packed and windowed: data=1,pipe=2,seq=2,
+# four gloo ranks sharing the card (launched beside 12b-d, as 21b is), the
+# bench LM as a bf16 PipelinedLM with window PP_WINDOW on packed rows
+# (`pp_packed_batches`: data/packing.py's pack_documents of seeded
+# documents of PP_DOC_LEN tokens, 2-4 a row, the ids carried in the input
+# as the packed twin carries them) under 1F1B and GPipe, PP_SP_STEPS eager
+# steps, against one rank on the same rows: 21b's gates. Each rank holds a
+# [rows, 512] column block; its ring runs one hop on seq rank 0 (the other
+# block is in its future) and two on seq rank 1 (the past block's newest
+# key is inside the window), so B1-B3 launch (L/S) × n_micro × hops a step
+# (1F1B: B1 twice that), all tc.
+PP_WINDOW = 256
+PP_DOC_LEN = (200, 520)
+PP_SP_STEPS = 3
+# 21e: the MoE pipeline at bench.py's MoE width (8 experts, top-2,
+# capacity 1.25, groups of 1024 tokens; every block MoE, as JAX's
+# pipelined MoE requires): at data=1,pipe=2 under the three schedules in
+# 21b's launch, and at data=1,pipe=2,expert=2 under 1F1B in 21d's. A
+# microbatch's rank holds 2 rows of 1024 tokens, so its dispatch groups are
+# one row each, as the one-rank model's are. The one rank runs the same
+# microbatches (`_microbatched`: the schedule on a one-stage ring): bf16
+# GEMMs of the whole batch's shape round a few activations otherwise, which
+# flips near-ties of the router's top-2, re-routes those tokens and
+# re-slots every later token of their group, and the whole row after them
+# through attention — against the whole-batch run the updates read 0.12-
+# 0.15 of the one-rank update's norm on the card (P1, PR 17) where the
+# dense model reads 0.015. Gates: 21b's, plus the first batch's load-
+# balance loss within PP_MOE_AUX_RTOL of one rank's and its drop rate (and
+# every logged step's) within PP_MOE_DROP_ATOL. A sowing model's fit runs
+# one more forward, the metrics' discovery (`Trainer.discover_metrics`).
+# The expert=2 run computes in f32 (B1-B3 on the CUDA-core route), as
+# 17d does: its expert sum adds two bf16-rounded halves of the combine
+# where one rank rounds the whole once, and in bf16 that alone flips
+# near-ties.
+PP_MOE = dict(mlp="moe", n_experts=8, moe_k=2, capacity_factor=1.25,
+              moe_group_size=1024)
+PP_MOE_AUX_RTOL, PP_MOE_DROP_ATOL = 1e-3, 1e-3
+
 PP_CHILD = r"""
 import hashlib, json, os, time
 import numpy as np
@@ -6291,17 +6402,14 @@ ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
 r = ht.rank()
 dev = runtime.device()
 cuda = dev.type == "cuda"
-cfg = json.loads(os.environ.get("SMOKE_MODEL") or "null") or cs.PP_MODEL
-steps, n_micro = int(os.environ["SMOKE_STEPS"]), int(os.environ["SMOKE_MICRO"])
+seq = int(os.environ.get("SMOKE_SEQ") or 0) or cs.TRAIN_SEQ
 out = os.environ["SMOKE_OUT"]
-mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string(os.environ["SMOKE_MESH"]))
-batches = [sharding.shard_batch(b, mesh) for b in cs.tp_batches(
-    steps, int(os.environ.get("SMOKE_SEQ") or 0), cfg["vocab_size"])]
 COUNTS = {"flash_fwd": "launches", "flash_fwd_tc": "launches_tc",
           "flash_bwd_dq": "launches_bwd_dq",
           "flash_bwd_dq_tc": "launches_bwd_dq_tc",
           "flash_bwd_dkv": "launches_bwd_dkv",
           "flash_bwd_dkv_tc": "launches_bwd_dkv_tc"}
+meshes = {}
 
 
 class Clock(callbacks.Callback):
@@ -6313,18 +6421,29 @@ class Clock(callbacks.Callback):
         self.t.append(time.perf_counter())
 
 
-res = {"rank": r, "stage": mesh.stage, "coords": mesh.coords}
-for sched in os.environ["SMOKE_SCHEDULES"].split(","):
-    model = tpl.PipelinedLM(**cfg, n_micro=n_micro, mesh=mesh,
-                            schedule=sched, device=dev, seed=0)
+res = {"rank": r}
+for run in json.loads(os.environ["SMOKE_RUNS"]):
+    key, steps, n_micro = run["key"], run["steps"], run["micro"]
+    if run["mesh"] not in meshes:  # every rank builds them in one order
+        meshes[run["mesh"]] = tmesh.build_mesh(
+            tmesh.MeshSpec.from_string(run["mesh"]))
+    mesh = meshes[run["mesh"]]
+    model = cs.pp_model(torch, cs.pp_config(run), run["packed"],
+                        n_micro=n_micro, mesh=mesh,
+                        schedule=run["schedule"], device=dev, seed=0)
+    spec = tmesh.P(("data", "fsdp"), "seq") if mesh.seq_shards > 1 else None
     trainer = ht.Trainer(model, ht.DistributedOptimizer(ht.adamw(3e-4)),
                          seed=0, mesh=mesh, param_specs=tpl.param_specs,
+                         batch_specs=None if spec is None else (spec, spec),
                          device=dev)
     trainer.build()
-    if os.environ.get("SMOKE_GRADS"):
-        grads = cs.pp_first_grads(torch, trainer, batches[0])
+    batches = [sharding.shard_batch(b, mesh) for b in cs.pp_batches(
+        run["packed"], steps, seq, cs.pp_config(run)["vocab_size"])]
+    rec = {"stage": mesh.stage, "coords": mesh.coords}
+    if run.get("grads"):
+        grads, rec["first"] = cs.pp_first_grads(torch, trainer, batches[0])
         if r == 0:
-            np.savez(os.path.join(out, f"grads_{sched}.npz"),
+            np.savez(os.path.join(out, f"grads_{key}.npz"),
                      **{n: t.numpy() for n, t in grads.items()})
         del grads
     clock = Clock()
@@ -6339,22 +6458,24 @@ for sched in os.environ["SMOKE_SCHEDULES"].split(","):
                 verbose=0)
     step_ms = sorted(1e3 * (b - a) for a, b in zip(clock.t[2:], clock.t[3:]))
     median = step_ms[len(step_ms) // 2] if step_ms else None
-    rec = {"losses": [e["loss"] for e in clock.logs],
-           "launches": {k: getattr(fa, a) for k, a in COUNTS.items()},
-           "eager_steps": trainer._runner.eager_steps,
-           "captures": trainer._runner.captures,
-           "step_ms_median": median,
-           "tokens_per_s": (cs.TRAIN_BATCH * cs.TRAIN_SEQ / (median / 1e3)
-                            if median else None),
-           "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
-                               if cuda else None),
-           "ticks": tpipe.stats["ticks"],
-           "backward_ticks": tpipe.stats["backward_ticks"],
-           "passes_a_step": [len(tpipe.stats["forward"]),
-                             len(tpipe.stats["backward"])],
-           "handoff_bytes_per_step":
-               (collectives.pipe_traffic["bytes"] - sent) / steps}
-    if os.environ.get("SMOKE_PROFILE"):
+    rec.update({
+        "losses": [e["loss"] for e in clock.logs],
+        "drop_rates": [e.get("moe_drop_rate") for e in clock.logs],
+        "launches": {k: getattr(fa, a) for k, a in COUNTS.items()},
+        "eager_steps": trainer._runner.eager_steps,
+        "captures": trainer._runner.captures,
+        "step_ms_median": median,
+        "tokens_per_s": (cs.TRAIN_BATCH * cs.TRAIN_SEQ / (median / 1e3)
+                         if median else None),
+        "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if cuda else None),
+        "ticks": tpipe.stats["ticks"],
+        "backward_ticks": tpipe.stats["backward_ticks"],
+        "passes_a_step": [len(tpipe.stats["forward"]),
+                          len(tpipe.stats["backward"])],
+        "handoff_bytes_per_step":
+            (collectives.pipe_traffic["bytes"] - sent) / steps})
+    if run.get("profile"):
         window = cs.PP_4_WINDOW
 
         def fit(cbs):
@@ -6368,18 +6489,18 @@ for sched in os.environ["SMOKE_SCHEDULES"].split(","):
         nccl = sum(ms for k, ms in by_name.items() if "nccl" in k) / window
         rec["profile"] = dict(per, host_ms_per_step=host_ms,
                               nccl_ms_per_step=nccl)
-    # The replicated leaves (embedding, ln_f, head) take their whole
-    # gradient on every stage: they must stay bit-equal across the stages.
+    # The replicated leaves (embedding, ln_f, head, router) take their
+    # whole gradient on every rank: they must stay bit-equal.
     rec["replicated_sha256"] = hashlib.sha256(b"".join(
         p.detach().float().cpu().numpy().tobytes()
         for n, p in model.named_parameters()
         if n not in trainer.placements)).hexdigest()
     full = trainer.state.full_model_state()
     if r == 0:
-        np.savez(os.path.join(out, f"full_{sched}.npz"),
+        np.savez(os.path.join(out, f"full_{key}.npz"),
                  **{n: t.detach().float().cpu().numpy()
                     for n, t in full.items()})
-    res[sched] = rec
+    res[key] = rec
     del model, trainer, full
     if cuda:
         torch.cuda.empty_cache()
@@ -6387,130 +6508,285 @@ print("pp_child", json.dumps(res), flush=True)
 """
 
 
-def pp_child_run(name, nprocs, mesh, steps, n_micro, backend,
-                 schedules=PP_SCHEDULES, profile=False, grads=False):
-    """One launch of PP_CHILD; returns (per-rank records, by schedule rank
-    0's whole ``params`` after the fit and, with ``grads``, the first
-    batch's whole ``grads`` before it, wall seconds, the eager-step log
-    lines)."""
+def pp_config(run):
+    """The `PipelinedLM` fields of ``run``: PP_MODEL's, the run's, and a
+    CPU rehearsal's ``SMOKE_MODEL`` over both."""
+    return {**PP_MODEL, **run["model"],
+            **json.loads(os.environ.get("SMOKE_MODEL") or "{}")}
+
+
+def pp_model(torch, cfg, packed, **kw):
+    """A `PipelinedLM` of ``cfg``; with ``packed`` inside a module that
+    takes ``[B, T, 2]`` rows of tokens ⊕ segment ids (the packed twin's
+    input, `examples.lm_packed_pretraining.PackedLM`)."""
+    from horovod_tpu_torch.models import pipelined_lm as tpl
+
+    inner = tpl.PipelinedLM(**cfg, **kw)
+    if not packed:
+        return inner
+
+    class Packed(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, xs, *, train=False, dropout_seed=None):
+            return self.inner(xs[..., 0], train=train,
+                              segment_ids=xs[..., 1])
+
+    return Packed()
+
+
+def pp_packed_batches(steps, seq=None, vocab=None):
+    """21d's global batches: TRAIN_BATCH packed rows a step
+    (`data.packing.pack_documents` of documents of PP_DOC_LEN tokens drawn
+    from RandomState(21), at most four a row), ``[rows, T, 2]`` tokens ⊕
+    segment ids, the targets the tokens shifted left within the row (the
+    last one 0)."""
+    import numpy as np
+
+    from horovod_tpu_torch.data.packing import pack_documents
+
+    seq = seq or TRAIN_SEQ
+    vocab = vocab or MODEL["vocab_size"]
+    lo, hi = (max(1, n * seq // 1024) for n in PP_DOC_LEN)  # at T = 1024
+    rng = np.random.RandomState(21)
+    out = []
+    for _ in range(steps):
+        docs = [rng.randint(1, vocab, rng.randint(lo, hi)).astype(np.int32)
+                for _ in range(4 * TRAIN_BATCH)]
+        tokens, seg, _ = pack_documents(docs, seq, max_docs_per_row=4)
+        tokens, seg = tokens[:TRAIN_BATCH], seg[:TRAIN_BATCH]
+        y = np.zeros_like(tokens)
+        y[:, :-1] = tokens[:, 1:]
+        out.append((np.stack([tokens, seg], -1), y))
+    return out
+
+
+def pp_batches(packed, steps, seq=None, vocab=None):
+    return (pp_packed_batches if packed else tp_batches)(steps, seq, vocab)
+
+
+def pp_runs(names):
+    """The child runs of `PP_RUNS` named ``names``, in that order."""
+    return [dict(PP_RUNS[n], key=n) for n in names]
+
+
+def pp_child_run(name, nprocs, runs, backend):
+    """One launch of PP_CHILD over ``runs`` (`pp_runs`); returns (per-rank
+    records, by run rank 0's whole ``params`` after the fit and, where the
+    run takes them, the first batch's whole ``grads`` before it, wall
+    seconds, the eager-step log lines)."""
     import numpy as np
 
     out = os.path.join(WORK, name + "_out")
     os.makedirs(out, exist_ok=True)
-    knobs = {"SMOKE_STEPS": str(steps), "SMOKE_MICRO": str(n_micro),
-             "SMOKE_MESH": mesh, "SMOKE_SCHEDULES": ",".join(schedules),
-             "SMOKE_OUT": out, "HVT_BACKEND": backend,
-             "SMOKE_PROFILE": "1" if profile else "",
-             "SMOKE_GRADS": "1" if grads else "",
-             "PYTHONUNBUFFERED": "1"}
+    knobs = {"SMOKE_RUNS": json.dumps(runs), "SMOKE_OUT": out,
+             "HVT_BACKEND": backend, "PYTHONUNBUFFERED": "1"}
     lines, wall, _, _ = _launch(name, nprocs, None, knobs, code=PP_CHILD,
                                 timeout=900)
     recs = [json.loads(_rank_line(lines, "pp_child ", r))
             for r in range(nprocs)]
-    fulls = {s: {what: dict(np.load(os.path.join(out, f"{f}_{s}.npz")))
-                 for what, f in (("params", "full"), ("grads", "grads"))
-                 if what == "params" or grads}
-             for s in schedules}
+    fulls = {run["key"]: {
+        what: dict(np.load(os.path.join(out, f"{f}_{run['key']}.npz")))
+        for what, f in (("params", "full"), ("grads", "grads"))
+        if what == "params" or run.get("grads")} for run in runs}
     eager = [ln for ln in lines if "pipelined step runs eagerly" in ln]
     return recs, fulls, wall, eager
 
 
-def pp_start():
-    """21b, launched in a thread (two gloo ranks sharing the card);
-    `pp_phase` joins it."""
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    fut = pool.submit(pp_child_run, "pp_pipe2", 2, "data=1,pipe=2", PP_STEPS,
-                      PP_MICRO, "gloo", grads=True)
+# Every run of phase 21's launches: its mesh, schedule, model overrides,
+# whether its rows are packed, steps and microbatches, and whether the
+# first batch's gradient is kept (21b/21d/21e) or the steps profiled (21c).
+PP_RUNS = {
+    **{s: dict(mesh="data=1,pipe=2", schedule=s, model={}, packed=False,
+               steps=PP_STEPS, micro=PP_MICRO, grads=True)
+       for s in PP_SCHEDULES},
+    **{f"moe_{s}": dict(mesh="data=1,pipe=2", schedule=s, model=PP_MOE,
+                        packed=False, steps=PP_SP_STEPS, micro=PP_MICRO,
+                        grads=True)
+       for s in PP_SCHEDULES},
+    **{f"sp_{s}": dict(mesh="data=1,pipe=2,seq=2", schedule=s,
+                       model={"window": PP_WINDOW}, packed=True,
+                       steps=PP_SP_STEPS, micro=PP_MICRO, grads=True)
+       for s in ("1f1b", "gpipe")},
+    "ep_1f1b": dict(mesh="data=1,pipe=2,expert=2", schedule="1f1b",
+                    model=dict(PP_MOE, compute_dtype="float32"),
+                    packed=False, steps=PP_SP_STEPS, micro=PP_MICRO,
+                    grads=True),
+    **{f"4card_{s}": dict(mesh="data=1,pipe=4", schedule=s, model={},
+                          packed=False, steps=PP_4_STEPS, micro=PP_4_MICRO,
+                          profile=True)
+       for s in PP_SCHEDULES},
+    "4card_moe_ep": dict(mesh="data=1,pipe=2,expert=2", schedule="1f1b",
+                         model=PP_MOE, packed=False, steps=PP_4_STEPS,
+                         micro=PP_4_MICRO),
+}
+PP_2RANK = list(PP_SCHEDULES) + [f"moe_{s}" for s in PP_SCHEDULES]
+PP_4RANK = ["sp_1f1b", "sp_gpipe", "ep_1f1b"]
+
+
+def pp_start(torch):
+    """21b/21e (two gloo ranks) and 21d/21e (four), launched in threads
+    sharing the card, and their one-rank references (`pp_refs`) in a
+    third; `pp_phase` joins them (the smoke joins the references before
+    the phases that count launches)."""
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    futs = {"two": pool.submit(pp_child_run, "pp_pipe2", 2,
+                               pp_runs(PP_2RANK), "gloo"),
+            "four": pool.submit(pp_child_run, "pp_pipe2_seq2", 4,
+                                pp_runs(PP_4RANK), "gloo"),
+            "refs": pool.submit(pp_refs, torch)}
     pool.shutdown(wait=False)
-    return fut
+    return futs
+
+
+def pp_refs(torch):
+    """The one-rank run each run of 21b/21d/21e is held against
+    (`pp_one_rank`), one for each model, rows, steps and layer order."""
+    ones, refs = {}, {}
+    for key in PP_2RANK + PP_4RANK:
+        run = PP_RUNS[key]
+        order = "logical" if run["schedule"] == "interleaved" else "stored"
+        same = (json.dumps(run["model"], sort_keys=True), run["packed"],
+                run["steps"], order)
+        if same not in ones:
+            ones[same] = pp_one_rank(torch, key, order)
+        refs[key] = ones[same]
+    return refs
 
 
 def pp_first_grads(torch, trainer, batch):
-    """The gradient of ``trainer``'s loss on ``batch`` (the global batch:
-    data = 1) before any step, by parameter name as f32 CPU tensors: on a
-    pipe mesh the stacks gathered over it (a collective), the replicated
-    leaves as every stage holds them (whole). The module's gradients are
-    cleared before and after."""
+    """The gradient of ``trainer``'s objective (the mean loss plus the
+    sown losses) on ``batch`` (this rank's rows) before any step, by
+    parameter name as f32 CPU tensors, as the optimizer sums it: over the
+    gradient group (the ``seq`` ranks' token blocks), divided by the data
+    shards, the placed stacks gathered (a collective); and the first
+    batch's MoE load-balance loss and drop rate (None for a dense model).
+    The module's gradients are cleared before and after."""
     from horovod_tpu_torch.models.convert import gather_state_dict
+    from horovod_tpu_torch.parallel import collectives
+    from horovod_tpu_torch.training import train_state
 
-    model = trainer.module
-    x, y = (torch.as_tensor(a, device=trainer.device) for a in batch)
+    model, mesh = trainer.module, trainer.mesh
+    x, y = (trainer._tensor(trainer.cut(a, i)) for i, a in enumerate(batch))
     model.zero_grad(set_to_none=True)
-    trainer.loss_fn(model(x), y).mean().backward()
+    loss_vec, _ = trainer._loss_and_correct(x, y, train=True)
+    sown = train_state.sown_losses(model)
+    (loss_vec.mean() + sum(v.float() for v in sown)).backward()
     grads = {n: p.grad.detach() for n, p in model.named_parameters()}
-    if model.cuts:
-        grads = gather_state_dict(grads, model.mesh, model.cuts)
+    if mesh is not None:
+        grads = {n: collectives.all_reduce_sum(g, mesh.grad_group)
+                 / mesh.data_shards for n, g in grads.items()}
+        grads = gather_state_dict(grads, mesh, trainer.placements)
+    drop = train_state.sown_metrics(model).get("moe_drop_rate")
+    first = {"aux": float(sown[0].detach()) if sown else None,
+             "drop": None if drop is None else float(drop)}
     model.zero_grad(set_to_none=True)
-    return {n: g.float().cpu() for n, g in grads.items()}
+    return {n: g.float().cpu() for n, g in grads.items()}, first
 
 
-def pp_one_rank(torch):
-    """The one-rank runs 21b is held against: the first batch's gradient,
-    then PP_STEPS eager steps of the same batches from the seed-0 weights,
-    as stored (GPipe, 1F1B) and in logical order (the interleaved
-    placement at pipe = 2). Returns ``{order: (losses, start, end,
-    grads)}``, parameters and gradients in the stored order."""
+def _microbatched(model):
+    """``model`` (a one-rank `PipelinedLM`) made to run its schedule on a
+    one-stage ring: the mesh of this process alone, whose ``pipe`` group is
+    the rank itself, and ``pipe`` above 1, which sends the forward through
+    `PipelinedLM._pipelined` — the microbatches, passes and GEMM shapes of
+    a pipelined rank."""
+    from horovod_tpu_torch.parallel import mesh as tmesh
+
+    model.mesh, model.pipe = tmesh.build_mesh(), 2
+    return model
+
+
+def pp_one_rank(torch, key, order):
+    """The one-rank run of ``PP_RUNS[key]``'s model, rows and steps that
+    21b/21d/21e are held against: the first batch's gradient and MoE
+    terms, then the steps eagerly from the seed-0 weights, as stored or in
+    logical ``order`` (the interleaved placement at pipe = 2). Returns
+    ``(losses, start, end, grads, first, drop_rates)``, parameters and
+    gradients in the stored order."""
     from horovod_tpu_torch import DistributedOptimizer, Trainer, adamw
     from horovod_tpu_torch.models import pipelined_lm as tpl
 
-    L = PP_MODEL["n_layers"]
-    stored = tpl.PipelinedLM(**PP_MODEL, n_micro=PP_MICRO, device="cpu",
-                             seed=0).state_dict()
-    out = {}
-    for order in ("stored", "logical"):
-        sd = (stored if order == "stored"
-              else tpl.to_logical_order(stored, L, 2, PP_VIRTUAL))
-        model = tpl.PipelinedLM(**PP_MODEL, n_micro=PP_MICRO, device=DEVICE)
-        model.load_state_dict(sd)
-        trainer = Trainer(model, DistributedOptimizer(adamw(3e-4)), seed=0,
-                          device=DEVICE)
-        grads = pp_first_grads(torch, trainer, tp_batches(
-            1, vocab=PP_MODEL["vocab_size"])[0])
-        hist = trainer.fit(dataset=tp_batches(
-            PP_STEPS, vocab=PP_MODEL["vocab_size"]), epochs=PP_STEPS,
-            steps_per_epoch=1, verbose=0, _eager=True)
-        end = {n: p.detach().float().cpu()
-               for n, p in model.named_parameters()}
-        if order == "logical":
-            end = tpl.to_interleaved_order(end, L, 2, PP_VIRTUAL)
-            grads = tpl.to_interleaved_order(grads, L, 2, PP_VIRTUAL)
-        out[order] = ([e["loss"] for e in hist],
-                      {n: t.numpy() for n, t in stored.items()},
-                      {n: t.numpy() for n, t in end.items()},
-                      {n: t.numpy() for n, t in grads.items()})
-        del model, trainer
-        if DEVICE == "cuda":
-            torch.cuda.empty_cache()
+    run = PP_RUNS[key]
+    cfg = pp_config(run)
+    L, steps = cfg["n_layers"], run["steps"]
+    model = pp_model(torch, cfg, run["packed"], n_micro=run["micro"],
+                     device="cpu", seed=0)
+    if run["model"].get("mlp") == "moe":  # PP_MOE's comment says why
+        _microbatched(model)
+    stored = {n: t.clone() for n, t in model.state_dict().items()}
+    if order == "logical":
+        model.load_state_dict(tpl.to_logical_order(stored, L, 2, PP_VIRTUAL))
+    model.to(DEVICE)
+    batches = pp_batches(run["packed"], steps, vocab=cfg["vocab_size"])
+    trainer = Trainer(model, DistributedOptimizer(adamw(3e-4)), seed=0,
+                      device=DEVICE)
+    grads, first = pp_first_grads(torch, trainer, batches[0])
+    hist = trainer.fit(dataset=batches, epochs=steps, steps_per_epoch=1,
+                       verbose=0, _eager=True)
+    end = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    if order == "logical":
+        end = tpl.to_interleaved_order(end, L, 2, PP_VIRTUAL)
+        grads = tpl.to_interleaved_order(grads, L, 2, PP_VIRTUAL)
+    out = ([e["loss"] for e in hist],
+           {n: t.numpy() for n, t in stored.items()},
+           {n: t.numpy() for n, t in end.items()},
+           {n: t.numpy() for n, t in grads.items()}, first,
+           [e.get("moe_drop_rate") for e in hist])
+    del model, trainer
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
-def _pp_held(sched, recs, full, one, stages):
-    """21b's schedule ``sched`` against the one-rank run: the first
-    gradients, losses, parameters, launches, ticks. ``full``: rank 0's
-    whole ``params`` and ``grads`` (`pp_child_run`)."""
+def _hops(rec, key):
+    """The ring hops whose kernels a rank of ``PP_RUNS[key]`` runs a
+    layer: 1 without a live ``seq`` axis; on seq = 2 one on seq rank 0
+    (the other block is its future) and two on rank 1 (the past block's
+    newest key lies inside the window)."""
+    if "seq=2" not in PP_RUNS[key]["mesh"]:
+        return 1
+    return 1 + rec["coords"]["seq"]
+
+
+def _pp_held(key, recs, full, one, stages, phase):
+    """Run ``key`` against its one-rank run: the first gradients (and MoE
+    terms), losses, parameters, launches, ticks. ``full``: rank 0's whole
+    ``params`` and ``grads`` (`pp_child_run`)."""
     import numpy as np
 
-    losses, start, end, grads = one
+    run = PP_RUNS[key]
+    sched, steps, n_micro = run["schedule"], run["steps"], run["micro"]
+    losses, start, end, grads, first, drops = one
+    runs = [r[key] for r in recs]
     g_err, g_ratio = {}, {}
     for n, g in grads.items():
         norm = max(float(np.linalg.norm(g)), 1e-30)
         g_err[n] = float(np.linalg.norm(full["grads"][n] - g)) / norm
         g_ratio[n] = float(np.linalg.norm(full["grads"][n])) / norm
-    glob = [float(np.mean([r[sched]["losses"][i] for r in recs]))
-            for i in range(PP_STEPS)]
+    glob = [float(np.mean([r["losses"][i] for r in runs]))
+            for i in range(steps)]
     worst_loss = max(abs(a - b) / abs(b) for a, b in zip(glob, losses))
     ratios = {}
     for n, p in end.items():
         moved = float(np.linalg.norm(p - start[n]))
         ratios[n] = (float(np.linalg.norm(full["params"][n] - p))
                      / max(moved, 1e-30))
-    per_step = PP_MODEL["n_layers"] // stages * PP_MICRO
-    want = {k: PP_STEPS * per_step * (2 if sched == "1f1b" and k ==
-                                      "flash_fwd" else 1)
-            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    per_step = pp_config(run)["n_layers"] // stages * n_micro
+    moe = run["model"].get("mlp") == "moe"
+    # Forwards a fit runs: a step's (1F1B recomputes it) and a sowing
+    # model's metric discovery.
+    fwd = steps * (2 if sched == "1f1b" else 1) + (1 if moe else 0)
+    wants = [{k: per_step * _hops(r, key) * (fwd if k == "flash_fwd"
+                                             else steps)
+              for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+             for r in runs]
     v = PP_VIRTUAL if sched == "interleaved" else 1
-    res = {"schedule": sched, "ranks": len(recs), "losses": glob,
-           "one_rank_losses": losses, "loss_max_rel_err": worst_loss,
+    res = {"run": key, "mesh": run["mesh"], "schedule": sched,
+           "model": run["model"], "packed": run["packed"],
+           "ranks": len(recs), "losses": glob, "one_rank_losses": losses,
+           "loss_max_rel_err": worst_loss,
            "grad_rel_err_max": max(g_err.values()),
            "grad_rel_err_median": sorted(g_err.values())[len(g_err) // 2],
            "grad_worst_parameter": max(g_err, key=g_err.get),
@@ -6519,79 +6795,125 @@ def _pp_held(sched, recs, full, one, stages):
            "update_rel_err_max": max(ratios.values()),
            "update_rel_err_median": sorted(ratios.values())[len(ratios) // 2],
            "worst_parameter": max(ratios, key=ratios.get),
-           "launches": [r[sched]["launches"] for r in recs],
-           "launches_want_a_rank": want,
-           "ticks": [r[sched]["ticks"] for r in recs],
-           "passes_a_step": [r[sched]["passes_a_step"] for r in recs],
-           "handoff_bytes_per_step": [r[sched]["handoff_bytes_per_step"]
-                                      for r in recs],
-           "eager_steps": [r[sched]["eager_steps"] for r in recs],
+           "launches": [r["launches"] for r in runs],
+           "launches_want_by_rank": wants,
+           "ticks": [r["ticks"] for r in runs],
+           "passes_a_step": [r["passes_a_step"] for r in runs],
+           "handoff_bytes_per_step": [r["handoff_bytes_per_step"]
+                                      for r in runs],
+           "eager_steps": [r["eager_steps"] for r in runs],
            "step_ms_median_gloo_staging_not_speed": [
-               r[sched]["step_ms_median"] for r in recs],
-           "peak_memory_gib": [r[sched]["peak_memory_gib"] for r in recs]}
+               r["step_ms_median"] for r in runs],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in runs]}
     check(res["grad_rel_err_max"] <= PP_GRAD_RTOL,
-          f"21b {sched}: the first gradients differ from one rank's: {res}")
+          f"{phase} {key}: the first gradients differ from one rank's: {res}")
     check(worst_loss <= PP_LOSS_RTOL,
-          f"21b {sched}: the losses differ from one rank's: {res}")
+          f"{phase} {key}: the losses differ from one rank's: {res}")
     check(res["update_rel_err_max"] <= PP_UPDATE_RTOL,
-          f"21b {sched}: the parameters differ from one rank's: {res}")
-    check(all(r[sched]["launches"][k] == r[sched]["launches"][k + "_tc"]
-              == n for r in recs for k, n in want.items()),
-          f"21b {sched}: B1-B3 launched other than {want} on tc a rank: "
-          f"{res['launches']}")
-    check(all(t == v * PP_MICRO + stages - 1 for t in res["ticks"]),
-          f"21b {sched}: ticks {res['ticks']}, want v·T + S − 1")
-    check(all(n == PP_STEPS for n in res["eager_steps"]),
-          f"21b {sched}: want {PP_STEPS} eager steps a rank")
-    check(len({r[sched]["replicated_sha256"] for r in recs}) == 1,
-          f"21b {sched}: the replicated parameters differ between stages")
+          f"{phase} {key}: the parameters differ from one rank's: {res}")
+    tc = pp_config(run)["compute_dtype"] == "bfloat16"
+    check(all(r["launches"][k] == n and r["launches"][k + "_tc"]
+              == (n if tc else 0)
+              for r, want in zip(runs, wants) for k, n in want.items()),
+          f"{phase} {key}: B1-B3 launched other than {wants} on "
+          f"{'tc' if tc else 'simt'}: {res['launches']}")
+    check(all(t == v * n_micro + stages - 1 for t in res["ticks"]),
+          f"{phase} {key}: ticks {res['ticks']}, want v·T + S − 1")
+    check(all(n == steps for n in res["eager_steps"]),
+          f"{phase} {key}: want {steps} eager steps a rank")
+    check(len({r["replicated_sha256"] for r in runs}) == 1,
+          f"{phase} {key}: the replicated parameters differ between ranks")
+    if moe:
+        got = [r["first"] for r in runs]
+        res["first_aux"] = [g["aux"] for g in got]
+        res["first_drop_rate"] = [g["drop"] for g in got]
+        res["one_rank_first"] = first
+        res["drop_rates"] = [r["drop_rates"] for r in runs]
+        res["one_rank_drop_rates"] = drops
+        check(all(abs(g["aux"] - first["aux"]) <= PP_MOE_AUX_RTOL
+                  * abs(first["aux"]) for g in got),
+              f"{phase} {key}: the load-balance loss differs from one "
+              f"rank's: {res['first_aux']} vs {first}")
+        check(all(abs(g["drop"] - first["drop"]) <= PP_MOE_DROP_ATOL
+                  for g in got)
+              and all(abs(a - b) <= PP_MOE_DROP_ATOL
+                      for r in runs for a, b in zip(r["drop_rates"], drops)),
+              f"{phase} {key}: the drop rates differ from one rank's: "
+              f"{res['first_drop_rate']}, {res['drop_rates']} vs {first}, "
+              f"{drops}")
     return res
 
 
-def pp_phase(torch, card, fut=None):
-    """Phase 21: the pipeline. 21a's kernels are timed alone; 21b runs in
-    a launched process (``fut``, from an earlier `pp_start`, or started
-    here), held against its one-rank references, which run here."""
+def pp_kernels(torch, card):
+    """21a: B1-B3 at a microbatch's attention, causal, with packed segment
+    ids and with the window (`shape_kernels`); 21a+: the ring's hops at a
+    seq = 2 microbatch's block (`ring_hops`)."""
+    res = {"causal": shape_kernels(torch, PP_ATTN_SHAPE, "21a",
+                                   "a pipeline microbatch", 21),
+           "packed": shape_kernels(torch, PP_ATTN_SHAPE, "21a",
+                                   "a packed microbatch", 211, packed=True),
+           "window": shape_kernels(torch, PP_ATTN_SHAPE, "21a",
+                                   "a windowed microbatch", 212,
+                                   window=PP_WINDOW)}
+    for part in ("causal", "packed", "window"):
+        log(f"phase21a {part}", json.dumps(dict(res[part], card=card)))
+    res["ring"] = ring_hops(torch, card, shape=PP_HOP_SHAPE,
+                            window=PP_WINDOW, phase="21a_ring", seed=213)
+    return res
+
+
+def pp_phase(torch, card, futs=None):
+    """Phase 21: the pipeline. 21a's kernels are timed alone; 21b/21e and
+    21d/21e run in launched processes and their one-rank references in a
+    thread (``futs``, from an earlier `pp_start`, or started here)."""
     t0 = time.perf_counter()
-    res = {"a": shape_kernels(torch, PP_ATTN_SHAPE, "21a",
-                              "a pipeline microbatch", 21)}
-    log("phase21a", json.dumps(dict(res["a"], card=card)))
-    fut = fut or pp_start()
-    one = pp_one_rank(torch)
-    recs, fulls, wall, _ = fut.result()
-    res["b"] = {}
-    for sched in PP_SCHEDULES:
-        order = "logical" if sched == "interleaved" else "stored"
-        res["b"][sched] = dict(_pp_held(sched, recs, fulls[sched],
-                                        one[order], 2),
-                               launch_wall_s=wall, card=card)
-        log(f"phase21b {sched}", json.dumps(res["b"][sched]))
+    res = {"a": pp_kernels(torch, card)}
+    futs = futs or pp_start(torch)
+    refs = futs["refs"].result()
+    for part, fut, keys in (("b", futs["two"], PP_2RANK),
+                            ("d", futs["four"], PP_4RANK)):
+        recs, fulls, wall, _ = fut.result()
+        for key in keys:
+            phase = "21e" if "moe" in key or key.startswith("ep") else \
+                f"21{part}"
+            held = dict(_pp_held(key, recs, fulls[key], refs[key], 2, phase),
+                        launch_wall_s=wall, card=card)
+            res.setdefault(phase, {})[key] = held
+            log(f"phase{phase} {key}", json.dumps(held))
     log("phase21b_memory", json.dumps({
-        sched: res["b"][sched]["peak_memory_gib"] for sched in PP_SCHEDULES}
+        key: res["21b"][key]["peak_memory_gib"] for key in PP_SCHEDULES}
         | {"card": card}))
+    res["b"] = res["21b"]
     res["seconds"] = time.perf_counter() - t0
     log(f"phase21 seconds: {res['seconds']:.1f}")
     return res
 
 
+def _twin_report(lines):
+    return [ln for ln in lines if ln.startswith("[rank 0] ") and any(
+        k in ln for k in ("first-half", "recall-half", "long-range recall"))]
+
+
 def pp_multi_card(torch, card, ranks):
     """21c (``--ranks 4``): the bench-width PipelinedLM at data=1,pipe=4
     on NCCL under each schedule — step ms, tokens/s a card, each stage's
-    busy and idle share beside the tick model's bubble — then the twin at
-    ``data=1,pipe=2,model=2`` with ``SCHEDULE=1f1b``."""
+    busy and idle share beside the tick model's bubble — and its MoE form
+    at data=1,pipe=2,expert=2 under 1F1B; then the twin at
+    ``data=1,pipe=2,model=2`` and at ``data=1,pipe=2,seq=2``, both with
+    ``SCHEDULE=1f1b``."""
     check(ranks == 4, "21c runs at --ranks 4")
     t0 = time.perf_counter()
-    recs, _, wall, eager = pp_child_run("pp_4card", 4, "data=1,pipe=4",
-                                        PP_4_STEPS, PP_4_MICRO, "nccl",
-                                        profile=True)
-    # Under NCCL a step would be captured: the pipelined one runs eagerly
+    keys = [f"4card_{s}" for s in PP_SCHEDULES] + ["4card_moe_ep"]
+    recs, _, wall, eager = pp_child_run("pp_4card", 4, pp_runs(keys), "nccl")
+    # Under NCCL a step would be captured: the pipelined step runs eagerly
     # and rank 0 says so once (under gloo every such step is eager).
     check(len(eager) == 1, f"21c: want one eager-step log line, got {eager}")
     res = {"mesh": "data=1,pipe=4", "n_micro": PP_4_MICRO,
            "eager_line": eager[0], "launch_wall_s": wall, "card": card}
     for sched in PP_SCHEDULES:
         v = PP_VIRTUAL if sched == "interleaved" else 1
-        runs = [r[sched] for r in sorted(recs, key=lambda r: r["stage"])]
+        runs = [r[f"4card_{sched}"]
+                for r in sorted(recs, key=lambda r: r[keys[0]]["stage"])]
         losses = runs[0]["losses"]
         prof = [r["profile"] for r in runs]
         work = [(p["device_busy_ms_per_step"] - p["nccl_ms_per_step"])
@@ -6629,19 +6951,42 @@ def pp_multi_card(torch, card, ranks):
         res["1f1b"]["losses"], res["gpipe"]["losses"]))
     check(worst <= PP_LOSS_RTOL,
           f"21c: 1F1B's losses are {worst:.3g} from GPipe's")
-    twin_lines, twin_wall, _, _ = _launch(
-        "pp_twin", 4, "lm_long_context",
-        {"HVT_MESH": "data=1,pipe=2,model=2", "SCHEDULE": "1f1b",
-         "HVT_BACKEND": "nccl", "PYTHONUNBUFFERED": "1"}, timeout=900)
-    report = [ln for ln in twin_lines if ln.startswith("[rank 0] ") and any(
-        k in ln for k in ("first-half", "recall-half", "long-range recall"))]
-    check(len(report) == 3, f"21c: the twin printed no full report: {report}")
-    res["twin"] = {"mesh": "data=1,pipe=2,model=2", "schedule": "1f1b",
-                   "report": report,
-                   "epochs": [ln for ln in twin_lines
-                              if ln.startswith("[rank 0] Epoch")],
-                   "launch_wall_s": twin_wall, "card": card}
-    log("phase21c_twin", json.dumps(res["twin"]))
+    # The MoE pipeline at pipe = 2 x expert = 2: every rank logs one loss
+    # and drop rate a step (the aux is averaged over the mesh).
+    moe = [r["4card_moe_ep"] for r in recs]
+    step = max(r["step_ms_median"] for r in moe)
+    res["moe_ep"] = {
+        "mesh": PP_RUNS["4card_moe_ep"]["mesh"], "schedule": "1f1b",
+        "moe": PP_MOE, "losses": moe[0]["losses"],
+        "drop_rates": moe[0]["drop_rates"], "step_ms_median": step,
+        "tokens_per_s_per_card": TRAIN_BATCH * TRAIN_SEQ / (step / 1e3)
+        / ranks,
+        "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in moe],
+        "launches_by_rank": [r["launches"] for r in moe],
+        "eager_steps": [r["eager_steps"] for r in moe], "card": card}
+    check(all(map(math.isfinite, moe[0]["losses"]))
+          and all(r["losses"] == moe[0]["losses"] for r in moe)
+          and all(0.0 <= x < 1.0 for x in moe[0]["drop_rates"]),
+          f"21c moe: the ranks' losses differ, or a loss or drop rate is "
+          f"out of range: {res['moe_ep']}")
+    check(len({r["replicated_sha256"] for r in moe}) == 1,
+          "21c moe: the replicated parameters differ between ranks")
+    log("phase21c moe_ep", json.dumps(res["moe_ep"]))
+    res["twin"] = {}
+    for mesh in ("data=1,pipe=2,model=2", "data=1,pipe=2,seq=2"):
+        twin_lines, twin_wall, _, _ = _launch(
+            "pp_twin_" + mesh.replace(",", "_").replace("=", ""), 4,
+            "lm_long_context",
+            {"HVT_MESH": mesh, "SCHEDULE": "1f1b", "HVT_BACKEND": "nccl",
+             "PYTHONUNBUFFERED": "1"}, timeout=900)
+        report = _twin_report(twin_lines)
+        check(len(report) == 3,
+              f"21c: the twin at {mesh} printed no full report: {report}")
+        epochs = [ln for ln in twin_lines if ln.startswith("[rank 0] Epoch")]
+        res["twin"][mesh] = {"mesh": mesh, "schedule": "1f1b",
+                             "report": report, "epochs": epochs,
+                             "launch_wall_s": twin_wall, "card": card}
+        log("phase21c_twin", json.dumps(res["twin"][mesh]))
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -6833,14 +7178,17 @@ def main(argv=None) -> int:
         # at once, beside 20b and 20c's launches (checks; their gloo step
         # ms are host staging, not speed), which phase 20 joins.
         tp_futs = tp_start()
-        pp_fut = pp_start()
+        pp_futs = pp_start(torch)
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             for fut in [pool.submit(cifar_graph_vs_eager, torch),
                         pool.submit(sync_bn_on_card, torch),
                         pool.submit(cifar_vit, torch),
                         pool.submit(mnist_2rank, torch)]:
                 fut.result()
-        lap("12b-d cifar, 10 mnist_2rank, 20b-c and 21b launched")
+        # 21's one-rank references launch B1-B3 here: done before the
+        # phases that count launches.
+        pp_futs["refs"].result()
+        lap("12b-d cifar, 10 mnist_2rank, 20b-c, 21b and 21d launched")
         decode = decode_phase(torch)
         lap("13 decode")
         tier = serve_tier(torch, card)
@@ -6860,7 +7208,7 @@ def main(argv=None) -> int:
         lap("19 seq2seq")
         tp = tp_phase(torch, card, tp_futs)
         lap("20 tp/fsdp")
-        pp = pp_phase(torch, card, pp_fut)
+        pp = pp_phase(torch, card, pp_futs)
         lap("21 pipeline")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -6984,7 +7332,21 @@ def main(argv=None) -> int:
             entry["launches_pipeline"] = {
                 sched: [r[key] for r in pp["b"][sched]["launches"]]
                 for sched in PP_SCHEDULES}
-            entry["pipeline_microbatch"] = pp["a"]["timings"][name]
+            entry["pipeline_microbatch"] = pp["a"]["causal"]["timings"][name]
+            # Phase 21d/21e: pp × sp on packed, windowed rows (four gloo
+            # ranks; seq rank 1 runs two ring hops a layer, rank 0 one)
+            # and the MoE pipeline, PP_SP_STEPS eager steps each, all on
+            # the tensor-core route; 21a+: this kernel on a packed and a
+            # windowed microbatch and at the ring's hops of a seq = 2 one.
+            entry["launches_pipeline_second_half"] = {
+                run: [r[key] for r in pp[part][run]["launches"]]
+                for part in ("21d", "21e") for run in pp[part]}
+            entry["pipeline_microbatch_masks"] = {
+                part: pp["a"][part]["timings"][name]
+                for part in ("packed", "window")}
+            entry["pipeline_ring_hops"] = {
+                hop: t_[name] for hop, t_ in pp["a"]["ring"]["timings"].items()
+                if name in t_}
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route.
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]

@@ -429,7 +429,10 @@ def export_serving(export_dir: str, module, input_shape: tuple,
     like the reference's ``if hvd.rank() == 0``). A model that holds
     parameter shards over a mesh is exported gathered: every rank calls,
     the primary writes (`gather_for_export`); every rank returns the
-    bundle's directory."""
+    bundle's directory. A module whose function depends on its batch size
+    (``batch_polymorphic`` False: an MoE `PipelinedLM` cuts its dispatch
+    groups from the batch's tokens) is exported at ``input_shape``'s
+    batch."""
     if format != EXPORT_FORMAT:
         raise NotImplementedError(
             f"export format {format!r} is not ported — the port exports "
@@ -445,15 +448,19 @@ def export_serving(export_dir: str, module, input_shape: tuple,
     os.makedirs(out_dir, exist_ok=True)
     dev = next(module.parameters()).device
     dtype = getattr(torch, np.dtype(input_dtype).name)
-    # Two example rows: torch.export specializes a dimension of size 1.
-    example = torch.zeros((2,) + tuple(input_shape[1:]), dtype=dtype,
+    # Two example rows: torch.export specializes a dimension of size 1. A
+    # module whose function depends on its batch size exports at
+    # input_shape's (as the JAX package's StableHLO export always does).
+    fixed = not getattr(module, "batch_polymorphic", True)
+    rows = input_shape[0] if fixed else 2
+    example = torch.zeros((rows,) + tuple(input_shape[1:]), dtype=dtype,
                           device=dev)
-    batch = torch.export.Dim("batch")
+    dynamic = None if fixed else ({0: torch.export.Dim("batch")},)
     was_training = module.training
     module.eval()
     try:
         program = torch.export.export(
-            _Predict(module), (example,), dynamic_shapes=({0: batch},))
+            _Predict(module), (example,), dynamic_shapes=dynamic)
     finally:
         module.train(was_training)
     buf = io.BytesIO()

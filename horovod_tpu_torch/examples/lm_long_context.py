@@ -29,13 +29,16 @@ Run (one process a rank, through the port's launcher):
 Pipeline parallelism: a ``pipe`` axis switches to the pipelined model
 (`models.pipelined_lm.PipelinedLM`: stage stacks over ``pipe``, the GPipe
 schedule or ``SCHEDULE=1f1b``, ``N_MICRO`` microbatches, Megatron TP
-inside each stage when ``model`` > 1), as the JAX script does:
+inside each stage when ``model`` > 1 and the flash ring over ``seq``
+inside each stage when ``seq`` > 1), as the JAX script does:
 
     HVT_MESH="data=2,pipe=4" N_MICRO=8 python -m horovod_tpu_torch.launch \\
         run --nprocs 8 -- python -m horovod_tpu_torch.examples.lm_long_context
     HVT_MESH="data=2,pipe=2,model=2" SCHEDULE=1f1b python -m \\
         horovod_tpu_torch.launch run --nprocs 8 -- \\
         python -m horovod_tpu_torch.examples.lm_long_context
+    HVT_MESH="data=2,pipe=2,seq=2" python -m horovod_tpu_torch.launch \\
+        run --nprocs 8 -- python -m horovod_tpu_torch.examples.lm_long_context
 
 Knobs, as in the JAX script: HVT_MESH, SEQ_LEN, VOCAB, DMODEL, NLAYERS,
 ATTN (ring|ulysses), REMAT=1, LOGITS=bf16, FUSED_CE=<n_chunks>, MOE_EVERY
@@ -43,9 +46,7 @@ and N_EXPERTS (with the mesh's ``expert`` axis), DRIVE_STEPS,
 DRIVE_EPOCHS, and HVT_DEVICE_CACHE (the device-staged fit, under JAX's
 rule: only where no pipe/seq/model/expert axis is live), and on a ``pipe``
 mesh N_MICRO (default 4) and SCHEDULE (``gpipe``, the default, or
-``1f1b``); plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``). A
-``pipe`` axis with a live ``seq`` axis (the JAX script's pp × sp mesh)
-raises naming ROADMAP queue A item 12.4, the pipeline's second half;
+``1f1b``); plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``).
 ``MOE_EVERY`` with a live ``model`` axis raises naming item 18.
 
 The greedy decode (the `TransformerLM` branch only, as in JAX): JAX runs it
@@ -77,10 +78,6 @@ from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 def main():
     spec = mesh_lib.MeshSpec.from_string(os.environ.get("HVT_MESH"))
-    if spec.pipe > 1 and spec.seq > 1:
-        pipelined_lm.refuse_second_half(
-            f"HVT_MESH with live 'pipe' ({spec.pipe}) and 'seq' "
-            f"({spec.seq}) axes (pp x sp)")
     hvt.init(device=registry.get_str("HVT_DEVICE"))
     metrics.init()
     device = runtime.device()
@@ -95,7 +92,9 @@ def main():
     if mesh.shape[mesh_lib.PIPE_AXIS] > 1:
         # pipe > 1 switches to the pipelined model: stage stacks over
         # `pipe`, the GPipe (or SCHEDULE=1f1b) microbatch schedule,
-        # Megatron TP inside each stage when `model` > 1.
+        # Megatron TP inside each stage when `model` > 1 and the flash
+        # ring inside each stage when `seq` > 1 (pp x sp, each rank
+        # holding its column block of the batch: batch_spec).
         model = pipelined_lm.PipelinedLM(
             vocab_size=vocab,
             d_model=int(os.environ.get("DMODEL", 256)),

@@ -20,9 +20,11 @@ side:
 
 `pipelined_params_from_flax` / `pipelined_params_to_flax` carry the JAX
 ``PipelinedLM``'s tree across: its stacks (``ln1``, ``qkv [L, d, 3d]``,
-``attn_out``, ``ln2``, ``mlp_up``, ``mlp_down``), ``embed``, ``ln_f`` and
-``lm_head`` keep their names and layouts in `models.pipelined_lm`, so the
-conversion copies arrays.
+``attn_out``, ``ln2``, and ``mlp_up``, ``mlp_down`` or, with
+``mlp="moe"``, ``router [L, d, E]``, ``moe_up [L, E, d, 4d]`` and
+``moe_down [L, E, 4d, d]``), ``embed``, ``ln_f`` and ``lm_head`` keep their
+names and layouts in `models.pipelined_lm`, so the conversion copies
+arrays.
 
 `shard_state_dict` cuts a full state dict to one rank's placements
 (`models.transformer.param_specs` or `models.pipelined_lm.param_specs` on
@@ -132,8 +134,9 @@ def params_to_flax(state_dict, *, n_heads: int) -> dict:
 
 
 def pipelined_params_from_flax(tree) -> dict:
-    """The JAX ``PipelinedLM``'s (dense) params tree, as numpy arrays →
-    the `models.pipelined_lm.PipelinedLM` state_dict (f32 tensors)."""
+    """The JAX ``PipelinedLM``'s params tree (dense or MoE), as numpy
+    arrays → the `models.pipelined_lm.PipelinedLM` state_dict (f32
+    tensors)."""
     return {name: _t(a) for name, a in tree.items()}
 
 

@@ -68,6 +68,37 @@ def dispatch_group_count(g: int, group_size: int) -> int:
     return g
 
 
+def check_grouping(what: str, g: int, data_shards: int, seq_shards: int,
+                   group_size: int) -> None:
+    """Refuse a shard of ``g`` tokens whose dispatch groups would differ
+    from those a GSPMD layer cuts from the global batch of ``data_shards``
+    × ``seq_shards`` shards (ROADMAP queue A item 12.5): any live ``seq``
+    axis (a group spans the sequence shards), or ``g`` not a multiple of
+    the global group length."""
+    if seq_shards > 1:
+        raise ValueError(
+            f"{what} on a live 'seq' axis ({seq_shards} sequence "
+            "shards): the JAX layer cuts its dispatch groups from the "
+            "global [B, T] token order, so a group spans the sequence "
+            "shards, which the port's layer does not see together "
+            "(ROADMAP queue A item 12.5, MoE grouping across shards)"
+        )
+    if data_shards <= 1:
+        return
+    total = g * data_shards
+    s_glob = total // dispatch_group_count(total, group_size)
+    if g % s_glob:
+        raise ValueError(
+            f"{what}: this data shard's {g} tokens are not a multiple of "
+            f"the dispatch group of {s_glob} tokens that the JAX layer "
+            f"cuts from the global batch of {total} tokens ({data_shards} "
+            "data shards): the JAX layer would group tokens across data "
+            "shards, which the port does not — use a per-rank batch "
+            f"whose tokens are a multiple of {s_glob} (ROADMAP queue A "
+            "item 12.5, MoE grouping across data shards)"
+        )
+
+
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.nn.one_hot`` (f32), with no host check of the indices (a
     captured step may hold it)."""
@@ -172,29 +203,8 @@ class MoEMlp(nn.Module):
         """Refuse a shard whose ``g`` tokens would be grouped otherwise
         than the JAX layer groups the global batch (module docstring):
         the tokens of the batch's ``data_shards × seq_shards`` shards."""
-        if self.seq_shards > 1:
-            raise ValueError(
-                f"MoEMlp on a live 'seq' axis ({self.seq_shards} sequence "
-                "shards): the JAX layer cuts its dispatch groups from the "
-                "global [B, T] token order, so a group spans the sequence "
-                "shards, which the port's layer does not see together "
-                "(ROADMAP queue A item 12.5, MoE grouping across shards)"
-            )
-        dp = self.data_shards
-        if dp <= 1:
-            return
-        total = g * dp
-        s_glob = total // dispatch_group_count(total, self.group_size)
-        if g % s_glob:
-            raise ValueError(
-                f"MoEMlp: this data shard's {g} tokens are not a multiple of "
-                f"the dispatch group of {s_glob} tokens that the JAX layer "
-                f"cuts from the global batch of {total} tokens ({dp} data "
-                "shards): the JAX layer would group tokens across data "
-                "shards, which the port does not — use a per-rank batch "
-                f"whose tokens are a multiple of {s_glob} (ROADMAP queue A "
-                "item 12.5, MoE grouping across data shards)"
-            )
+        check_grouping("MoEMlp", g, self.data_shards, self.seq_shards,
+                       self.group_size)
 
     def forward(self, x, *, train: bool = False, whole_batch: bool = False):
         """``whole_batch``: ``x`` is the whole batch, not one data shard of

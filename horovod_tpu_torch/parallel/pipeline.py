@@ -33,7 +33,18 @@ autograd engine:
 
 Unlike JAX's GPipe, every schedule takes its parameters explicitly
 (``stage_fn(params, act)``), as JAX's 1F1B does: the Function returns their
-gradients. The outputs are the last stage's, broadcast over ``pipe``
+gradients. Two arguments carry what JAX's schedules carry beside the
+activations. ``extras``, per-microbatch constants (a packed batch's segment
+ids and positions), is a tuple of ``[n_micro, ...]`` tensors: each pass
+indexes microbatch m's rows directly (``stage_fn(params, act, extra)``),
+nothing of them rides the handoffs, and they take no gradient.
+``with_aux``: a pass returns ``(act, aux)``, ``aux`` a dict of scalars (an
+MoE block's load-balance loss and fill), which the schedule sums over this
+rank's passes and returns beside the outputs. The sums are differentiable:
+each pass gets their cotangent in its own backward, through the recorded
+pass (GPipe, interleaved) or the recomputed one (1F1B).
+
+The outputs are the last stage's, broadcast over ``pipe``
 (`collectives.pipe_broadcast_last`, JAX's masked ``psum``), whose backward
 keeps the last stage's cotangent, so the gradients are the sequential
 model's, not S times them. The cotangent of the stage-0 input is broadcast
@@ -155,14 +166,38 @@ class _Ring:
         return collectives.pipe_exchange(sends, recvs, self.group, tag=t)
 
 
-def _forward(ring, pass_fn, x_micro) -> list:
+class _Pass:
+    """One stage pass: ``stage_fn`` on the parameters and an activation,
+    with microbatch m's ``extras`` where given. Returns ``(act, aux)``,
+    ``aux`` the pass's aux values in key order (``keys``; empty without
+    ``with_aux``)."""
+
+    def __init__(self, stage_fn, extras, with_aux: bool):
+        self.stage_fn, self.extras, self.with_aux = stage_fn, extras, with_aux
+        self.keys: list = []
+
+    def __call__(self, params, act, m: int):
+        if self.extras is None:
+            res = self.stage_fn(params, act)
+        else:
+            res = self.stage_fn(params, act, tuple(e[m] for e in self.extras))
+        if not self.with_aux:
+            return res, []
+        out, aux = res
+        self.keys = sorted(aux)
+        return out, [aux[k] for k in self.keys]
+
+
+def _forward(ring, pass_fn, x_micro):
     """The forward tick loop: ``pass_fn(act, r, m)`` runs this stage's pass
-    of round r on microbatch m. Returns the last stage's outputs by
-    microbatch (None elsewhere); records this rank's passes."""
+    of round r on microbatch m and returns ``(act, aux)``. Returns the last
+    stage's outputs by microbatch (None elsewhere) and the aux values
+    summed over this rank's passes; records the passes."""
     s, T, S = ring.s, ring.T, ring.S
     prev, nxt = (s - 1) % S, (s + 1) % S
     held: dict = {}  # microbatch -> the activation that came for it
     outs = [None] * T
+    aux_sums: list = []
     passes = []
     for t in range(ring.ticks):
         w = ring.work(t)
@@ -170,7 +205,9 @@ def _forward(ring, pass_fn, x_micro) -> list:
         if w is not None:
             r, m = w
             inp = x_micro[m] if s == 0 and r == 0 else held.pop(m)
-            out = pass_fn(inp, r, m)
+            out, aux = pass_fn(inp, r, m)
+            aux_sums = ([a.clone() for a in aux] if not passes
+                        else [acc + a for acc, a in zip(aux_sums, aux)])
             passes.append((t, m, r))
             if ring.final(s, r):
                 outs[m] = out
@@ -182,7 +219,7 @@ def _forward(ring, pass_fn, x_micro) -> list:
         if arrives:
             held[ring.work(t, prev)[1]] = got[0]
     stats.update(ticks=ring.ticks, forward=passes)
-    return outs
+    return outs, aux_sums
 
 
 def _stacked(ring, outs, x_micro):
@@ -193,13 +230,17 @@ def _stacked(ring, outs, x_micro):
     return torch.zeros_like(x_micro)
 
 
-def _differentiate(out, a, leaves, cot, acc: list):
-    """The cotangent of pass input ``a`` given ``cot`` for the pass's
-    output; the parameters' (those that take a gradient) added into
-    ``acc``."""
+def _differentiate(outs, a, leaves, cots, acc: list):
+    """The cotangent of pass input ``a`` given ``cots`` for the pass's
+    outputs ``outs`` (its activation, then its aux values; those that take
+    no gradient are left out); the parameters' (those that take a
+    gradient) added into ``acc``."""
+    pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
     wrt = [i for i, p in enumerate(leaves) if p.requires_grad]
-    grads = torch.autograd.grad(out, [a] + [leaves[i] for i in wrt],
-                                cot.to(out.dtype), allow_unused=True)
+    grads = torch.autograd.grad([o for o, _ in pairs],
+                                [a] + [leaves[i] for i in wrt],
+                                [c.to(o.dtype) for o, c in pairs],
+                                allow_unused=True)
     for i, g in zip(wrt, grads[1:]):
         if g is not None:
             acc[i] = g if acc[i] is None else acc[i] + g
@@ -218,12 +259,12 @@ def _input_grad(ring, dx, x_micro):
     return collectives.broadcast_in_group(full, ring.group, 0)
 
 
-def _backward_recorded(ring, graphs, g, leaves, x_micro):
+def _backward_recorded(ring, graphs, g, g_aux, leaves, x_micro):
     """GPipe's and the interleaved schedule's backward: the forward's
     ticks in reverse. At each, first the transpose of that tick's
     exchange (this stage hands back the cotangent of what it received then,
     and receives the cotangent of what it sent), then the backward of the
-    tick's recorded pass."""
+    tick's recorded pass, its aux values taking ``g_aux``."""
     s, S, T = ring.s, ring.S, ring.T
     prev, nxt = (s - 1) % S, (s + 1) % S
     dparams = [None] * len(leaves)
@@ -242,9 +283,9 @@ def _backward_recorded(ring, graphs, g, leaves, x_micro):
         if w is None:
             continue
         r, m = w
-        a, out = graphs.pop(w)
+        a, outs = graphs.pop(w)
         c = g[m] if ring.final(s, r) else cot.pop(w)
-        da = _differentiate(out, a, leaves, c, dparams)
+        da = _differentiate(outs, a, leaves, [c, *g_aux], dparams)
         passes.append((t, m, r))
         if s == 0 and r == 0:
             dx[m] = da
@@ -254,10 +295,11 @@ def _backward_recorded(ring, graphs, g, leaves, x_micro):
     return _input_grad(ring, dx, x_micro), dparams
 
 
-def _backward_1f1b(ring, stage_fn, saved, g, leaves, x_micro):
+def _backward_1f1b(ring, call, saved, g, g_aux, leaves, x_micro):
     """JAX's staggered 1F1B backward: at tick τ this stage recomputes and
-    differentiates its pass of microbatch τ − (S − 1 − s), then hands the
-    input's cotangent to the previous stage and takes the next one's."""
+    differentiates its pass of microbatch τ − (S − 1 − s) (its aux values
+    taking ``g_aux``), then hands the input's cotangent to the previous
+    stage and takes the next one's."""
     s, S, T = ring.s, ring.S, ring.T
     dparams = [None] * len(leaves)
     dx = [None] * T
@@ -272,8 +314,9 @@ def _backward_1f1b(ring, stage_fn, saved, g, leaves, x_micro):
             a = saved[m].detach().requires_grad_()
             saved[m] = None
             with torch.enable_grad():
-                out = stage_fn(leaves, a)
-            da = _differentiate(out, a, leaves, c, dparams)
+                out, aux = call(leaves, a, m)
+            da = _differentiate([out, *aux], a, leaves, [c, *g_aux],
+                                dparams)
             passes.append((tau, m, 0))
             if s == 0:
                 dx[m] = da
@@ -290,19 +333,20 @@ def _backward_1f1b(ring, stage_fn, saved, g, leaves, x_micro):
 
 class _Schedule(torch.autograd.Function):
     """One schedule's forward and backward tick loops on this rank (module
-    docstring); the inputs are ``x_micro`` and the parameters."""
+    docstring); the inputs are ``x_micro`` and the parameters, the outputs
+    the stacked activations and, with aux, the aux sums."""
 
     @staticmethod
-    def forward(ctx, kind, stage_fn, ring, x_micro, *params):
+    def forward(ctx, kind, call, ring, x_micro, *params):
         leaves = [p.detach().requires_grad_(p.requires_grad) for p in params]
-        ctx.kind, ctx.ring, ctx.stage_fn = kind, ring, stage_fn
+        ctx.kind, ctx.ring, ctx.call = kind, ring, call
         ctx.leaves, ctx.x_micro = leaves, x_micro.detach()
         if kind == "1f1b":
             saved = [None] * ring.T
 
             def pass_fn(inp, r, m):
                 saved[m] = inp
-                return stage_fn(leaves, inp)
+                return call(leaves, inp, m)
 
             ctx.saved = saved
         else:
@@ -311,21 +355,24 @@ class _Schedule(torch.autograd.Function):
             def pass_fn(inp, r, m):
                 a = inp.detach().requires_grad_()
                 with torch.enable_grad():
-                    out = stage_fn(_chunk(kind, leaves, r), a)
-                graphs[(r, m)] = (a, out)
-                return out.detach()
+                    out, aux = call(_chunk(kind, leaves, r), a, m)
+                graphs[(r, m)] = (a, [out, *aux])
+                return out.detach(), [v.detach() for v in aux]
 
             ctx.graphs = graphs
-        return _stacked(ring, _forward(ring, pass_fn, x_micro), x_micro)
+        outs, aux = _forward(ring, pass_fn, x_micro)
+        stacked = _stacked(ring, outs, x_micro)
+        return (stacked, *aux) if call.with_aux else stacked
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *g_aux):
         ring, leaves, x = ctx.ring, ctx.leaves, ctx.x_micro
         if ctx.kind == "1f1b":
-            dx, dparams = _backward_1f1b(ring, ctx.stage_fn, ctx.saved, g,
+            dx, dparams = _backward_1f1b(ring, ctx.call, ctx.saved, g, g_aux,
                                          leaves, x)
         else:
-            dx, dparams = _backward_recorded(ring, ctx.graphs, g, leaves, x)
+            dx, dparams = _backward_recorded(ring, ctx.graphs, g, g_aux,
+                                             leaves, x)
         dparams = [torch.zeros_like(p) if d is None else d.to(p.dtype)
                    for p, d in zip(leaves, dparams)]
         return (None, None, None, dx, *dparams)
@@ -337,47 +384,62 @@ def _chunk(kind: str, params, r: int):
     return [p[r] for p in params] if kind == "interleaved" else params
 
 
-def _run(kind, stage_fn, stage_params, x_micro, group, n_virtual):
+def _run(kind, stage_fn, stage_params, x_micro, group, n_virtual, extras,
+         with_aux):
     ring = _Ring(group, x_micro.shape[0], n_virtual)
     collectives.pipe_ready(group)
     params = list(stage_params)
+    call = _Pass(stage_fn, None if extras is None else tuple(extras),
+                 with_aux)
     stats.clear()
     stats["schedule"] = kind
     if torch.is_grad_enabled() and (
             x_micro.requires_grad or any(p.requires_grad for p in params)):
-        out = _Schedule.apply(kind, stage_fn, ring, x_micro, *params)
+        res = _Schedule.apply(kind, call, ring, x_micro, *params)
+        out, aux = (res[0], list(res[1:])) if with_aux else (res, [])
     else:
-        outs = _forward(ring, lambda inp, r, m: stage_fn(
-            _chunk(kind, params, r), inp), x_micro)
+        outs, aux = _forward(ring, lambda inp, r, m: call(
+            _chunk(kind, params, r), inp, m), x_micro)
         out = _stacked(ring, outs, x_micro)
-    return collectives.pipe_broadcast_last(out, group)
+    out = collectives.pipe_broadcast_last(out, group)
+    return (out, dict(zip(call.keys, aux))) if with_aux else out
 
 
-def spmd_pipeline(stage_fn, stage_params, x_micro, *, group):
+def spmd_pipeline(stage_fn, stage_params, x_micro, *, group, extras=None,
+                  with_aux: bool = False):
     """GPipe over ``group`` (a mesh's ``pipe`` subgroup): ``stage_fn(
     params, act [mb, ...]) -> act`` is this rank's stage, over its stage
     parameters ``stage_params`` (a list of tensors); ``x_micro`` ``[n_micro,
     mb, ...]`` the stage-0 input, the same on every stage. Returns the last
     stage's outputs ``[n_micro, mb, ...]`` on every stage. The backward
     back-propagates through the forward's recorded passes (module
-    docstring)."""
-    return _run("gpipe", stage_fn, stage_params, x_micro, group, 1)
+    docstring). ``extras`` (a tuple of ``[n_micro, ...]`` tensors, no
+    gradient): ``stage_fn(params, act, extra)`` gets microbatch m's rows
+    of each. ``with_aux``: ``stage_fn`` returns ``(act, aux)``, ``aux`` a
+    dict of scalars, and the call ``(outputs, aux)`` with each value
+    summed over this rank's passes, differentiable."""
+    return _run("gpipe", stage_fn, stage_params, x_micro, group, 1, extras,
+                with_aux)
 
 
-def spmd_pipeline_1f1b(stage_fn, stage_params, x_micro, *, group):
+def spmd_pipeline_1f1b(stage_fn, stage_params, x_micro, *, group,
+                       extras=None, with_aux: bool = False):
     """`spmd_pipeline`'s function with the 1F1B memory discipline: the
     forward keeps each microbatch's stage input only, and the backward
-    recomputes each pass in JAX's staggered order (module docstring)."""
-    return _run("1f1b", stage_fn, stage_params, x_micro, group, 1)
+    recomputes each pass in JAX's staggered order (module docstring);
+    ``extras`` and ``with_aux`` as there."""
+    return _run("1f1b", stage_fn, stage_params, x_micro, group, 1, extras,
+                with_aux)
 
 
 def spmd_pipeline_interleaved(chunk_fn, chunk_params, x_micro, *,
-                              n_virtual: int, group):
+                              n_virtual: int, group, extras=None,
+                              with_aux: bool = False):
     """The interleaved (virtual-stage) schedule: ``chunk_params`` are this
     stage's ``[v, layers_per_chunk, ...]`` stacks, chunk r holding logical
     chunk r·S + stage; ``chunk_fn(one chunk's params, act) -> act``.
     Needs ``n_micro >= S`` when v > 1 (the wrap must not outrun the
-    schedule)."""
+    schedule). ``extras`` and ``with_aux`` as in `spmd_pipeline`."""
     n_micro = x_micro.shape[0]
     n_stages = collectives.group_size(group)
     if n_virtual > 1 and n_micro < n_stages:
@@ -386,4 +448,4 @@ def spmd_pipeline_interleaved(chunk_fn, chunk_params, x_micro, *,
             f"({n_stages}) — the ring wrap would outrun the schedule"
         )
     return _run("interleaved", chunk_fn, chunk_params, x_micro, group,
-                n_virtual)
+                n_virtual, extras, with_aux)

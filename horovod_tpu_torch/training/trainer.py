@@ -320,10 +320,9 @@ class Trainer:
                 "axis; the port carries P(('data', 'fsdp'), 'seq', None) "
                 "there — ROADMAP queue A item 12.4 (sharded layouts)")
         n, t = self.seq_shards, a.shape[1]
-        if t % n:
+        if t % n:  # JAX's models' check, in their words
             raise ValueError(
-                f"dim 1 of a batch part sharded over 'seq' ({t}) must be a "
-                f"multiple of the seq axis ({n})")
+                f"seq length ({t}) must divide over the seq axis ({n})")
         c = self.mesh.seq_index
         return a[:, c * t // n:(c + 1) * t // n]
 

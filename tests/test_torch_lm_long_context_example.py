@@ -6,8 +6,11 @@ launch:
 * ``HVT_MESH="data=1,seq=2,model=2"`` (the flash ring over the local
   heads, the logits gathered over ``model``) and ``HVT_MESH="data=2,
   fsdp=2"`` with ``FUSED_CE=2`` (the fused head over the gathered weight),
-  and ``HVT_MESH="data=1,pipe=2,model=2" SCHEDULE=1f1b`` (the pipelined
-  model, Megatron TP inside each stage), each for 2 epochs of 4 steps at
+  ``HVT_MESH="data=1,pipe=2,model=2" SCHEDULE=1f1b`` (the pipelined
+  model, Megatron TP inside each stage) and ``HVT_MESH="data=1,pipe=2,
+  seq=2" SCHEDULE=1f1b`` (pp × sp, the JAX script's third pipe mesh at
+  four ranks: the flash ring inside each stage, each rank holding its
+  column block of the batch), each for 2 epochs of 4 steps at
   a small width: the epoch loss falls, every rank ends with the same
   history, and rank 0 prints the recall report (``first-half``,
   ``recall-half``, the verdict) and, for the `TransformerLM` runs, the
@@ -15,9 +18,7 @@ launch:
   JAX script decodes no pipelined model);
 * ``MOE_EVERY=2`` on ``data=2,model=2`` raises naming ROADMAP item 18.
 
-In process: ``HVT_MESH="data=2,pipe=2,seq=2"`` raises naming ROADMAP item
-12.4 (the pipeline's second half) before any rank starts, and
-`data.datasets.copy_task` is
+In process: `data.datasets.copy_task` is
 byte-equal to the JAX package's for the script's seeds 0 and 99 at its
 default shapes.
 """
@@ -42,9 +43,10 @@ KNOBS = dict(SEQ_LEN="32", VOCAB="16", DMODEL="32", NLAYERS="2",
 RUNS = {"seq_model": {"HVT_MESH": "data=1,seq=2,model=2"},
         "fsdp": {"HVT_MESH": "data=2,fsdp=2", "FUSED_CE": "2"},
         "pipe_model": {"HVT_MESH": "data=1,pipe=2,model=2",
-                       "SCHEDULE": "1f1b"}}
+                       "SCHEDULE": "1f1b"},
+        "pipe_seq": {"HVT_MESH": "data=1,pipe=2,seq=2", "SCHEDULE": "1f1b"}}
 # The runs on the pipelined model, which JAX's script does not decode.
-PIPELINED = ("pipe_model",)
+PIPELINED = ("pipe_model", "pipe_seq")
 
 CHILD = r'''
 import json, os
@@ -130,15 +132,6 @@ def test_report_lines_printed_by_rank_0(run):
 def test_moe_on_a_model_axis_refused_naming_item_18(run):
     for res in run["ranks"]:
         assert "item 18" in str(res["moe_refusal"])
-
-
-def test_pipe_axis_refused_naming_12_4(monkeypatch):
-    """pp × sp, the JAX script's third pipe mesh, is the pipeline's second
-    half."""
-    monkeypatch.setenv("HVT_MESH", "data=2,pipe=2,seq=2")
-    monkeypatch.setenv("HVT_DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match=r"item 12\.4 \(the pipe"):
-        twin.main()
 
 
 @pytest.mark.parametrize("n,seed", [(4096, 0), (64, 99)])

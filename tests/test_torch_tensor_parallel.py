@@ -29,8 +29,8 @@ second).
 * JAX's two ``ValueError``s word for word; MoE, int8 weights and caches,
   LoRA and seq2seq on a live ``model`` axis (and MoE, ``int8_compute``
   and seq2seq on a live ``fsdp`` axis) refused naming ROADMAP item 18; a
-  live ``pipe`` axis carried (the model replicated over it), pp × sp
-  refused naming item 12.4's second half;
+  live ``pipe`` axis carried (the model replicated over it), and a
+  pipelined model on pp × sp built with its stage's rows;
 * the serving and generation exports of a model held in its
   ``fsdp=2,model=2`` cut, gathered inside by every rank, equal to the
   one-rank model (JAX's ``TestExportFromShardedState``).
@@ -494,9 +494,10 @@ def test_item_18_refusals(name):
 def test_pipe_axis_refused_naming_12_4():
     """A live ``pipe`` axis is carried: the `TransformerLM` is replicated
     over it (no cut, the one-rank weights, as GSPMD runs JAX's), and a
-    placement on it is live (the pipelined model's stacks). What the
-    pipeline's second half carries — pp × sp here — is refused naming
-    item 12.4."""
+    placement on it is live (the pipelined model's stacks). pp × sp is
+    carried now: a `PipelinedLM` on it builds, holding its stage's rows of
+    every stack and a live ``seq`` axis (its compute is
+    `tests/test_torch_pipeline_seq.py`'s)."""
     tm = _lm("pipe=2")
     assert tm.cuts == {}
     one = ttr.TransformerLM(**CFG, device="cpu")
@@ -504,9 +505,11 @@ def test_pipe_axis_refused_naming_12_4():
         assert torch.equal(t, one.state_dict()[name]), name
     assert ttr.live_placements({"w": {0: "pipe"}}, _layout("pipe=2", 2)) == {
         "w": {0: "pipe"}}
-    with pytest.raises(NotImplementedError, match=r"item 12\.4 \(the pipe"):
-        tpl.PipelinedLM(vocab_size=VOCAB, d_model=32, n_heads=4,
-                        mesh=_layout("data=1,pipe=2,seq=2", 4), device="cpu")
+    pm = tpl.PipelinedLM(vocab_size=VOCAB, d_model=32, n_heads=4,
+                         mesh=_layout("data=1,pipe=2,seq=2", 4), device="cpu")
+    assert pm.sp == 2 and pm.pipe == 2 and pm.reduces_over_ranks
+    assert pm.cuts["qkv"] == {0: "pipe"} and tuple(pm.qkv.shape) == (
+        2, 32, 96)
 
 
 def test_sharded_exports_refused(run, tmp_path):
