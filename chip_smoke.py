@@ -5383,19 +5383,21 @@ def _held(torch, name, got, want, forward):
     return worst
 
 
-def seq2seq_mask_timings(torch, card):
+def seq2seq_mask_timings(torch, card, shape=TRAIN_ATTN_SHAPE, phase="19a",
+                         seed=19):
     """19a's times: B1, B2 and B3 at the bench seq2seq's encoder site
-    ([8, 1024, 8, 64] bf16, non-causal, q = kv = the source's padding
-    ids) and cross site (target 1024 against source 1024, q ids 1, kv ids
-    the padding): kernel (held against its plain version, `_held`),
-    plain version, the bound for the pairs these ids keep, and SDPA with
-    the same boolean mask (forward; forward + backward less forward)."""
+    (``shape`` [8, 1024, 8, 64] bf16, non-causal, q = kv = the source's
+    padding ids) and cross site (target 1024 against source 1024, q ids
+    1, kv ids the padding): kernel (held against its plain version,
+    `_held`), plain version, the bound for the pairs these ids keep, and
+    SDPA with the same boolean mask (forward; forward + backward less
+    forward). 22a: the same at a ``model=2`` rank's 4 heads."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    b, t, h, d = TRAIN_ATTN_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(19)
+    b, t, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                      .to(torch.bfloat16) for _ in range(4))
     masks = dict(causal=False, window=None, sinks=0, q_offset=None)
@@ -5445,21 +5447,21 @@ def seq2seq_mask_timings(torch, card):
                 bound, by = attention_bound_ms(b, t, t, h, h, d, "bfloat16",
                                                causal=False, kernel=work,
                                                kept=kept)
-                err = _held(torch, f"19a {site} {name}", kernel(), plain(),
-                            work == "flash_fwd")
+                err = _held(torch, f"{phase} {site} {name}", kernel(),
+                            plain(), work == "flash_fwd")
                 entry[name] = {"max_abs_err": err,
                                "ms": device_ms(torch, kernel, 20),
                                "plain_ms": device_ms(torch, plain, 3),
                                "library_ms": lib, "bound_ms": bound,
                                "bound_by": by}
         out_t[site] = entry
-        log(f"time seq2seq {site} B{b} T{t} H{h} D{d} bf16 [tc]: "
+        log(f"time {phase} seq2seq {site} B{b} T{t} H{h} D{d} bf16 [tc]: "
             + ", ".join(f"{k_} {v_['ms']:.5f} ms (err {v_['max_abs_err']:.3g}, "
                         f"plain {v_['plain_ms']:.5f}, "
                         f"sdpa with the mask {v_['library_ms']:.5f}, bound "
                         f"{v_['bound_ms']:.5f} {v_['bound_by']})"
                         for k_, v_ in entry.items() if isinstance(v_, dict)))
-    log("phase19a", json.dumps({"timings": out_t, "card": card}))
+    log(f"phase{phase}", json.dumps({"timings": out_t, "card": card}))
     return out_t
 
 
@@ -6993,6 +6995,396 @@ def pp_multi_card(torch, card, ranks):
 
 # name: (source, TPU kernel it replaces, route, the main path whose
 # launches it reports)
+# -- phase 22 ----------------------------------------------------------------
+
+# Phase 22: the model and fsdp axes in MoE, int8, seq2seq and LoRA (queue A
+# item 18; no new kernel: the Megatron sums, the int8 partial products' sum
+# and amax maxima, and FSDP's gathers are collectives around B1-B3 and
+# cuBLAS products).
+# 22a: B1-B3 at the bench seq2seq's padded encoder and cross masks on one
+# rank of model = 2 ([8, 1024, 4, 64] bf16, non-causal), held against their
+# plain versions at phases 3/4's tolerances and timed beside masked SDPA
+# and the bound (`seq2seq_mask_timings`).
+ITEM18_ATTN_SHAPE = (8, 1024, 4, 64)
+# 22b-e: two gloo ranks sharing the card, checks (their gloo step ms are
+# host staging, not speed), started beside 12b-d and 20b-c and joined at
+# phase 22. Each part runs ITEM18_STEPS eager AdamW(3e-4) steps of 8 × 1024
+# rows (the fsdp ranks 4 rows each) from the seed-0 weights; then both
+# ranks run the same steps on the whole batches without a mesh (the world
+# averages two equal gradients: one rank's run, exactly). 22b: bench.py's
+# seq2seq (S2S_MODEL, bf16) at model = 2; 22c: the bench MoE LM
+# (MOE_MODEL, bf16, fused-CE head) at model = 2 and fsdp = 2; 22d: LoRA
+# (rank 8, alpha 16) over the bench LM at model = 2 and fsdp = 2. The
+# losses within TP_LOSS_RTOL of the one rank's, as 20b/20c hold the dense
+# LM; 22b's parameters each within TP_UPDATE_RTOL of the one-rank update's
+# norm, 22d's adapters together (the norm of their distance over the norm
+# of their update): B starts at zero, so A's first moving step is Adam's
+# first, a step of about lr whose sign bf16 rounding flips where A's
+# gradient is small against its tensor's (on an NVIDIA H100 80GB HBM3 at
+# 700 W: up to 0.42 for a single A tensor, 0.105 for the median tensor).
+# The MoE parts hold the losses only: a bf16 near-tie of the top-2
+# re-routes a token when the sums round otherwise (PERF.md §6, the MoE
+# pipeline's 21e), which moves the router's and experts' updates (there:
+# up to 0.43), not the loss.
+# 22e: the int8 decode at model = 2 — the int8_compute prefill over the
+# quantize_params tree (this rank's parts, dequantized in each step) and
+# the int8 cache — greedy, ITEM18_NEW tokens for TRAIN_BATCH prompts of
+# PROMPT_LEN, in f32 (B1 on the CUDA-core route): the tokens equal one
+# rank's, as tests/test_quant.py:417 holds JAX's sharded decode.
+ITEM18_STEPS, ITEM18_NEW = 2, 16
+ITEM18_PARTS = ("22b", "22c_model", "22c_fsdp", "22d_model", "22d_fsdp",
+                "22e")
+# --ranks 4 --tp-only (22f): the seq2seq twin at data=2,model=2 and the MoE
+# LM at expert=2,model=2 on NCCL (ITEM18_4_STEPS steps: one eager, one
+# capture, replays).
+ITEM18_4_STEPS = 10
+
+ITEM18_CHILD = r"""
+import json, os, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import callbacks, runtime
+from horovod_tpu_torch.models import lora, quant
+from horovod_tpu_torch.models import seq2seq as tseq
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.models.decoding import make_generate_fn
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import mesh as tmesh
+from horovod_tpu_torch.parallel import sharding
+
+ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
+r = ht.rank()
+dev = runtime.device()
+steps = int(os.environ["SMOKE_STEPS"])
+cd = torch.bfloat16 if dev.type == "cuda" else torch.float32
+lm_cfg = json.loads(os.environ.get("SMOKE_MODEL") or "null") or cs.MODEL
+s2s_cfg = json.loads(os.environ.get("SMOKE_S2S") or "null") or cs.S2S_MODEL
+seq = int(os.environ.get("SMOKE_SEQ") or cs.TRAIN_SEQ)
+heads = set()
+launch = fa._launch
+
+
+def recorded(q, *args, **kwargs):
+    heads.add(int(q.shape[2]))
+    return launch(q, *args, **kwargs)
+
+
+fa._launch = recorded
+
+
+def lm(mesh, dtype=cd, **kw):
+    return ttr.TransformerLM(**lm_cfg, **kw, compute_dtype=dtype,
+                             fused_head_chunks=8, device=dev, seed=0,
+                             sharding=ttr.ShardingConfig(mesh=mesh))
+
+
+def s2s(mesh):
+    return tseq.Seq2SeqTransformer(**s2s_cfg, compute_dtype=cd,
+                                   logits_dtype=cd, device=dev, seed=0,
+                                   sharding=ttr.ShardingConfig(mesh=mesh))
+
+
+def lora_lm(mesh):
+    return lora.LoRAModel(lm(mesh), rank=cs.LORA_RANK, alpha=cs.LORA_ALPHA)
+
+
+def lm_batches():
+    return cs.tp_batches(steps, seq=seq, vocab=lm_cfg["vocab_size"])
+
+
+def s2s_batches():
+    x, y = cs._s2s_copy_task(cs.TRAIN_BATCH * steps, seq, seq, seed=22)
+    b = cs.TRAIN_BATCH
+    return [({k: v[i * b:(i + 1) * b] for k, v in x.items()},
+             y[i * b:(i + 1) * b]) for i in range(steps)]
+
+
+PARTS = {  # name: (mesh, model, batches, loss, param_specs, optimizer)
+    "22b": ("data=1,model=2", s2s, s2s_batches,
+            "sparse_categorical_crossentropy", tseq.param_specs, ht.adamw),
+    "22c_model": ("data=1,model=2",
+                  lambda m: lm(m, moe_every=2, n_experts=8, moe_k=2),
+                  lm_batches, "module", ttr.param_specs, ht.adamw),
+    "22c_fsdp": ("data=1,fsdp=2",
+                 lambda m: lm(m, moe_every=2, n_experts=8, moe_k=2),
+                 lm_batches, "module", ttr.param_specs, ht.adamw),
+    "22d_model": ("data=1,model=2", lora_lm, lm_batches, "module",
+                  ttr.param_specs,
+                  lambda lr: lora.freeze_base(ht.adamw(lr))),
+    "22d_fsdp": ("data=1,fsdp=2", lora_lm, lm_batches, "module",
+                 ttr.param_specs, lambda lr: lora.freeze_base(ht.adamw(lr))),
+}
+
+
+class Clock(callbacks.Callback):
+    def on_train_begin(self, logs=None):
+        self.t, self.logs = [time.perf_counter()], []
+
+    def on_batch_end(self, batch, logs=None):
+        self.logs.append({k: float(v) for k, v in logs.items()})
+        self.t.append(time.perf_counter())
+
+
+def fit(model, mesh, batches, loss, specs, opt):
+    trainer = ht.Trainer(model, ht.DistributedOptimizer(opt(3e-4)),
+                         loss=loss, seed=0, mesh=mesh, device=dev,
+                         param_specs=specs if mesh is not None else None)
+    if mesh is not None:
+        batches = [sharding.shard_batch(b, mesh) for b in batches]
+    trainer.build(*batches[0])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    cs._fa_zero(fa)
+    heads.clear()
+    clock = Clock()
+    trainer.fit(dataset=batches, epochs=1, steps_per_epoch=len(batches),
+                callbacks=[clock, callbacks.MetricAverageCallback()],
+                verbose=0, _eager=mesh is None)
+    step_s = [b - a for a, b in zip(clock.t, clock.t[1:])]
+    return trainer, {"losses": [e["loss"] for e in clock.logs],
+                     "launches": cs._fa_counts(fa), "heads": sorted(heads),
+                     "eager_steps": trainer._runner.eager_steps,
+                     "step_s": step_s}
+
+
+def whole(state):
+    return {n: t.detach().float().cpu().numpy().copy()
+            for n, t in state.items()}
+
+
+out = os.environ["SMOKE_OUT"]
+res, refs = {}, {}
+for name in json.loads(os.environ["SMOKE_PARTS"]):
+    if name == "22e":
+        continue
+    spec, build, batches, loss, specs, opt = PARTS[name]
+    mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string(spec))
+    trainer, rec = fit(build(mesh), mesh, batches(), loss, specs, opt)
+    full = whole(trainer.state.full_model_state())
+    res[name] = rec
+    # The one-rank run (one for a part's two meshes): the same weights and
+    # the whole batches on both ranks, whose world-averaged gradients are
+    # then each one's, exactly.
+    key = name.split("_")[0]
+    if key not in refs:
+        model = build(None)
+        start = whole(model.state_dict())
+        _, one = fit(model, None, batches(), loss, specs, opt)
+        refs[key] = start, one, whole(model.state_dict())
+        del model
+    start, one, end = refs[key]
+    ratios, apart, moved_all = {}, 0.0, 0.0
+    for n, p in end.items():
+        moved = float(np.linalg.norm(p - start[n]))
+        if moved > 0:
+            ratios[n] = float(np.linalg.norm(full[n] - p)) / moved
+            apart += float(np.linalg.norm(full[n] - p)) ** 2
+            moved_all += moved ** 2
+    res[name]["one_rank"] = one
+    res[name]["update_rel_err"] = ratios
+    res[name]["update_rel_err_all"] = (apart / moved_all) ** 0.5
+    del trainer, full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+if "22e" in json.loads(os.environ["SMOKE_PARTS"]):
+    mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string("data=1,model=2"))
+    x, _ = cs.tp_batches(1, seq=seq, vocab=lm_cfg["vocab_size"])[0]
+    prompt = torch.from_numpy(x[:, :cs.PROMPT_LEN]).to(dev)
+
+    def decode(model):
+        qtree = quant.quantize_params(model)
+        fn = make_generate_fn(model, max_new_tokens=int(os.environ["NEW"]),
+                              quantized=True, int8_compute=True,
+                              quantized_cache=True, include_prompt=False)
+        cs._fa_zero(fa)
+        heads.clear()
+        tokens = fn(prompt, params=qtree).cpu().numpy()
+        return tokens, {"launches": cs._fa_counts(fa),
+                        "heads": sorted(heads),
+                        "steps": fn.steps.counts(),
+                        "int8_leaves": sum(quant.is_qleaf(v)
+                                           for v in qtree.values())}
+
+    # f32 compute (TF32 off): in bf16 the Megatron sums round two partial
+    # products where one rank rounds one, and greedy tokens part at
+    # near-ties (on an NVIDIA H100 at 700 W, 10 of 128 tokens differed).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens, rec = decode(lm(mesh, torch.float32))
+    one, rec1 = decode(lm(None, torch.float32))
+    res["22e"] = dict(rec, tokens=tokens.tolist(),
+                      one_rank=dict(rec1, tokens=one.tolist()))
+print("item18_child", json.dumps(res), flush=True)
+"""
+
+
+def item18_start():
+    """22b-e, launched in a thread (two gloo ranks sharing the card beside
+    12b-d, 20b-c and 21's launches); `item18_phase` joins it."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(item18_child_run, "item18", 2, ITEM18_PARTS, "gloo")
+    pool.shutdown(wait=False)
+    return fut
+
+
+def item18_child_run(name, nprocs, parts, backend):
+    """One launch of ITEM18_CHILD: (per-rank records, wall seconds)."""
+    out = os.path.join(WORK, name + "_out")
+    os.makedirs(out, exist_ok=True)
+    knobs = {"SMOKE_STEPS": str(ITEM18_STEPS), "SMOKE_OUT": out,
+             "SMOKE_PARTS": json.dumps(list(parts)), "NEW": str(ITEM18_NEW),
+             "HVT_BACKEND": backend, "PYTHONUNBUFFERED": "1"}
+    lines, wall, _, _ = _launch(name, nprocs, None, knobs, code=ITEM18_CHILD,
+                                timeout=900)
+    recs = []
+    for r in range(nprocs):
+        text = _rank_line(lines, "item18_child ", r)
+        check(text is not None, f"{name}: rank {r} printed no result")
+        recs.append(json.loads(text))
+    return recs, wall
+
+
+def _item18_held(name, recs, layers, sites_per_layer, heads):
+    """One training part of 22b-d against rank 0's one-rank run: the
+    global batch's losses, the updates (where held), launches and local
+    heads."""
+    rec0 = recs[0][name]
+    one = rec0["one_rank"]
+    glob = [sum(r[name]["losses"][i] for r in recs) / len(recs)
+            for i in range(ITEM18_STEPS)]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(glob, one["losses"]))
+    ratios = rec0["update_rel_err"]
+    want = layers * sites_per_layer * ITEM18_STEPS
+    res = {"losses": glob, "one_rank_losses": one["losses"],
+           "loss_max_rel_err": worst,
+           "update_rel_err_all": rec0["update_rel_err_all"],
+           "update_rel_err_max": max(ratios.values()),
+           "update_rel_err_median": sorted(ratios.values())[len(ratios) // 2],
+           "worst_parameter": max(ratios, key=ratios.get),
+           "launches": [r[name]["launches"] for r in recs],
+           "heads_a_launch": [r[name]["heads"] for r in recs],
+           "eager_steps": [r[name]["eager_steps"] for r in recs],
+           "gloo_step_s_staging_not_speed": [r[name]["step_s"]
+                                             for r in recs]}
+    check(worst <= TP_LOSS_RTOL,
+          f"{name}: the losses differ from one rank's: {res}")
+    held = {"22b": "update_rel_err_max", "22d_model": "update_rel_err_all",
+            "22d_fsdp": "update_rel_err_all"}.get(name)
+    if held:
+        check(res[held] <= TP_UPDATE_RTOL,
+              f"{name}: the parameters differ from one rank's: {res}")
+    for r in recs:
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            n, tc = r[name]["launches"][k], r[name]["launches"][k + "_tc"]
+            check(n == tc == want, f"{name}: {k} launched {n} ({tc} on tc) "
+                  f"on a rank, want {want} = layers × sites × steps")
+        check(r[name]["heads"] == [heads],
+              f"{name}: B1 ran at {r[name]['heads']} heads, want {heads}")
+        check(r[name]["eager_steps"] == ITEM18_STEPS,
+              f"{name}: want {ITEM18_STEPS} eager steps a rank (gloo)")
+    return res
+
+
+def item18_phase(torch, card, fut):
+    """Phase 22: the model and fsdp axes in MoE, int8, seq2seq and LoRA.
+    22a's kernels are timed here; 22b-e ran in the launch ``fut`` (from
+    `item18_start`), joined here."""
+    t0 = time.perf_counter()
+    res = {"a": seq2seq_mask_timings(torch, card, shape=ITEM18_ATTN_SHAPE,
+                                     phase="22a", seed=22)}
+    recs, wall = fut.result()
+    half = MODEL["n_heads"] // 2
+    parts = {"22b": (S2S_MODEL["n_enc_layers"], 3, S2S_MODEL["n_heads"] // 2),
+             "22c_model": (MODEL["n_layers"], 1, half),
+             "22c_fsdp": (MODEL["n_layers"], 1, MODEL["n_heads"]),
+             "22d_model": (MODEL["n_layers"], 1, half),
+             "22d_fsdp": (MODEL["n_layers"], 1, MODEL["n_heads"])}
+    for name, (layers, sites, heads) in parts.items():
+        res[name] = dict(_item18_held(name, recs, layers, sites, heads),
+                         card=card)
+        log(f"phase{name}", json.dumps(res[name]))
+    e = [r["22e"] for r in recs]
+    one = e[0]["one_rank"]
+    res["22e"] = {"tokens_equal_one_rank": all(r["tokens"] == one["tokens"]
+                                                for r in e),
+                  "tokens_differing": [
+                      int(sum(a != b for ra, rb in zip(r["tokens"],
+                                                       one["tokens"])
+                              for a, b in zip(ra, rb))) for r in e],
+                  "launches": [r["launches"] for r in e],
+                  "one_rank_launches": one["launches"],
+                  "heads_a_launch": [r["heads"] for r in e],
+                  "steps": [r["steps"] for r in e],
+                  "int8_leaves": [r["int8_leaves"] for r in e],
+                  "new_tokens": ITEM18_NEW, "card": card}
+    log("phase22e", json.dumps(res["22e"]))
+    check(res["22e"]["tokens_equal_one_rank"],
+          f"22e: the int8 decode at model = 2 differs from one rank's: "
+          f"{res['22e']}")
+    for r in e:
+        n = r["launches"]
+        check(n["flash_fwd"] == MODEL["n_layers"] and n["flash_fwd_tc"] == 0
+              and n["flash_bwd_dq"] == 0,
+              f"22e: the int8 prefill launched B1 {n}, want "
+              f"{MODEL['n_layers']} on the CUDA-core route (f32)")
+        check(r["heads"] == [half], f"22e: B1 ran at {r['heads']} heads")
+    res["launch_wall_s"] = wall
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase22 seconds: {res['seconds']:.1f} (the launch's wall "
+        f"{wall:.1f} s, beside earlier phases)")
+    return res
+
+
+def item18_multi_card(torch, card, ranks):
+    """22f (``--ranks 4 --tp-only``): the twin of
+    ``examples/seq2seq_translation.py`` at ``data=2,model=2`` and the bench
+    MoE LM at ``expert=2,model=2`` on NCCL, each rank's steps after the
+    first replays of one captured graph holding the Megatron sums."""
+    check(ranks == 4, "22f runs at --ranks 4")
+    t0 = time.perf_counter()
+    moe_cfg = dict(MOE_MODEL, compute_dtype="bfloat16", fused_head_chunks=8)
+    recs, _, _, _, wall = moe_child_run(
+        torch, "item18_moe_4card", 4, "data=1,expert=2,model=2", moe_cfg,
+        ITEM18_4_STEPS, "nccl")
+    losses = recs[0]["losses"]
+    res = {"moe": {"mesh": "data=1,expert=2,model=2", "losses": losses,
+                   "drop_rate": recs[0]["metrics"].get("moe_drop_rate"),
+                   "eager_steps": [r["eager_steps"] for r in recs],
+                   "captures": [r["captures"] for r in recs],
+                   "replays": [r["replays"] for r in recs],
+                   "step_ms_median": [r["step_ms_median"] for r in recs],
+                   # One data shard: the four cards share each step's rows.
+                   "tokens_per_s_per_card": min(
+                       r["tokens_per_s_per_card"] for r in recs) / ranks,
+                   "peak_memory_gib": [r["peak_memory_gib"] for r in recs],
+                   "launch_wall_s": wall, "card": card}}
+    check(all(r["losses"] == losses for r in recs),
+          "22f: the MoE ranks' losses differ (one data shard)")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"22f: the MoE loss did not fall: {losses}")
+    check(all(r["captures"] == 1 and r["eager_steps"] == 1 for r in recs),
+          f"22f: want one eager step and one capture a rank: {res['moe']}")
+    log("phase22f_moe", json.dumps(res["moe"]))
+    lines, twin_wall, _, _ = _launch(
+        "item18_s2s_twin", 4, "seq2seq_translation",
+        {"HVT_MESH": "data=2,model=2", "HVT_BACKEND": "nccl",
+         "PYTHONUNBUFFERED": "1"}, timeout=900)
+    report = [ln for ln in lines if ln.startswith(tuple(
+        "[rank 0] " + k for k in ("byte-BPE", "held-out", "REVERSAL")))]
+    epochs = [ln for ln in lines if ln.startswith("[rank 0] Epoch")]
+    res["twin"] = {"mesh": "data=2,model=2", "report": report,
+                   "epochs": epochs, "launch_wall_s": twin_wall,
+                   "card": card}
+    check(len(report) == 3 and not any(
+        ln.startswith("[rank 1] REVERSAL") for ln in lines),
+          f"22f: the twin printed no report on rank 0 alone: {report}")
+    log("phase22f_twin", json.dumps(res["twin"]))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 KERNELS = {
     "flash_fwd_sm90": ("horovod_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
                        "horovod_tpu/ops/flash_attention.py:149", "tc",
@@ -7049,8 +7441,8 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
     card cannot host: the gradient all-reduce and, in the ResNet, the BN
     all-reduces inside each rank's captured step; the expert group's sums
     inside the MoE step), then the result line. ``reduction_only``: phase
-    15b's runs alone; ``moe_only``: phase 17e alone; ``tp_only``: phase
-    20d alone; ``pp_only``: phase 21c alone."""
+    15b's runs alone; ``moe_only``: phase 17e alone; ``tp_only``: phases
+    20d and 22f alone; ``pp_only``: phase 21c alone."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
@@ -7064,6 +7456,7 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
                 moe_multi_card(torch, card, ranks)
             elif tp_only:
                 tp_multi_card(torch, card, ranks)
+                item18_multi_card(torch, card, ranks)
             else:
                 pp_multi_card(torch, card, ranks)
         elif not reduction_only:
@@ -7084,6 +7477,7 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
                 seq_multi_card(torch, card, ranks,
                                moe["dense_tokens_per_s_per_card"])
                 tp_multi_card(torch, card, ranks)
+                item18_multi_card(torch, card, ranks)
                 pp_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -7113,8 +7507,9 @@ def main(argv=None) -> int:
         help="with --ranks 4: only phase 17e (expert parallelism on NCCL)")
     parser.add_argument(
         "--tp-only", action="store_true",
-        help="with --ranks 4: only phase 20d (tensor parallelism and FSDP "
-             "on NCCL, then the long-context twin)")
+        help="with --ranks 4: only phases 20d (tensor parallelism and FSDP "
+             "on NCCL, then the long-context twin) and 22f (the seq2seq "
+             "twin at data=2,model=2, the MoE LM at expert=2,model=2)")
     parser.add_argument(
         "--pp-only", action="store_true",
         help="with --ranks 4: only phase 21c (the pipeline at pipe = 4 on "
@@ -7179,6 +7574,7 @@ def main(argv=None) -> int:
         # ms are host staging, not speed), which phase 20 joins.
         tp_futs = tp_start()
         pp_futs = pp_start(torch)
+        item18_fut = item18_start()
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             for fut in [pool.submit(cifar_graph_vs_eager, torch),
                         pool.submit(sync_bn_on_card, torch),
@@ -7188,7 +7584,8 @@ def main(argv=None) -> int:
         # 21's one-rank references launch B1-B3 here: done before the
         # phases that count launches.
         pp_futs["refs"].result()
-        lap("12b-d cifar, 10 mnist_2rank, 20b-c, 21b and 21d launched")
+        lap("12b-d cifar, 10 mnist_2rank, 20b-c, 21b, 21d and 22b-e "
+            "launched")
         decode = decode_phase(torch)
         lap("13 decode")
         tier = serve_tier(torch, card)
@@ -7210,6 +7607,8 @@ def main(argv=None) -> int:
         lap("20 tp/fsdp")
         pp = pp_phase(torch, card, pp_futs)
         lap("21 pipeline")
+        item18 = item18_phase(torch, card, item18_fut)
+        lap("22 item 18")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7347,9 +7746,22 @@ def main(argv=None) -> int:
             entry["pipeline_ring_hops"] = {
                 hop: t_[name] for hop, t_ in pp["a"]["ring"]["timings"].items()
                 if name in t_}
+            # Phase 22b-d: the bench seq2seq at model = 2 (18 sites × 2
+            # steps a rank), the bench MoE LM and LoRA over the bench LM at
+            # model = 2 and fsdp = 2 (8 layers × 2 steps a rank), two gloo
+            # ranks each, all on the tensor-core route; 22a: this kernel at
+            # a model = 2 rank's seq2seq masks.
+            entry["launches_item18"] = {
+                part: [r[key] for r in item18[part]["launches"]]
+                for part in ITEM18_PARTS if part != "22e"}
+            entry["seq2seq_masks_model2"] = {
+                site: t_[name] for site, t_ in item18["a"].items()}
         if name == "flash_fwd":
-            # The ring's f32 comparison (13e) prefills on the CUDA-core route.
+            # The ring's f32 comparison (13e) prefills on the CUDA-core route;
+            # so does 22e's f32 int8 decode at model = 2 (8 a gloo rank).
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]
+            entry["launches_item18"] = {"22e": [
+                r["flash_fwd"] for r in item18["22e"]["launches"]]}
         lines.append(entry)
     log("phase_seconds", json.dumps(laps))
     log(f"smoke seconds: {time.perf_counter() - t_start:.1f}")

@@ -47,7 +47,8 @@ DRIVE_EPOCHS, and HVT_DEVICE_CACHE (the device-staged fit, under JAX's
 rule: only where no pipe/seq/model/expert axis is live), and on a ``pipe``
 mesh N_MICRO (default 4) and SCHEDULE (``gpipe``, the default, or
 ``1f1b``); plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``).
-``MOE_EVERY`` with a live ``model`` axis raises naming item 18.
+``MOE_EVERY`` composes with a live ``model`` or ``fsdp`` axis (the experts'
+hidden features cut over ``model``, `models.moe`).
 
 The greedy decode (the `TransformerLM` branch only, as in JAX): JAX runs it
 only at ``process_count() == 1``, where its params are addressable. The

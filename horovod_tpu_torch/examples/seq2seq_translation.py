@@ -18,12 +18,17 @@ Run:
     HVT_MESH="data=2,seq=2" python -m horovod_tpu_torch.launch run \\
         --nprocs 4 -- python -m horovod_tpu_torch.examples.seq2seq_translation
 
+    HVT_MESH="data=4,model=2" python -m horovod_tpu_torch.launch run \
+        --nprocs 8 -- python -m horovod_tpu_torch.examples.seq2seq_translation
+
 On a live ``seq`` axis the twin passes ``batch_specs`` (every part's dim 1
 over ``seq``): the JAX script passes none, since its default layout
 computes the same global arithmetic, while the port keeps that default
-refused (ROADMAP queue A item 12.4). A live ``model`` or ``fsdp`` axis
-(the JAX script's ``HVT_MESH="data=4,model=2"``) raises naming ROADMAP
-queue A item 18.
+refused (ROADMAP queue A item 12.4). On a live ``model`` or ``fsdp`` axis
+(the JAX script's ``HVT_MESH="data=4,model=2"``) the model holds its
+Megatron and FSDP parts (`models.seq2seq`), and the decode runs on
+``clone(sharding=ShardingConfig())``, the gathered weights, as the JAX
+script decodes.
 
 Knobs: DOCS, DRIVE_EPOCHS, DMODEL, PS_MODEL_PATH, HVT_MESH, as in the JAX
 script, plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``). ``main()``
@@ -44,11 +49,7 @@ from horovod_tpu_torch.models.seq2seq import (
     make_seq2seq_generate_fn,
     param_specs,
 )
-from horovod_tpu_torch.models.transformer import (
-    ITEM_18_AXES,
-    ShardingConfig,
-    refuse_unported_axes,
-)
+from horovod_tpu_torch.models.transformer import ShardingConfig
 from horovod_tpu_torch.parallel import mesh as mesh_lib
 
 PAD, BOS, EOS = 0, 1, 2
@@ -86,18 +87,8 @@ def encode_pairs(tok, pairs, max_len: int):
     return src, tgt_in, labels
 
 
-class _Spec:
-    """A `MeshSpec`'s axis sizes where `refuse_unported_axes` reads a
-    mesh's, before a mesh of that shape exists."""
-
-    def __init__(self, spec):
-        self.shape = {ax: getattr(spec, ax) for ax in mesh_lib.AXES}
-
-
 def main():
     spec = mesh_lib.MeshSpec.from_string(os.environ.get("HVT_MESH"))
-    refuse_unported_axes(_Spec(spec), "the seq2seq twin's HVT_MESH",
-                         also=ITEM_18_AXES)
     hvt.init(device=registry.get_str("HVT_DEVICE"))
     device = runtime.device()
     mesh = mesh_lib.build_mesh(spec)
@@ -188,7 +179,8 @@ def main():
     ][:32]
     tsrc, _, tlabels = encode_pairs(tok, test_pairs, max_len)
     gen = make_seq2seq_generate_fn(
-        model.clone(sharding=ShardingConfig()),  # decode: no seq axis
+        # Decode on no mesh: the gathered weights (a collective).
+        model.clone(sharding=ShardingConfig()),
         max_new_tokens=max_len, bos_id=BOS, eos_id=tok.special_id("<eos>"),
     )
     out = gen(tsrc, make_rng(0, model.device)).cpu().numpy()

@@ -35,6 +35,17 @@ group backward, on the tokens and the gates) and
 those sums go through the host (the `Trainer` then steps eagerly,
 ``reduces_over_ranks``); under NCCL they are captured with the step.
 
+**Tensor parallelism and FSDP.** On a live ``model`` axis of tp ranks the
+JAX layer places ``moe_up`` ``(expert, None, model)`` and ``moe_down``
+``(expert, model, None)``: each rank holds ``4d/tp`` of every local
+expert's hidden features (`full_shape`, `local_part`), and its experts'
+FFNs sit between entering and leaving the ``model`` group too, as a
+Megatron MLP's do. Routing stays in f32 and is the same on every ``model``
+rank, which holds the same tokens. On a live ``fsdp`` axis the owning
+`models.transformer.TransformerLM` cuts the router and the stacks to
+their ``fsdp`` shards and the layer gathers them at use
+(`parallel.sharding.weight`).
+
 **Grouping across data shards.** Under GSPMD the JAX layer sees the global
 batch, so its groups are cut from all data shards' tokens; the port's
 layer sees one shard. The two agree exactly when this shard's token count
@@ -55,8 +66,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch.parallel import collectives
-from horovod_tpu_torch.parallel.mesh import EXPERT_AXIS, SEQ_AXIS, dp_size
+from horovod_tpu_torch.parallel import collectives, sharding as shard_lib
+from horovod_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, dp_size,
+)
 from horovod_tpu_torch.training.train_state import sow
 
 
@@ -122,9 +135,9 @@ class MoEMlp(nn.Module):
     ``max(1, int(k · S / E · capacity_factor))``), ``aux_loss_coef``,
     ``router`` (``"top_k"`` or ``"expert_choice"``), ``compute_dtype``,
     ``sharding`` (a `models.transformer.ShardingConfig`; its mesh's
-    ``expert`` axis shards the experts) and ``group_size``. Parameters are
-    drawn from ``seed`` as the full E experts, then this rank's are
-    kept."""
+    ``expert`` axis shards the experts, its ``model`` axis their hidden
+    features) and ``group_size``. Parameters are drawn from ``seed`` as
+    the full E experts, then this rank's part is kept."""
 
     def __init__(self, d_model: int, n_experts: int = 8, mlp_ratio: int = 4,
                  k: int = 2, capacity_factor: float = 1.25,
@@ -134,10 +147,17 @@ class MoEMlp(nn.Module):
         super().__init__()
         mesh = getattr(sharding, "mesh", None) if sharding else None
         ep = mesh.shape.get(EXPERT_AXIS, 1) if mesh is not None else 1
+        tp = mesh.shape.get(MODEL_AXIS, 1) if mesh is not None else 1
         if n_experts % ep != 0:
             raise ValueError(
                 f"n_experts ({n_experts}) must be divisible by the expert "
                 f"mesh axis ({ep})"
+            )
+        hidden = mlp_ratio * d_model
+        if hidden % tp != 0:
+            raise ValueError(
+                f"moe_up dim 2 ({hidden}) is not divisible by mesh axis "
+                f"'model' ({tp})"
             )
         self.set_router(router)
         self.d_model, self.n_experts, self.mlp_ratio = d_model, n_experts, mlp_ratio
@@ -146,20 +166,22 @@ class MoEMlp(nn.Module):
         self.compute_dtype = compute_dtype
         self.group_size = group_size
         self.mesh = mesh
-        self.ep = ep
+        self.ep, self.tp = ep, tp
         per = n_experts // ep
         self.expert_lo = per * (mesh.coords[EXPERT_AXIS] if ep > 1 else 0)
         self.expert_hi = self.expert_lo + per
+        self.hidden_lo = hidden // tp * (mesh.coords[MODEL_AXIS]
+                                         if tp > 1 else 0)
+        self.hidden_hi = self.hidden_lo + hidden // tp
         self.data_shards = dp_size(mesh) if mesh is not None else 1
         self.seq_shards = mesh.shape[SEQ_AXIS] if mesh is not None else 1
-        # The forward's all-reduces over the expert group: a gloo step with
-        # them runs eagerly (`training.graphs`).
-        self.reduces_over_ranks = ep > 1
+        # The forward's all-reduces over the expert and model groups: a
+        # gloo step with them runs eagerly (`training.graphs`).
+        self.reduces_over_ranks = ep > 1 or tp > 1
         self.sown: dict = {}
-        hidden = mlp_ratio * d_model
         self.router = nn.Linear(d_model, n_experts, bias=False)
-        self.moe_up = nn.Parameter(torch.empty(per, d_model, hidden))
-        self.moe_down = nn.Parameter(torch.empty(per, hidden, d_model))
+        self.moe_up = nn.Parameter(torch.empty(per, d_model, hidden // tp))
+        self.moe_down = nn.Parameter(torch.empty(per, hidden // tp, d_model))
         self.reset_parameters(seed)
 
     def set_router(self, router: str) -> None:
@@ -170,23 +192,32 @@ class MoEMlp(nn.Module):
         self.router_kind = router
 
     @property
-    def expert_group(self):
-        """The ranks this layer's experts are spread over."""
-        return (self.mesh.group(EXPERT_AXIS) if self.ep > 1
-                else collectives.SELF)
+    def groups(self) -> tuple:
+        """The groups the experts' FFNs enter and leave: the ``expert``
+        group (the ranks the experts are spread over) and the ``model``
+        group (their hidden features)."""
+        return tuple(self.mesh.group(ax) if n > 1 else collectives.SELF
+                     for ax, n in ((EXPERT_AXIS, self.ep),
+                                   (MODEL_AXIS, self.tp)))
 
     def full_shape(self, name: str) -> tuple:
         """The unsharded shape of parameter ``name`` (``moe_up``,
         ``moe_down`` or ``router.weight``)."""
-        p = dict(self.named_parameters())[name]
-        if name in ("moe_up", "moe_down"):
-            return (self.n_experts,) + tuple(p.shape[1:])
-        return tuple(p.shape)
+        hidden = self.mlp_ratio * self.d_model
+        if name == "moe_up":
+            return (self.n_experts, self.d_model, hidden)
+        if name == "moe_down":
+            return (self.n_experts, hidden, self.d_model)
+        return (self.n_experts, self.d_model)
 
     def local_part(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of the unsharded parameter ``full``."""
-        if name in ("moe_up", "moe_down"):
-            return full[self.expert_lo:self.expert_hi]
+        """This rank's part of the unsharded parameter ``full``: its
+        experts, and its hidden features of each."""
+        lo, hi = self.hidden_lo, self.hidden_hi
+        if name == "moe_up":
+            return full[self.expert_lo:self.expert_hi, :, lo:hi]
+        if name == "moe_down":
+            return full[self.expert_lo:self.expert_hi, lo:hi]
         return full
 
     @torch.no_grad()
@@ -220,8 +251,9 @@ class MoEMlp(nn.Module):
         tokens = x.reshape(n_groups, s, d)
         capacity = max(1, int(self.k * s / e * self.capacity_factor))
 
-        # --- routing (f32) ------------------------------------------------
-        logits = F.linear(tokens.float(), self.router.weight.float())
+        # --- routing (f32, alike on every expert and model rank) ---------
+        logits = F.linear(tokens.float(),
+                          shard_lib.weight(self.router).float())
         probs = torch.softmax(logits, dim=-1)  # [n, S, E]
         if self.router_kind == "expert_choice":
             return self._expert_choice(x, tokens, probs, capacity, n_groups, s)
@@ -249,20 +281,28 @@ class MoEMlp(nn.Module):
         sow(self, "metrics", "moe_drop_rate",
             1.0 - torch.sum(slot_oh) / routed)
 
-        # --- this rank's experts, between entering and leaving the group --
-        group = self.expert_group
+        # --- this rank's experts, between entering and leaving the groups
         local = slot_oh[:, :, :, self.expert_lo:self.expert_hi]
-        gates = collectives.enter_group(top_probs.float(), group)
+        gates = self._enter(top_probs.float())
         combine = torch.einsum("nksec,nsk->nsec", local, gates)
         dispatch = local.sum(1)  # [n, S, E_local, C]
         cd = self.compute_dtype
-        tokens_in = collectives.enter_group(tokens, group)
+        tokens_in = self._enter(tokens)
         expert_in = torch.einsum("nsec,nsd->necd", dispatch.to(cd),
                                  tokens_in.to(cd))
         out = self._experts(expert_in)
         mixed = torch.einsum("nsec,necd->nsd", combine.to(cd), out)
-        mixed = collectives.leave_group(mixed, group)
-        return mixed.reshape(b, t, d).to(x.dtype)
+        return self._leave(mixed).reshape(b, t, d).to(x.dtype)
+
+    def _enter(self, x):
+        for group in self.groups:
+            x = collectives.enter_group(x, group)
+        return x
+
+    def _leave(self, x):
+        for group in self.groups:
+            x = collectives.leave_group(x, group)
+        return x
 
     def _expert_choice(self, x, tokens, probs, capacity, n_groups, s):
         """Each expert takes its top-``capacity`` tokens of the group;
@@ -276,22 +316,24 @@ class MoEMlp(nn.Module):
         chosen = torch.clamp(dispatch.sum((1, 2)), 0.0, 1.0)  # [n, S]
         sow(self, "metrics", "moe_uncovered_rate",
             1.0 - torch.sum(chosen) / float(n_groups * s))
-        group = self.expert_group
         lo, hi = self.expert_lo, self.expert_hi
         local = dispatch[:, lo:hi]
-        tokens_in = collectives.enter_group(tokens, group)
+        tokens_in = self._enter(tokens)
         expert_in = torch.einsum("necs,nsd->necd", local.to(cd),
                                  tokens_in.to(cd))
         out = self._experts(expert_in)
-        gates = collectives.enter_group(g_val, group)[:, lo:hi]
+        gates = self._enter(g_val)[:, lo:hi]
         combine = local * gates[..., None]
         mixed = torch.einsum("necs,necd->nsd", combine.to(cd), out)
-        mixed = collectives.leave_group(mixed, group)
-        return mixed.reshape(b, t, d).to(x.dtype)
+        return self._leave(mixed).reshape(b, t, d).to(x.dtype)
 
     def _experts(self, expert_in):
-        """The local experts' FFNs over ``[n, E_local, C, d]``."""
+        """The local experts' FFNs over ``[n, E_local, C, d]`` (this rank's
+        part of their hidden features: a partial sum on a ``model``
+        group)."""
         cd = self.compute_dtype
-        h = torch.einsum("necd,edh->nech", expert_in, self.moe_up.to(cd))
-        h = F.gelu(h, approximate="tanh")
-        return torch.einsum("nech,ehd->necd", h, self.moe_down.to(cd))
+        up = shard_lib.weight(self, "moe_up").to(cd)
+        down = shard_lib.weight(self, "moe_down").to(cd)
+        h = F.gelu(torch.einsum("necd,edh->nech", expert_in, up),
+                   approximate="tanh")
+        return torch.einsum("nech,ehd->necd", h, down)

@@ -23,12 +23,27 @@ round() has no gradient, so the model refuses ``int8_compute`` in training.
 symmetric round-half-to-even (``torch.round`` is, as ``jnp.round`` is)
 with amax/127 scales, so a dequantized weight requantizes onto the same
 lattice.
+
+**On a mesh.** Where the reduced dim is cut over ranks, the amax is the
+maximum over the ranks that hold its parts (`collectives.all_reduce_max`),
+as GSPMD reduces the JAX package's global array: a row-parallel layer
+(``attn_out``, ``mlp_down``, ``cross_out`` on a live ``model`` axis)
+holds a part of the contraction K, so both operands' amaxes are taken
+over the ``model`` group and the int32 partial products are summed there
+before the scaling — the arithmetic of the one-device int32 product, bit
+for bit. `quantize_params` of a cut model reduces each scale over the
+ranks that cut the flax kernel's axis 0 (``model`` for ``attn_out``'s
+heads and ``mlp_down``'s inputs, ``expert`` for the expert stacks,
+``fsdp`` where it cuts that dim) and keeps this rank's part of the values
+and scales.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from horovod_tpu_torch.parallel import collectives, sharding as shard_lib
 
 _Q = "int8_q"
 
@@ -42,12 +57,15 @@ def is_qleaf(x) -> bool:
     return isinstance(x, dict) and _Q in x
 
 
-def _quantize_sym(x, dim):
+def _quantize_sym(x, dim, groups=()):
     """THE int8 lattice: symmetric round-to-nearest-even with amax/127
-    scales reduced over ``dim`` (an int or a tuple, kept as size-1 dims).
-    Returns ``(int8 values, f32 scale)``."""
+    scales reduced over ``dim`` (an int or a tuple, kept as size-1 dims)
+    and over the ranks of each of ``groups``, which hold the other parts
+    of a cut ``dim``. Returns ``(int8 values, f32 scale)``."""
     x32 = x.float()
     amax = torch.amax(x32.abs(), dim=dim, keepdim=True)
+    for group in groups:
+        amax = collectives.all_reduce_max(amax, group)
     # A tensor divisor: CUDA divides by a Python scalar as a multiplication
     # by its reciprocal, which rounds differently from the division.
     scale = amax / torch.full_like(amax, 127.0)
@@ -56,19 +74,27 @@ def _quantize_sym(x, dim):
     return q, scale
 
 
-def _grouped(name: str, w, n_heads: int):
-    """``w`` (a `TransformerLM` state_dict entry) viewed so that the flax
-    kernel's axis 0 is the port tensor's dim 1 — the reduction axis of
-    `quantize_params`. flax reduces axis 0 of ``[d_in, ...]`` kernels (per
-    output channel: dim 1 of an ``[out, in]`` weight), of the embedding
-    ``[vocab, d]`` (per model channel: dim 0 here, so the view is its
-    transpose) and of ``attn_out``'s ``[H, D, d]`` (per (head-dim, output)
-    pair: ``[d, H*D]`` viewed ``[d, H, D]``)."""
+def _grouped(name: str, w, head_dim: int):
+    """``w`` (a `TransformerLM` state_dict entry, or this rank's part of
+    it) viewed so that the flax kernel's axis 0 is the port tensor's dim 1
+    — the reduction axis of `quantize_params`. flax reduces axis 0 of
+    ``[d_in, ...]`` kernels (per output channel: dim 1 of an ``[out, in]``
+    weight), of the embedding ``[vocab, d]`` (per model channel: dim 0
+    here, so the view is its transpose) and of ``attn_out``'s ``[H, D, d]``
+    (per (head-dim, output) pair: ``[d, H*D]`` viewed ``[d, H, D]``, H the
+    heads this part holds)."""
     if name == "embed.weight":
         return w.t()
     if name.endswith("attn_out.weight"):
-        return w.view(w.shape[0], n_heads, -1)
+        return w.view(w.shape[0], -1, head_dim)
     return w
+
+
+def _reduced_dim(name: str) -> int:
+    """The dim of the port's tensor that holds the flax kernel's axis 0."""
+    if name == "embed.weight" or name.endswith((".moe_up", ".moe_down")):
+        return 0
+    return 1
 
 
 def refuse_moe_int8_compute() -> None:
@@ -86,31 +112,38 @@ def quantize_params(model, *, min_size: int = 4096) -> dict:
     ``{name: {"int8_q": int8 [weight's shape], "scale": f32}}`` for every
     ≥2-D weight of at least ``min_size`` elements (symmetric, reduced over
     the flax kernel's axis 0 — see `_grouped`), the other tensors (the
-    LayerNorm scales) passed through. `dequantize_params` inverts it. A
-    model on a live ``model`` or ``fsdp`` axis raises naming ROADMAP item
-    18."""
+    LayerNorm scales) passed through. `dequantize_params` inverts it. On a
+    mesh each rank gets its part of the values and scales of the whole
+    tree: the amax of a reduced dim cut over ranks is the maximum over
+    them (a collective of those groups: every rank of the mesh calls it),
+    and ``min_size`` counts the whole weight's elements."""
     from horovod_tpu_torch.models.transformer import (
-        ITEM_18_AXES, refuse_unported_axes,
+        _full_shapes, live_placements, param_specs,
     )
 
-    sharding = getattr(model, "sharding", None)
-    refuse_unported_axes(getattr(sharding, "mesh", None), "quantize_params",
-                         also=ITEM_18_AXES)
+    mesh = getattr(getattr(model, "sharding", None), "mesh", None)
+    placed = ({} if mesh is None
+              else live_placements(param_specs(model, mesh), mesh))
+    full = _full_shapes(model)
+    head_dim = model.d_model // model.n_heads
     out = {}
-    n_heads = model.n_heads
     for name, p in model.state_dict().items():
         p = p.detach()
-        if p.dim() < 2 or p.numel() < min_size:
+        whole = full.get(name, tuple(p.shape))
+        if p.dim() < 2 or torch.Size(whole).numel() < min_size:
             out[name] = p
             continue
+        dim = _reduced_dim(name)
+        groups = [mesh.group(ax) for d, ax in placed.get(name, {}).items()
+                  if d == dim]
         if name.endswith((".moe_up", ".moe_down")):
             # Expert weights keep flax's layout: reduced over axis 0 (the
             # experts), a [1, in, out] scale.
-            q, scale = _quantize_sym(p, dim=0)
+            q, scale = _quantize_sym(p, dim=0, groups=groups)
             out[name] = {_Q: q, "scale": scale}
             continue
-        g = _grouped(name, p, n_heads)
-        q, scale = _quantize_sym(g, dim=1)
+        g = _grouped(name, p, head_dim)
+        q, scale = _quantize_sym(g, dim=1, groups=groups)
         if name == "embed.weight":
             q, scale = q.t(), scale.t()  # back to [vocab, d] / [1, d]
         out[name] = {_Q: q.reshape(p.shape).contiguous(),
@@ -173,29 +206,39 @@ def _int32_product(xq, wq):
     return torch._int_mm(xq, wq.t())[:m]
 
 
-def int8_dot_general(x, weight, out_dtype=None):
+def int8_dot_general(x, weight, out_dtype=None, *, group=None):
     """``x @ weight.T`` (a Dense contraction: ``x [..., K]``, ``weight [N,
     K]``, the JAX package's ``int8_dot_general`` with dimension numbers
     ``(((x.ndim-1,), (0,)), ((), ()))`` on the ``[K, N]`` kernel) on int8
     operands: per-row activation scales, per-output-channel weight scales,
     an exact int32 product, the int32 result times the outer product of
     the scales in f32, cast to ``out_dtype`` (default: the operands'
-    promoted dtype)."""
+    promoted dtype). With ``group``, each member holds a part of K: both
+    amaxes are the maxima over the group and the int32 partial products
+    are summed over it before the scaling, so every member returns the
+    whole product, bit-equal to the one-device result (a collective of
+    ``group``)."""
     out_dtype = out_dtype or torch.promote_types(x.dtype, weight.dtype)
+    groups = () if group is None else (group,)  # SELF: no call made
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    xq, s_x = _quantize_sym(x2, dim=1)  # [M, 1]
-    wq, s_w = _quantize_sym(weight, dim=1)  # [N, 1]
+    xq, s_x = _quantize_sym(x2, dim=1, groups=groups)  # [M, 1]
+    wq, s_w = _quantize_sym(weight, dim=1, groups=groups)  # [N, 1]
     out = _int32_product(xq, wq)
+    if group is not None:
+        out = collectives.all_reduce_sum(out, group)
     scale = s_x * s_w.reshape(1, -1)
     return (out.float() * scale).to(out_dtype).reshape(*lead, -1)
 
 
-def int8_linear(layer: nn.Linear, x, compute_dtype, out_dtype=None):
-    """A bias-free `nn.Linear` through `int8_dot_general`, its operands
+def int8_linear(layer: nn.Module, x, compute_dtype, out_dtype=None, *,
+                group=None):
+    """A bias-free linear layer through `int8_dot_general`, its operands
     first cast to ``compute_dtype`` (flax's DenseGeneral casts both before
-    its dot_general)."""
+    its dot_general). The weight is read whole over ``fsdp``
+    (`parallel.sharding.weight`); ``group``: the ranks that hold the other
+    parts of the contraction (a row-parallel layer's ``model`` group)."""
     return int8_dot_general(
-        x.to(compute_dtype), layer.weight.to(compute_dtype),
-        out_dtype=out_dtype or compute_dtype,
+        x.to(compute_dtype), shard_lib.weight(layer).to(compute_dtype),
+        out_dtype=out_dtype or compute_dtype, group=group,
     )

@@ -39,6 +39,22 @@ captured step (`models.decoding.StepGraph`). Decode mode refuses a live
 Dropout takes ``dropout_seed`` (the trainer's per-step seed): encoder block
 i's two sites are 2i and 2i + 1, decoder block j's three are 2·n_enc + 3j,
 +1, +2.
+
+Tensor parallelism and FSDP, as JAX's `param_specs` places the model: on a
+live ``model`` axis of tp ranks each rank holds ``n_heads/tp`` heads of
+each of the three attention sites and ``4·d/tp`` MLP features. ``qkv``,
+``cross_q``, ``cross_kv`` and ``mlp_up`` are column-parallel behind
+Megatron's f (`collectives.enter_group`), ``attn_out``, ``cross_out`` and
+``mlp_down`` row-parallel behind g (`collectives.leave_group`); the fused
+``qkv`` and ``cross_kv`` rows are cut per part by heads
+(`parallel.sharding`). The head is `LMHead`'s vocab-parallel path. The
+decode caches hold the local heads: ``[B, L, H/tp, D]`` self caches and
+the static cross K/V. On a live ``fsdp`` axis every ≥2-D parameter holds
+its shard and is gathered at use (`parallel.sharding.weight`). The weights
+are drawn whole from the seed and cut (`models.transformer.cut_parameters`),
+so a sharded model starts from the one-rank weights; `unsharded` gathers
+them back, and ``clone(sharding=ShardingConfig())`` of a cut model is that
+gathered model (a collective).
 """
 
 from __future__ import annotations
@@ -55,15 +71,17 @@ from horovod_tpu_torch.models.decoding import (
 )
 from horovod_tpu_torch.models.moe import lecun_normal_
 from horovod_tpu_torch.models.transformer import (
-    ITEM_18_AXES, LayerNorm, LMHead, ShardingConfig, _cache_write, _dtype,
-    _matmul_f32, param_specs as lm_param_specs, refuse_unported_axes, rope,
+    LayerNorm, LMHead, ShardingConfig, _cache_write, _dtype, _full_shapes,
+    _matmul_f32, cut_parameters, live_placements,
+    param_specs as lm_param_specs, rope,
 )
 from horovod_tpu_torch.ops.attention import (
     _BIG_NEG, dense_attention, ring_cross_attention, ring_flash_attention,
 )
 from horovod_tpu_torch.ops.dropout import dropout
 from horovod_tpu_torch.ops.flash_attention import flash_attention
-from horovod_tpu_torch.parallel.mesh import SEQ_AXIS
+from horovod_tpu_torch.parallel import collectives, sharding as shard_lib
+from horovod_tpu_torch.parallel.mesh import FSDP_AXIS, MODEL_AXIS, SEQ_AXIS
 from horovod_tpu_torch.runtime import resolve_device
 
 _DECODE_ON_SEQ = (
@@ -109,13 +127,16 @@ def _attention(cfg: ShardingConfig, q, k, v, *, causal: bool, q_ids=None,
 
 class _Layer(nn.Module):
     """What the encoder and decoder blocks share: the projections in the
-    compute dtype, the MLP and the seeded dropout."""
+    compute dtype (column-parallel behind f, row-parallel behind g on a
+    live ``model`` axis), the MLP and the seeded dropout. Its layers are
+    built whole; the model cuts them to this rank's ``heads``."""
 
     def __init__(self, d_model: int, n_heads: int, dropout: float,
                  compute_dtype: torch.dtype, sharding: ShardingConfig):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.head_dim = d_model // n_heads
+        self.heads = n_heads // sharding.tp  # this rank's
         self.dropout, self.compute_dtype = dropout, compute_dtype
         self.sharding = sharding
         hd = n_heads * self.head_dim
@@ -126,15 +147,30 @@ class _Layer(nn.Module):
 
     def _dense(self, layer: nn.Linear, x):
         cd = self.compute_dtype
-        return F.linear(x.to(cd), layer.weight.to(cd))
+        return F.linear(x.to(cd), shard_lib.weight(layer).to(cd))
+
+    def _column(self, layer: nn.Linear, x):
+        """A column-parallel projection behind Megatron's f."""
+        return self._dense(layer, collectives.enter_group(
+            x, self.sharding.model_group))
+
+    def _row(self, layer: nn.Linear, x):
+        """A row-parallel projection: the partial products summed over
+        ``model`` (Megatron's g)."""
+        return collectives.leave_group(self._dense(layer, x),
+                                       self.sharding.model_group)
 
     def _heads(self, x):
         b, t, _ = x.shape
-        return x.view(b, t, self.n_heads, self.head_dim)
+        return x.view(b, t, self.heads, self.head_dim)
+
+    def _split(self, x):
+        """A fused projection's blocks (q|k|v, k|v) at this rank's heads."""
+        return (self._heads(a)
+                for a in x.split(self.heads * self.head_dim, -1))
 
     def _self_qkv(self, h, positions):
-        q, k, v = (self._heads(a) for a in
-                   self._dense(self.qkv, h).split(self.d_model, -1))
+        q, k, v = self._split(self._column(self.qkv, h))
         return rope(q, positions), rope(k, positions), v
 
     def _drop(self, x, train, seed, site):
@@ -148,8 +184,8 @@ class _Layer(nn.Module):
         return dropout(x, self.dropout, seed, site)
 
     def _mlp(self, x, train, seed, site):
-        h = self._dense(self.mlp_up, self.ln_mlp(x))
-        h = self._dense(self.mlp_down, F.gelu(h, approximate="tanh"))
+        h = self._column(self.mlp_up, self.ln_mlp(x))
+        h = self._row(self.mlp_down, F.gelu(h, approximate="tanh"))
         return x + self._drop(h, train, seed, site)
 
 
@@ -172,8 +208,8 @@ class EncoderBlock(_Layer):
         # mean-pooling) must mask too.
         out = _attention(self.sharding, q, k, v, causal=False,
                          q_ids=src_valid, kv_ids=src_valid)
-        out = self._dense(self.attn_out, out.reshape(x.shape[0],
-                                                     x.shape[1], -1))
+        out = self._row(self.attn_out, out.reshape(x.shape[0], x.shape[1],
+                                                   -1))
         x = x + self._drop(out, train, dropout_seed, site)
         return self._mlp(x, train, dropout_seed, site + 1)
 
@@ -204,23 +240,22 @@ class DecoderBlock(_Layer):
                                               fresh)
         else:
             out = _attention(cfg, q, k, v, causal=True)
-        out = self._dense(self.attn_out, out.reshape(b, t, -1))
+        out = self._row(self.attn_out, out.reshape(b, t, -1))
         x = x + self._drop(out, train, dropout_seed, site)
 
-        q = self._heads(self._dense(self.cross_q, self.ln_cross(x)))
+        q = self._heads(self._column(self.cross_q, self.ln_cross(x)))
         if cache is not None:
             out = self._cached_cross_attention(q, memory, mem_valid, cache,
                                                fresh)
         else:
-            ck, cv = (self._heads(a) for a in self._dense(
-                self.cross_kv, memory).split(self.d_model, -1))
+            ck, cv = self._split(self._column(self.cross_kv, memory))
             # Tq = target length, Tk = source length: the kernel's cross
             # grids. Non-causal; query ids the constant 1, so the mask is
             # the source-side padding mask.
             q_ids = torch.ones((b, t), dtype=torch.int32, device=x.device)
             out = _attention(cfg, q, ck, cv, causal=False, q_ids=q_ids,
                              kv_ids=mem_valid, cross=True)
-        out = self._dense(self.cross_out, out.reshape(b, t, -1))
+        out = self._row(self.cross_out, out.reshape(b, t, -1))
         x = x + self._drop(out, train, dropout_seed, site + 1)
         return self._mlp(x, train, dropout_seed, site + 2)
 
@@ -243,8 +278,7 @@ class DecoderBlock(_Layer):
         from the memory by the call that creates the cache, read by every
         step after it."""
         if fresh:
-            ck, cv = (self._heads(a) for a in self._dense(
-                self.cross_kv, memory).split(self.d_model, -1))
+            ck, cv = self._split(self._column(self.cross_kv, memory))
             cache["cross_k"], cache["cross_v"] = ck, cv
         valid = mem_valid.bool()[:, None, None, :]
         return _cached_softmax(q, cache["cross_k"], cache["cross_v"], valid)
@@ -283,7 +317,7 @@ class Encoder(nn.Module):
         b, s = src.shape
         src_valid = (src != self.pad_id).to(torch.int32)
         positions = _positions(self.sharding, b, s, src.device)
-        x = self.embed(src.long()).to(self.compute_dtype)
+        x = _embed(self.embed, src, self.compute_dtype)
         for i, blk in enumerate(self.blocks):
             x = blk(x, positions, src_valid, train=train,
                     dropout_seed=dropout_seed, site=2 * i)
@@ -295,7 +329,7 @@ class Decoder(nn.Module):
                  compute_dtype, sharding, logits_dtype, first_site: int):
         super().__init__()
         self.compute_dtype, self.sharding = compute_dtype, sharding
-        self.n_heads, self.head_dim = n_heads, d_model // n_heads
+        self.heads, self.head_dim = n_heads // sharding.tp, d_model // n_heads
         self.first_site = first_site
         self.embed = nn.Embedding(vocab_size, d_model)
         self.blocks = nn.ModuleList(
@@ -303,13 +337,13 @@ class Decoder(nn.Module):
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, compute_dtype)
         self.lm_head = LMHead(d_model, vocab_size, compute_dtype,
-                              logits_dtype)
+                              logits_dtype, sharding)
 
     def forward(self, tgt, memory, mem_valid, *, train=False,
                 dropout_seed=None):
         b, t = tgt.shape
         positions = _positions(self.sharding, b, t, tgt.device)
-        x = self.embed(tgt.long()).to(self.compute_dtype)
+        x = _embed(self.embed, tgt, self.compute_dtype)
         for j, blk in enumerate(self.blocks):
             x = blk(x, positions, memory, mem_valid, train=train,
                     dropout_seed=dropout_seed,
@@ -318,8 +352,9 @@ class Decoder(nn.Module):
 
     def new_cache(self, batch: int, max_decode_len: int, device) -> dict:
         """An empty self-attention cache of ``max_decode_len`` positions a
-        block (the cross K/V join it at the prefill), and ``index``."""
-        shape = (batch, max_decode_len, self.n_heads, self.head_dim)
+        block at this rank's heads (the cross K/V join it at the prefill),
+        and ``index``."""
+        shape = (batch, max_decode_len, self.heads, self.head_dim)
         cache = {f"Block_{j}": {n: torch.zeros(shape, dtype=self.compute_dtype,
                                                device=device)
                                 for n in ("k", "v")}
@@ -340,12 +375,17 @@ class Decoder(nn.Module):
         idx = cache["index"]
         positions = (idx + torch.arange(t, dtype=torch.int32,
                                         device=tgt.device)).expand(b, t)
-        x = self.embed(tgt.long()).to(self.compute_dtype)
+        x = _embed(self.embed, tgt, self.compute_dtype)
         for j, blk in enumerate(self.blocks):
             x = blk(x, positions, memory, cache["src_valid"],
                     cache=cache[f"Block_{j}"], decode_index=idx, fresh=fresh)
         logits = self.lm_head(self.ln_f(x))
         return logits, {**cache, "index": idx + t}
+
+
+def _embed(embed: nn.Embedding, tokens, dtype):
+    """The lookup over the whole table (gathered at use on ``fsdp``)."""
+    return F.embedding(tokens.long(), shard_lib.weight(embed)).to(dtype)
 
 
 def _positions(cfg: ShardingConfig, b: int, t: int, device):
@@ -367,9 +407,9 @@ class Seq2SeqTransformer(nn.Module):
     tables.
 
     Parameters are created on ``device`` (default ``"cuda"``) from a seeded
-    CPU generator. A live ``model`` or ``fsdp`` axis raises naming ROADMAP
-    queue A item 18; a live ``pipe`` axis replicates the model over its
-    ranks, as GSPMD does with the JAX model."""
+    CPU generator, drawn whole and cut to this rank's ``model``/``fsdp``
+    parts (module docstring); a live ``pipe`` axis replicates the model
+    over its ranks, as GSPMD does with the JAX model."""
 
     def __init__(self, vocab_size: int = 256, d_model: int = 256,
                  n_heads: int = 8, n_enc_layers: int = 4,
@@ -380,8 +420,12 @@ class Seq2SeqTransformer(nn.Module):
                  device="cuda", seed: int = 0):
         super().__init__()
         sharding = sharding or ShardingConfig()
-        refuse_unported_axes(sharding.mesh, "Seq2SeqTransformer(sharding=...)",
-                             also=ITEM_18_AXES)
+        mesh = sharding.mesh
+        if mesh is not None and n_heads % sharding.tp != 0:
+            raise ValueError(
+                f"n_heads ({n_heads}) must divide over the model axis "
+                f"({sharding.tp}) for sharded attention"
+            )
         dev = resolve_device(device)
         self.vocab_size, self.d_model, self.n_heads = vocab_size, d_model, n_heads
         self.n_enc_layers, self.n_dec_layers = n_enc_layers, n_dec_layers
@@ -394,6 +438,13 @@ class Seq2SeqTransformer(nn.Module):
         self.decoder = Decoder(vocab_size, d_model, n_heads, n_dec_layers,
                                dropout, self.compute_dtype, sharding,
                                self.logits_dtype, first_site=2 * n_enc_layers)
+        self.cuts: dict = {}
+        # The forward's collectives over the model and fsdp groups: a gloo
+        # step runs eagerly (`training.graphs`).
+        self.reduces_over_ranks = mesh is not None and max(
+            mesh.shape[MODEL_AXIS], mesh.shape[FSDP_AXIS]) > 1
+        if self.reduces_over_ranks:
+            self.cuts = cut_parameters(self, param_specs(self, mesh), mesh)
         self.reset_parameters(seed)
         self.to(dev)
 
@@ -405,22 +456,53 @@ class Seq2SeqTransformer(nn.Module):
     def reset_parameters(self, seed: int = 0) -> None:
         """flax's initializers from a seeded CPU generator: lecun-normal
         matmul weights (fan-in the input features), N(0, 1/d) embeddings,
-        unit LayerNorm scales."""
+        unit LayerNorm scales; each drawn whole and cut to this rank's
+        part."""
         g = torch.Generator().manual_seed(seed)
+        full = _full_shapes(self)
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
-            elif name.endswith("embed.weight"):
-                p.copy_(torch.randn(p.shape, generator=g)
-                        / math.sqrt(p.shape[1]))
+                continue
+            w = torch.empty(full[name])
+            if name.endswith("embed.weight"):
+                w = torch.randn(w.shape, generator=g) / math.sqrt(w.shape[1])
             else:
-                lecun_normal_(p, g, p.shape[1])
+                lecun_normal_(w, g, w.shape[1])
+            p.copy_(shard_lib.shard_tensor(w, name, self.cuts.get(name, {}),
+                                           self.sharding.mesh))
+
+    def config(self) -> dict:
+        """The constructor's hyperparameters (without the mesh)."""
+        return {"vocab_size": self.vocab_size, "d_model": self.d_model,
+                "n_heads": self.n_heads, "n_enc_layers": self.n_enc_layers,
+                "n_dec_layers": self.n_dec_layers, "dropout": self.dropout,
+                "compute_dtype": self.compute_dtype,
+                "logits_dtype": self.logits_dtype, "pad_id": self.pad_id}
+
+    def unsharded(self) -> "Seq2SeqTransformer":
+        """A model of this configuration without a mesh, on this model's
+        device, holding its whole weights: gathered over the mesh's
+        groups (a collective every rank of the mesh calls)."""
+        sd = self.state_dict()
+        if self.cuts:
+            from horovod_tpu_torch.models.convert import gather_state_dict
+
+            mesh = self.sharding.mesh
+            sd = gather_state_dict(sd, mesh, live_placements(
+                param_specs(self, mesh), mesh))
+        plain = Seq2SeqTransformer(**self.config(), device=self.device)
+        plain.load_state_dict(sd)
+        return plain
 
     def clone(self, **overrides) -> "Seq2SeqTransformer":
         """A model with ``overrides`` (``dropout``, ``sharding``) applied
         that SHARES this model's parameter tensors (flax's
-        ``Module.clone``: the JAX example decodes a seq-parallel model's
-        weights with ``clone(sharding=ShardingConfig())``)."""
+        ``Module.clone``: the JAX example decodes a sharded model's
+        weights with ``clone(sharding=ShardingConfig())``). A clone that
+        leaves the ``model``/``fsdp`` cut of this model holds the gathered
+        weights instead (`unsharded`, a collective); one onto another cut
+        raises."""
         bad = sorted(set(overrides) - set(_CLONE_KNOBS))
         if bad:
             raise ValueError(
@@ -428,16 +510,23 @@ class Seq2SeqTransformer(nn.Module):
                 f"parameters; it may change {list(_CLONE_KNOBS)}"
             )
         sharding = overrides.get("sharding", self.sharding) or ShardingConfig()
-        refuse_unported_axes(sharding.mesh, "Seq2SeqTransformer(sharding=...)",
-                             also=ITEM_18_AXES)
-        memo = {id(t): t for t in (*self.parameters(), *self.buffers())}
-        new = copy.deepcopy(self, memo)
+        src = self
+        if _cut_of(sharding) != _cut_of(self.sharding):
+            if _cut_of(sharding):
+                raise ValueError(
+                    "clone cannot move the weights onto another model/fsdp "
+                    f"cut ({_cut_of(self.sharding)} -> {_cut_of(sharding)}): "
+                    "build the model on that mesh")
+            src = self.unsharded()
+        memo = {id(t): t for t in (*src.parameters(), *src.buffers())}
+        new = copy.deepcopy(src, memo)
         new.dropout = overrides.get("dropout", self.dropout)
         new.sharding = sharding
         for part in (new.encoder, new.decoder):
             part.sharding = sharding
             for blk in part.blocks:
                 blk.dropout, blk.sharding = new.dropout, sharding
+        new.decoder.lm_head.sharding = sharding
         return new
 
     def forward(self, batch, *, train: bool = False, dropout_seed=None):
@@ -472,11 +561,18 @@ def param_specs(module_or_state_dict, mesh) -> dict:
     """The LM's placements (`models.transformer.param_specs`) plus the
     cross-attention projections: ``cross_q`` and ``cross_kv``
     column-parallel, ``cross_out`` row-parallel (dims of the port's
-    ``[out, in]`` weights). A live ``model`` or ``fsdp`` axis is refused
-    where the model is built (ROADMAP queue A item 18)."""
+    ``[out, in]`` weights)."""
     return lm_param_specs(module_or_state_dict, mesh,
                           extra_tp_dim={"cross_q": 0, "cross_kv": 0,
                                         "cross_out": 1})
+
+
+def _cut_of(cfg: ShardingConfig) -> dict:
+    """The live ``model``/``fsdp`` axis sizes of ``cfg``'s mesh."""
+    mesh = cfg.mesh
+    return {} if mesh is None else {
+        ax: mesh.shape[ax] for ax in (MODEL_AXIS, FSDP_AXIS)
+        if mesh.shape[ax] > 1}
 
 
 def make_seq2seq_generate_fn(model: Seq2SeqTransformer, *,
@@ -498,7 +594,12 @@ def make_seq2seq_generate_fn(model: Seq2SeqTransformer, *,
         raise ValueError(_DECODE_ON_SEQ)
     sampling = (temperature, top_k, top_p)
     dmodel = model.clone(dropout=0.0) if model.dropout else model
-    runner = StepGraph(None, model.device, sampled=temperature > 0.0)
+    from horovod_tpu_torch.training.graphs import (
+        forward_communicates_over_host,
+    )
+
+    runner = StepGraph(None, model.device, sampled=temperature > 0.0,
+                       host_collectives=forward_communicates_over_host(model))
     width = max(1, max_new_tokens - 1)
 
     def step(tokens, cache):

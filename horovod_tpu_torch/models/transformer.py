@@ -70,9 +70,13 @@ its gradient reduce-scattered back (`parallel.sharding.weight`). The
 weights are drawn whole from the seed and cut, so a sharded model starts
 from the one-rank model's weights; `unsharded` gathers them back into a
 plain model (a collective). The decode cache holds the local kv heads,
-``[B, L, H_kv/tp, D]``. MoE layers and int8 weights or caches on a live
-``model`` axis, and MoE layers and ``int8_compute`` on a live ``fsdp``
-axis, raise naming ROADMAP queue A item 18.
+``[B, L, H_kv/tp, D]`` (int8 under ``quantized_cache``, with its
+per-(position, local head) scales). MoE blocks cut their experts' hidden
+features over ``model`` and gather their router and stacks over ``fsdp``
+(`models.moe`). ``int8_compute`` runs on both axes: a row-parallel
+layer's int8 product takes its amaxes over the ``model`` group and sums
+its int32 partial products there (`quant.int8_dot_general`), the LM
+head's vocab rows gather their logits over ``model``.
 
 Sequence parallelism, as in the JAX model: on a mesh with a live ``seq``
 axis of n ranks, the model takes this rank's ``[B, T/n]`` shard of the
@@ -114,24 +118,6 @@ from horovod_tpu_torch.parallel.mesh import (
 )
 from horovod_tpu_torch.runtime import resolve_device
 from horovod_tpu_torch.training import train_state
-
-#: The ROADMAP item of what the port does not carry on a mesh yet.
-ITEM_18 = ("queue A item 18 (the model axis in MoE, seq2seq, LoRA and "
-           "int8)")
-#: The axes item 18's modules refuse (``also=`` of `refuse_unported_axes`).
-ITEM_18_AXES = (MODEL_AXIS, FSDP_AXIS)
-
-
-def refuse_unported_axes(mesh, what: str, also=()) -> None:
-    """Raise `NotImplementedError` naming ROADMAP item 18 for the first
-    live axis of ``mesh`` among ``also`` that ``what`` does not carry."""
-    for ax in also:
-        if mesh is not None and mesh.shape.get(ax, 1) > 1:
-            raise NotImplementedError(
-                f"{what} on a mesh with a live {ax!r} axis "
-                f"({mesh.shape[ax]}) is not ported yet — ROADMAP {ITEM_18}"
-            )
-
 
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
@@ -319,9 +305,13 @@ class Block(nn.Module):
 
     def _row(self, layer: nn.Linear, x):
         """A row-parallel projection: this rank's partial product, summed
-        over ``model`` (Megatron's g)."""
-        return collectives.leave_group(self._dense(layer, x),
-                                       self.sharding.model_group)
+        over ``model`` (Megatron's g; under ``int8_compute`` the int32
+        partial products are summed before the scaling)."""
+        group = self.sharding.model_group
+        if self.int8_compute:
+            return quant.int8_linear(layer, x, self.compute_dtype,
+                                     group=group)
+        return collectives.leave_group(self._dense(layer, x), group)
 
     def forward(self, x, positions, *, train: bool = False, segment_ids=None,
                 dropout_seed: int | None = None, dropout_site: int = 0,
@@ -593,9 +583,11 @@ class LMHead(nn.Module):
 
     def forward(self, x):
         cd = self.compute_dtype
-        if self.int8_compute:
-            return quant.int8_linear(self, x, cd, out_dtype=self.logits_dtype)
         group = self.sharding.model_group
+        if self.int8_compute:
+            logits = quant.int8_linear(self, x, cd,
+                                       out_dtype=self.logits_dtype)
+            return collectives.all_gather_tiled(logits, group, -1)
         x = collectives.enter_group(x, group)  # f
         logits = F.linear(x.to(cd), shard_lib.weight(self).to(cd))
         # Each model rank computes the same loss on the gathered logits:
@@ -646,8 +638,6 @@ class TransformerLM(nn.Module):
                  device="cuda", seed: int = 0):
         super().__init__()
         sharding = sharding or ShardingConfig()
-        _refuse_item_18(sharding.mesh, moe_every, int8_compute,
-                        quantized_cache)
         if int8_compute and moe_every:
             quant.refuse_moe_int8_compute()
         dev = resolve_device(device)
@@ -689,11 +679,9 @@ class TransformerLM(nn.Module):
         self.to(dev)
 
     def _cut_parameters(self) -> None:
-        """Replace each parameter placed on a live ``model`` or ``fsdp``
-        axis (`param_specs`) by this rank's part (``cuts``: name →
-        placement); its owner keeps the whole shape (``full_shapes``) and,
-        for an ``fsdp`` part, the dim to gather it along at use
-        (``fsdp_dims``, ``fsdp_mesh``)."""
+        """Hold this rank's part of each parameter placed on a live
+        ``model`` or ``fsdp`` axis (`param_specs`, `cut_parameters`;
+        ``cuts``: name → placement)."""
         mesh = self.sharding.mesh
         self.cuts: dict = {}
         self.reduces_over_ranks = False
@@ -701,24 +689,7 @@ class TransformerLM(nn.Module):
                                mesh.shape[FSDP_AXIS]) == 1:
             return
         self.reduces_over_ranks = True  # the forward's collectives
-        for name, spec in param_specs(self, mesh).items():
-            on = {d: ax for d, ax in spec.items()
-                  if ax in (MODEL_AXIS, FSDP_AXIS) and mesh.shape[ax] > 1}
-            if not on:
-                continue
-            owner, leaf = name.rsplit(".", 1)
-            mod = self.get_submodule(owner)
-            whole = getattr(mod, leaf).detach()
-            mod.full_shapes = {**getattr(mod, "full_shapes", {}),
-                               leaf: tuple(whole.shape)}
-            setattr(mod, leaf, nn.Parameter(
-                shard_lib.shard_tensor(whole, name, on, mesh).clone()))
-            for dim, ax in on.items():
-                if ax == FSDP_AXIS:
-                    mod.fsdp_dims = {**getattr(mod, "fsdp_dims", {}),
-                                     leaf: dim}
-                    mod.fsdp_mesh = mesh
-            self.cuts[name] = on
+        self.cuts = cut_parameters(self, param_specs(self, mesh), mesh)
 
     def _propagate(self) -> None:
         """Hand the model-level knobs down to the submodules that read
@@ -760,8 +731,6 @@ class TransformerLM(nn.Module):
             if name in ("compute_dtype", "logits_dtype"):
                 value = _dtype(value)
             setattr(new, name, value)
-        _refuse_item_18(new.sharding.mesh, new.moe_every, new.int8_compute,
-                        new.quantized_cache)
         if new.int8_compute and new.moe_every:
             quant.refuse_moe_int8_compute()
         if new.attention_sinks < 0:
@@ -832,7 +801,7 @@ class TransformerLM(nn.Module):
             if ".moe." in name:
                 owner, leaf = name.split(".moe.")
                 w = self.get_submodule(owner + ".moe").local_part(leaf, w)
-            elif name in self.cuts:
+            if name in self.cuts:
                 w = shard_lib.shard_tensor(w, name, self.cuts[name],
                                            self.sharding.mesh)
             p.copy_(w)
@@ -999,6 +968,38 @@ _TP_DIM = {"qkv": 0, "q_proj": 0, "kv_proj": 0, "attn_out": 1,
            "mlp_up": 0, "mlp_down": 1, "lm_head": 0}
 _MOE_DIMS = {"moe_up": {0: EXPERT_AXIS, 2: MODEL_AXIS},
              "moe_down": {0: EXPERT_AXIS, 1: MODEL_AXIS}}
+_MOE_STACKS = tuple("." + n for n in _MOE_DIMS)
+
+
+def cut_parameters(module, specs: dict, mesh) -> dict:
+    """Replace each parameter of ``module`` placed on a live ``model`` or
+    ``fsdp`` axis by ``specs`` by this rank's part, and return those
+    placements (name → {dim: axis}). Its owner keeps the whole shape
+    (``full_shapes``) and, for an ``fsdp`` part, the dim to gather it along
+    at use (``fsdp_dims``, ``fsdp_mesh``; `parallel.sharding.weight`). An
+    MoE layer's stacks are held at their ``expert`` and ``model`` parts
+    already, so only their ``fsdp`` cut is made here."""
+    cuts = {}
+    for name, spec in specs.items():
+        held = (FSDP_AXIS,) if name.endswith(_MOE_STACKS) else (
+            MODEL_AXIS, FSDP_AXIS)
+        on = {d: ax for d, ax in spec.items()
+              if ax in held and mesh.shape[ax] > 1}
+        if not on:
+            continue
+        owner, leaf = name.rsplit(".", 1)
+        mod = module.get_submodule(owner)
+        whole = getattr(mod, leaf).detach()
+        mod.full_shapes = {**getattr(mod, "full_shapes", {}),
+                           leaf: tuple(whole.shape)}
+        setattr(mod, leaf, nn.Parameter(
+            shard_lib.shard_tensor(whole, name, on, mesh).clone()))
+        for dim, ax in on.items():
+            if ax == FSDP_AXIS:
+                mod.fsdp_dims = {**getattr(mod, "fsdp_dims", {}), leaf: dim}
+                mod.fsdp_mesh = mesh
+        cuts[name] = on
+    return cuts
 
 
 def _full_shapes(module_or_state_dict) -> dict:
@@ -1071,13 +1072,3 @@ def live_placements(specs: dict, mesh) -> dict:
             live[name] = on
     return live
 
-
-def _refuse_item_18(mesh, moe_every, int8_compute, quantized_cache) -> None:
-    """The `TransformerLM` knobs a live ``model``/``fsdp`` axis does not
-    carry yet, refused naming ROADMAP item 18."""
-    if moe_every:
-        refuse_unported_axes(mesh, "a MoE TransformerLM", also=ITEM_18_AXES)
-    if int8_compute:
-        refuse_unported_axes(mesh, "int8_compute", also=ITEM_18_AXES)
-    if quantized_cache:
-        refuse_unported_axes(mesh, "quantized_cache", also=(MODEL_AXIS,))

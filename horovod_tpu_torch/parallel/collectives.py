@@ -462,6 +462,20 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @torch.no_grad()
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise maximum of ``t`` over the group, out of place. Not
+    differentiable: it serves the int8 path's group-wide amax, which is
+    inference only."""
+    if _trivial(group):
+        return t.clone()
+    src = _to_comm(t)
+    _count(src)
+    torch.distributed.all_reduce(src, op=torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    return src.to(t.device)
+
+
+@torch.no_grad()
 def broadcast_in_group(t: torch.Tensor, group, position: int = 0
                        ) -> torch.Tensor:
     """``t`` from the member of ``group`` at ``position`` (default the

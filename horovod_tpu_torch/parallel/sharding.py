@@ -8,8 +8,9 @@ joined back by an all-gather over each axis's subgroup (`gather_tensor`).
 
 The cut is layout-aware where the port fuses projections that JAX keeps
 per head. The port's ``qkv`` weight rows run q heads, then k heads, then v
-heads, and ``kv_proj``'s k heads, then v heads; JAX's kernels are ``[d, H,
-3·D]`` and ``[d, H_kv, 2·D]``, split per head. On the ``model`` axis those
+heads, and ``kv_proj``'s (and the seq2seq ``cross_kv``'s) k heads, then v
+heads; JAX's kernels are ``[d, H, 3·D]`` and ``[d, H_kv, 2·D]``, split per
+head. On the ``model`` axis those
 rows are cut per part (`fused_parts`): rank i keeps heads ``[i·H/n,
 (i+1)·H/n)`` of each of q, k and v, as JAX's ``model``-sharded head dim
 holds. A contiguous narrow would give rank 0 all of q and half of k. On
@@ -37,7 +38,7 @@ from horovod_tpu_torch.parallel.mesh import (
 
 # Fused projections: the parts of dim 0 that the `model` axis cuts one by
 # one (layer name -> number of parts).
-_FUSED = {"qkv": 3, "kv_proj": 2}
+_FUSED = {"qkv": 3, "kv_proj": 2, "cross_kv": 2}
 
 
 class Cut(typing.NamedTuple):
@@ -50,8 +51,8 @@ class Cut(typing.NamedTuple):
 
 def fused_parts(name: str, dim: int, axis: str) -> int:
     """How many parts of dim ``dim`` of parameter ``name`` the ``axis``
-    cut keeps apart: 3 for ``qkv``'s and 2 for ``kv_proj``'s rows on
-    ``model``, else 1 (a contiguous narrow)."""
+    cut keeps apart: 3 for ``qkv``'s and 2 for ``kv_proj``'s and
+    ``cross_kv``'s rows on ``model``, else 1 (a contiguous narrow)."""
     if axis != MODEL_AXIS or dim != 0:
         return 1
     parts = name.split(".")

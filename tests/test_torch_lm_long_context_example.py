@@ -16,7 +16,11 @@ launch:
   ``recall-half``, the verdict) and, for the `TransformerLM` runs, the
   greedy decode's exact match, decoded from the gathered parameters (the
   JAX script decodes no pipelined model);
-* ``MOE_EVERY=2`` on ``data=2,model=2`` raises naming ROADMAP item 18.
+* ``MOE_EVERY=2 N_EXPERTS=4`` on ``data=1,expert=2,model=2`` (the MoE
+  blocks' experts over ``expert``, their hidden features over ``model``)
+  learns and reports like the others, and its first step's loss equals
+  JAX's MoE `TransformerLM` on the batch the twin fed, from the same
+  weights, within 1e-5 relative (f32 on both sides).
 
 In process: `data.datasets.copy_task` is
 byte-equal to the JAX package's for the script's seeds 0 and 99 at its
@@ -28,6 +32,7 @@ import signal
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 
@@ -44,7 +49,10 @@ RUNS = {"seq_model": {"HVT_MESH": "data=1,seq=2,model=2"},
         "fsdp": {"HVT_MESH": "data=2,fsdp=2", "FUSED_CE": "2"},
         "pipe_model": {"HVT_MESH": "data=1,pipe=2,model=2",
                        "SCHEDULE": "1f1b"},
-        "pipe_seq": {"HVT_MESH": "data=1,pipe=2,seq=2", "SCHEDULE": "1f1b"}}
+        "pipe_seq": {"HVT_MESH": "data=1,pipe=2,seq=2", "SCHEDULE": "1f1b"},
+        "moe_model": {"HVT_MESH": "data=1,expert=2,model=2",
+                      "MOE_EVERY": "2", "N_EXPERTS": "4",
+                      "FIRST_BATCH": "1"}}
 # The runs on the pipelined model, which JAX's script does not decode.
 PIPELINED = ("pipe_model", "pipe_seq")
 
@@ -56,9 +64,43 @@ from horovod_tpu_torch.examples import lm_long_context as twin
 
 out = os.environ["OUT"]
 res = {}
+
+# Each run's first step: its loss and (where FIRST_BATCH is set) the batch
+# the feed handed over.
+from horovod_tpu_torch.training import feeding
+first = {}
+fit, pipeline = ht.Trainer.fit, feeding.training_pipeline
+
+
+class First(ht.callbacks.Callback):
+    def on_batch_end(self, batch, logs=None):
+        first.setdefault("loss", float(logs["loss"]))
+
+
+def recorded_fit(self, *args, **kwargs):
+    kwargs["callbacks"] = list(kwargs.get("callbacks", [])) + [First()]
+    return fit(self, *args, **kwargs)
+
+
+def kept(*args, **kwargs):
+    it, close = pipeline(*args, **kwargs)
+
+    def batches():
+        for i, b in enumerate(it):
+            if i == 0 and os.environ.get("FIRST_BATCH"):
+                first["batch"] = b
+            yield b
+    return batches(), close
+
+
+ht.Trainer.fit, feeding.training_pipeline = recorded_fit, kept
 for name, env in json.loads(os.environ["RUNS"]).items():
     os.environ.update(env)
+    first.clear()
     got = twin.main()
+    res[name + ".first_loss"] = np.array(first["loss"])
+    if "batch" in first:
+        res[name + ".first_x"], res[name + ".first_y"] = first["batch"]
     res[name + ".losses"] = np.array([e["loss"] for e in got["history"]])
     res[name + ".report"] = np.array([got["context_loss"],
                                       got["recall_loss"]])
@@ -66,12 +108,6 @@ for name, env in json.loads(os.environ["RUNS"]).items():
         res[name + ".exact"] = np.array(got["exact_match"])
     for k in env:
         del os.environ[k]
-os.environ.update(HVT_MESH="data=2,model=2", MOE_EVERY="2")
-try:
-    twin.main()
-    res["moe_refusal"] = ""
-except NotImplementedError as e:
-    res["moe_refusal"] = str(e)
 np.savez(os.path.join(out, f"rank{ht.rank()}.npz"), **res)
 '''
 
@@ -129,9 +165,31 @@ def test_report_lines_printed_by_rank_0(run):
         assert f"[rank 1] {line}" not in out, line
 
 
-def test_moe_on_a_model_axis_refused_naming_item_18(run):
+def test_moe_on_a_model_axis_matches_jax(run):
+    """``MOE_EVERY=2`` at ``expert=2, model=2``: the first step's loss
+    (every rank of the one data shard holds the whole batch; the objective
+    with the sown load-balance loss, as both trainers log it) equals JAX's
+    MoE model on the batch the twin fed, from the twin's seed-0 weights."""
+    import jax.numpy as jnp
+    from horovod_tpu.models import transformer as jtr
+    from horovod_tpu_torch.models import transformer as ttr
+    from horovod_tpu_torch.models.convert import params_to_flax
+
+    cfg = dict(vocab_size=int(KNOBS["VOCAB"]), d_model=int(KNOBS["DMODEL"]),
+               n_heads=8, n_layers=int(KNOBS["NLAYERS"]), dropout=0.0,
+               moe_every=2, n_experts=4)
+    tm = ttr.TransformerLM(**cfg, device="cpu")  # the twin's weights
+    params = params_to_flax(tm.state_dict(), n_heads=cfg["n_heads"])
     for res in run["ranks"]:
-        assert "item 18" in str(res["moe_refusal"])
+        x, y = res["moe_model.first_x"], res["moe_model.first_y"]
+        logits, sown = jtr.TransformerLM(**cfg).apply(
+            {"params": params}, jnp.asarray(x), train=True,
+            mutable=["losses"], rngs={"dropout": jax.random.PRNGKey(0)})
+        logp = np.asarray(jax.nn.log_softmax(logits, -1))
+        want = float(-np.take_along_axis(logp, y[..., None], -1).mean())
+        want += sum(float(v) for v in jax.tree.leaves(sown["losses"]))
+        got = float(res["moe_model.first_loss"])
+        assert abs(got - want) <= 1e-5 * abs(want), (got, want)
 
 
 @pytest.mark.parametrize("n,seed", [(4096, 0), (64, 99)])

@@ -13,8 +13,10 @@ JAX package's `Seq2SeqTransformer`, at ``tests/test_seq2seq.py``'s sizes
   token and to the teacher-forced argmax; the eos fill; a sampled run in
   range;
 * JAX's five errors, word for word;
-* `param_specs` against JAX's on a ``data=4, model=2`` mesh, and a live
-  ``model`` axis refused naming ROADMAP item 18;
+* `param_specs` against JAX's on a ``data=4, model=2`` mesh, and a model
+  built on that mesh holding, on every rank, its part of the one-rank
+  weights under those placements (its compute on the mesh is
+  tests/test_torch_seq2seq_tp.py's);
 * three SGD Trainer steps on dict batches against JAX's Trainer: the
   losses, then the parameters (SGD: Adam's g / (|g| + eps) would turn the
   rounding of near-zero gradient elements, common at this width, into
@@ -43,6 +45,7 @@ from horovod_tpu_torch.models import seq2seq as tseq
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.models.convert import (
     seq2seq_kernels, seq2seq_params_from_flax, seq2seq_params_to_flax,
+    shard_state_dict,
 )
 from horovod_tpu_torch.parallel import mesh as tmesh
 
@@ -247,7 +250,7 @@ def test_errors_word_for_word():
         tm, max_new_tokens=0, bos_id=BOS)) == want
 
 
-def test_param_specs_match_jax_and_live_model_axis_is_refused():
+def test_param_specs_match_jax_and_live_model_axis_is_cut():
     batch = _batch(10)
     _, params, tm = _pair(batch)
     jm_ = jmesh.build_mesh(jmesh.MeshSpec(data=4, model=2))
@@ -272,11 +275,20 @@ def test_param_specs_match_jax_and_live_model_axis_is_refused():
     # qkv, attn_out, mlp_up, mlp_down a block, cross_q/kv/out a decoder
     # block, and the LM head.
     assert sharded == 4 * 4 + 3 * 2 + 1
-    # The placements are live; the seq2seq model refuses the axis.
-    assert len(ttr.live_placements(tspecs, tm_)) == sharded
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tseq.Seq2SeqTransformer(**CFG, device="cpu",
-                                sharding=ttr.ShardingConfig(mesh=tm_))
+    # The placements are live, and the model built on the mesh holds its
+    # part of the one-rank weights under them on every rank.
+    live = ttr.live_placements(tspecs, tm_)
+    assert len(live) == sharded
+    one = tseq.Seq2SeqTransformer(**CFG, device="cpu", seed=3)
+    for r in range(8):
+        mesh = tmesh.build_mesh(tmesh.MeshSpec(data=4, model=2), n_ranks=8,
+                                rank=r)
+        cut = tseq.Seq2SeqTransformer(**CFG, device="cpu", seed=3,
+                                      sharding=ttr.ShardingConfig(mesh=mesh))
+        assert cut.cuts == live
+        want = shard_state_dict(one.state_dict(), mesh, live)
+        for name, t in cut.state_dict().items():
+            assert torch.equal(t, want[name]), (r, name)
 
 
 def test_trainer_steps_on_dict_batches_match_jax():

@@ -9,8 +9,13 @@ on the same knobs from the same weights (the twin's seed-0 weights through
 * its tokenizer file and its encoded ``(src, tgt_in, labels)`` arrays are
   byte-equal to the JAX script's;
 * its first step's loss (before any update) equals the JAX script's;
-* ``HVT_MESH="data=4,model=2"`` raises naming ROADMAP item 18, and the twin
-  refuses to fall back to the CPU silently (`tests/test_torch_isolation.py`).
+* on the JAX script's own kind of mesh, ``HVT_MESH="data=2,model=2"`` at
+  four gloo ranks through the port's launcher (the model in its Megatron
+  cut, decoding on ``clone(sharding=ShardingConfig())``), its first
+  step's loss over the global batch equals JAX's model's on the data
+  shards' first batches from the same weights, and rank 0 prints the
+  script's lines; the twin refuses to fall back to the CPU
+  silently (`tests/test_torch_isolation.py`).
 
 Tolerance: both scripts compute in f32; the first loss within 1e-5
 relative.
@@ -24,12 +29,14 @@ import signal
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 
 from horovod_tpu.data.tokenizer import ByteBPETokenizer as JTok
 from horovod_tpu_torch.data.tokenizer import ByteBPETokenizer as TTok
 from horovod_tpu_torch.examples import seq2seq_translation as twin_mod
+from horovod_tpu_torch.parallel import mesh as tmesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TWIN = os.path.join(REPO, "horovod_tpu_torch", "examples",
@@ -60,15 +67,41 @@ fit = hvt.Trainer.fit
 
 
 def recorded_fit(self, *args, **kwargs):
-    np.savez(os.environ["WEIGHTS"], tree=np.array(seq2seq_params_to_flax(
-        self.module.state_dict(), self.module), dtype=object))
+    if "WEIGHTS" in os.environ:
+        np.savez(os.environ["WEIGHTS"], tree=np.array(seq2seq_params_to_flax(
+            self.module.state_dict(), self.module), dtype=object))
     kwargs["callbacks"] = list(kwargs.get("callbacks", [])) + [First()]
     return fit(self, *args, **kwargs)
 
 
 hvt.Trainer.fit = recorded_fit
+if "FIRST_BATCH" in os.environ:
+    # Keep this rank's first training batch, as the feed hands it over.
+    import pickle
+    from horovod_tpu_torch.training import feeding
+    pipeline = feeding.training_pipeline
+
+    def kept(*args, **kwargs):
+        it, close = pipeline(*args, **kwargs)
+
+        def batches():
+            for i, b in enumerate(it):
+                if i == 0:
+                    with open(os.environ["FIRST_BATCH"]
+                              + f".{hvt.rank()}.pkl", "wb") as f:
+                        pickle.dump(b, f)
+                yield b
+        return batches(), close
+
+    feeding.training_pipeline = kept
 twin.main()
-print("FIRST", json.dumps(first), flush=True)
+if hvt.size() > 1:
+    # The global batch's loss: the mean of the ranks' (equal row counts;
+    # the model ranks of a data shard report the same).
+    from horovod_tpu_torch.parallel import collectives
+    first = [float(collectives.allreduce(np.array(first, np.float64))[0])]
+if hvt.is_primary():
+    print("FIRST", json.dumps(first), flush=True)
 '''
 
 JAX_CHILD = r'''
@@ -125,9 +158,13 @@ def test_twin_reads_the_reference_knobs():
 
 
 def _run(cmd, env):
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    return _wait(subprocess.Popen(cmd, cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  start_new_session=True))
+
+
+def _wait(proc):
     try:
         out, _ = proc.communicate(timeout=TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -158,17 +195,43 @@ def _jax_example():
     return mod
 
 
-def test_twin_prints_the_jax_lines_from_the_same_data(tmp_path):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The twin alone, the twin at ``data=2, model=2`` on four launched
+    ranks (started first, running beside the others; each rank keeps its
+    first batch), and the JAX script from the lone twin's weights: each
+    one's output."""
+    tmp = tmp_path_factory.mktemp("seq2seq_example")
     base = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2", **KNOBS)
-    weights = str(tmp_path / "weights.npz")
-    t_out = _run([sys.executable, "-c", TWIN_CHILD], dict(
-        base, HVT_DEVICE="cpu", WEIGHTS=weights,
-        PS_MODEL_PATH=str(tmp_path / "twin")))
-    j_env = dict(base, WEIGHTS=weights, SCRIPT=REF, JAX_PLATFORMS="cpu",
-                 PS_MODEL_PATH=str(tmp_path / "jax"))
-    j_env["XLA_FLAGS"] = re.sub(r"--xla_force_host_platform_device_count=\d+",
-                                "", j_env.get("XLA_FLAGS", ""))
-    j_out = _run([sys.executable, "-c", JAX_CHILD], j_env)
+    tp = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.launch", "run", "--nprocs",
+         "4", "--", sys.executable, "-c", TWIN_CHILD],
+        cwd=REPO, env=dict(base, OMP_NUM_THREADS="1", HVT_DEVICE="cpu",
+                           HVT_MESH="data=2,model=2",
+                           FIRST_BATCH=str(tmp / "first"),
+                           PS_MODEL_PATH=str(tmp / "tp")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        weights = str(tmp / "weights.npz")
+        t_out = _run([sys.executable, "-c", TWIN_CHILD], dict(
+            base, HVT_DEVICE="cpu", WEIGHTS=weights,
+            PS_MODEL_PATH=str(tmp / "twin")))
+        j_env = dict(base, WEIGHTS=weights, SCRIPT=REF, JAX_PLATFORMS="cpu",
+                     PS_MODEL_PATH=str(tmp / "jax"))
+        j_env["XLA_FLAGS"] = re.sub(
+            r"--xla_force_host_platform_device_count=\d+", "",
+            j_env.get("XLA_FLAGS", ""))
+        j_out = _run([sys.executable, "-c", JAX_CHILD], j_env)
+    except BaseException:
+        os.killpg(tp.pid, signal.SIGKILL)
+        raise
+    tp_out = _wait(tp)
+    return dict(tmp=tmp, twin=t_out, jax=j_out, tp=tp_out)
+
+
+def test_twin_prints_the_jax_lines_from_the_same_data(runs):
+    tmp_path, t_out, j_out = runs["tmp"], runs["twin"], runs["jax"]
     t_lines, j_lines = _lines(t_out), _lines(j_out)
     assert [ln.split(":")[0].split(" ")[0] for ln in t_lines] == \
         [ln.split(":")[0].split(" ")[0] for ln in j_lines]
@@ -195,8 +258,48 @@ def test_twin_prints_the_jax_lines_from_the_same_data(tmp_path):
         got, want)
 
 
-def test_a_live_model_axis_is_refused(monkeypatch):
-    monkeypatch.setenv("HVT_MESH", "data=4,model=2")
-    monkeypatch.setenv("HVT_DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        twin_mod.main()
+def _jax_loss(tree, batches):
+    """JAX's model (the twin's configuration, from ``tree``) on the
+    concatenated batches: the mean token cross-entropy (the scripts'
+    ``sparse_categorical_crossentropy``)."""
+    from horovod_tpu.models import seq2seq as jseq
+
+    vocab, d = tree["encoder"]["embed"]["embedding"].shape
+    jm = jseq.Seq2SeqTransformer(vocab_size=vocab, d_model=d, n_heads=4,
+                                 n_enc_layers=2, n_dec_layers=2, dropout=0.0,
+                                 pad_id=0)
+    x = {k: np.concatenate([b[0][k] for b in batches]) for k in ("src",
+                                                                 "tgt")}
+    y = np.concatenate([b[1] for b in batches])
+    logits = jm.apply({"params": tree}, x)
+    logp = jax.nn.log_softmax(logits.astype(np.float32), -1)
+    return float(-np.take_along_axis(np.asarray(logp), y[..., None],
+                                     -1).mean())
+
+
+def test_a_live_model_axis_matches_jax(runs):
+    """The JAX script's ``data=4,model=2`` kind of mesh at four ranks
+    (one process a rank: each data shard feeds its own batches, as JAX's
+    processes do): the first step's loss over the global batch equals
+    JAX's model's on the data shards' first batches, from the same
+    weights; rank 0 (only) prints the script's lines."""
+    import pickle
+
+    tree = np.load(runs["tmp"] / "weights.npz",
+                   allow_pickle=True)["tree"].item()
+    shards = {}
+    for r in range(4):
+        mesh = tmesh.build_mesh(tmesh.MeshSpec(data=2, model=2), n_ranks=4,
+                                rank=r)
+        with open(runs["tmp"] / f"first.{r}.pkl", "rb") as f:
+            shards.setdefault(mesh.data_index, pickle.load(f))
+    want = _jax_loss(tree, [shards[i] for i in sorted(shards)])
+    got = _first(runs["tp"])
+    assert len(got) == 1
+    assert abs(got[0] - want) <= FIRST_LOSS_RTOL * abs(want), (got, want)
+    lines = [ln.split("] ", 1)[1] for ln in runs["tp"].splitlines()
+             if ln.startswith("[rank 0] ")]
+    assert [ln.split(":")[0].split(" ")[0] for ln in _lines(
+        "\n".join(lines))] == [ln.split(":")[0].split(" ")[0]
+                               for ln in _lines(runs["jax"])]
+    assert "[rank 1] REVERSAL" not in runs["tp"]

@@ -27,10 +27,12 @@ second).
   the members' gradients, ``"slice"`` keeps this member's own;
 * the decode cache at ``[B, L, H_kv/tp, D]``;
 * JAX's two ``ValueError``s word for word; MoE, int8 weights and caches,
-  LoRA and seq2seq on a live ``model`` axis (and MoE, ``int8_compute``
-  and seq2seq on a live ``fsdp`` axis) refused naming ROADMAP item 18; a
-  live ``pipe`` axis carried (the model replicated over it), and a
-  pipelined model on pp × sp built with its stage's rows;
+  LoRA and seq2seq on a live ``model`` axis (and MoE, ``int8_compute``,
+  LoRA and seq2seq on a live ``fsdp`` axis), once refused naming ROADMAP
+  item 18, computing the one-rank model's function (their full parity
+  with JAX is tests/test_torch_{moe,int8,seq2seq,lora}_tp.py's); a live
+  ``pipe`` axis carried (the model replicated over it), and a pipelined
+  model on pp × sp built with its stage's rows;
 * the serving and generation exports of a model held in its
   ``fsdp=2,model=2`` cut, gathered inside by every rank, equal to the
   one-rank model (JAX's ``TestExportFromShardedState``).
@@ -64,6 +66,7 @@ from horovod_tpu_torch.models.convert import (
     params_from_flax, params_to_flax, shard_state_dict,
 )
 from horovod_tpu_torch.parallel import mesh as tmesh
+from horovod_tpu_torch.parallel import sharding as shard_lib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 150
@@ -187,6 +190,57 @@ res["export.serving"] = checkpoint.export_serving(
 res["export.generate"] = export_generate(
     os.path.join(out, "generate"), model, batch_size=2, prompt_len=8,
     max_new_tokens=4, timestamp="19700101-000000")
+# Item 18's modules on a live model or fsdp axis, each as its one-rank
+# self (`ITEM_18_CASES`): prefill logits for the MoE LM (decode treats
+# its tokens as the whole batch), int8 logits, int8-cache tokens, this
+# rank's quantized tree, LoRA and seq2seq logits.
+from horovod_tpu_torch.models import lora, quant, seq2seq as tseq
+from horovod_tpu_torch.models.decoding import make_generate_fn
+from horovod_tpu_torch.parallel import sharding as shard_lib
+meshes = {t: tmesh.build_mesh(tmesh.MeshSpec.from_string(t))
+          for t in ("data=2,model=2", "data=2,fsdp=2")}
+x0 = torch.from_numpy(data["x"][0])
+s2s = dict(vocab_size=cfg["vocab_size"], d_model=32, n_heads=4,
+           n_enc_layers=1, n_dec_layers=1, dropout=0.0)
+
+
+def lm(tag, **kw):
+    return ttr.TransformerLM(**cfg, **kw, device="cpu", seed=4,
+                             sharding=ttr.ShardingConfig(mesh=meshes[tag]))
+
+
+with torch.no_grad():
+    for case, tag in (("moe_model", "data=2,model=2"),
+                      ("moe_fsdp", "data=2,fsdp=2")):
+        res["i18." + case] = lm(tag, moe_every=2, n_experts=4).decode(
+            x0, max_decode_len=x0.shape[1])[0].numpy()
+    for case, tag in (("int8_compute_model", "data=2,model=2"),
+                      ("int8_compute_fsdp", "data=2,fsdp=2")):
+        res["i18." + case] = lm(tag, int8_compute=True)(x0).numpy()
+    res["i18.clone_int8_model"] = lm("data=2,model=2").clone(
+        int8_compute=True)(x0).numpy()
+    res["i18.quantized_cache_model"] = make_generate_fn(
+        lm("data=2,model=2"), max_new_tokens=4, quantized_cache=True)(
+        x0[:, :8]).numpy()
+    m = lm("data=2,model=2")
+    mesh2 = meshes["data=2,model=2"]
+    specs = ttr.live_placements(ttr.param_specs(m, mesh2), mesh2)
+    for n, leaf in quant.quantize_params(m, min_size=16).items():
+        if quant.is_qleaf(leaf):
+            res["i18.quantize_params_model." + n] = leaf["int8_q"].numpy()
+    for case, tag in (("lora_model", "data=2,model=2"),
+                      ("lora_fsdp", "data=2,fsdp=2")):
+        model = lora.LoRAModel(lm(tag), rank=2)
+        for ab in model.adapters().values():
+            ab["b"].fill_(0.05)  # a delta in the forward
+        res["i18." + case] = model(x0).numpy()
+    for case, tag in (("seq2seq_model", "data=2,model=2"),
+                      ("seq2seq_fsdp", "data=2,fsdp=2")):
+        model = tseq.Seq2SeqTransformer(
+            **s2s, device="cpu", seed=4,
+            sharding=ttr.ShardingConfig(mesh=meshes[tag]))
+        res["i18." + case] = model({"src": x0, "tgt": x0}).numpy()
+
 np.savez(os.path.join(out, f"rank{r}.npz"), **res)
 '''
 
@@ -466,29 +520,75 @@ def _lm(spec, **kw):
                              sharding=ttr.ShardingConfig(mesh=_layout(spec, 2)))
 
 
-REFUSALS = {
-    "moe_model": lambda: _lm("model=2", moe_every=2, n_experts=4),
-    "moe_fsdp": lambda: _lm("fsdp=2", moe_every=2, n_experts=4),
-    "int8_compute_model": lambda: _lm("model=2", int8_compute=True),
-    "int8_compute_fsdp": lambda: _lm("fsdp=2", int8_compute=True),
-    "quantized_cache_model": lambda: _lm("model=2", quantized_cache=True),
-    "clone_int8_model": lambda: _lm("model=2").clone(int8_compute=True),
-    "quantize_params_model": lambda: quant.quantize_params(_lm("model=2")),
-    "lora_model": lambda: lora.LoRAModel(_lm("model=2"), rank=2),
-    "lora_fsdp": lambda: lora.LoRAModel(_lm("fsdp=2"), rank=2),
-    "seq2seq_model": lambda: tseq.Seq2SeqTransformer(
-        vocab_size=VOCAB, d_model=32, n_heads=4, device="cpu",
-        sharding=ttr.ShardingConfig(mesh=_layout("model=2", 2))),
-    "seq2seq_fsdp": lambda: tseq.Seq2SeqTransformer(
-        vocab_size=VOCAB, d_model=32, n_heads=4, device="cpu",
-        sharding=ttr.ShardingConfig(mesh=_layout("fsdp=2", 2))),
-}
+def _one_rank_case(name, x):
+    """Case ``name`` of the launched ranks' item-18 section at one rank."""
+    from horovod_tpu_torch.models.decoding import make_generate_fn
+
+    def lm(**kw):
+        return ttr.TransformerLM(**CFG, **kw, device="cpu", seed=4)
+
+    x = torch.from_numpy(x)
+    s2s = dict(vocab_size=VOCAB, d_model=32, n_heads=4, n_enc_layers=1,
+               n_dec_layers=1, dropout=0.0)
+    with torch.no_grad():
+        if name.startswith("moe_"):
+            return lm(moe_every=2, n_experts=4).decode(
+                x, max_decode_len=T)[0].numpy()
+        if name.startswith("int8_compute_"):
+            return lm(int8_compute=True)(x).numpy()
+        if name == "clone_int8_model":
+            return lm().clone(int8_compute=True)(x).numpy()
+        if name == "quantized_cache_model":
+            return make_generate_fn(lm(), max_new_tokens=4,
+                                    quantized_cache=True)(x[:, :8]).numpy()
+        if name == "quantize_params_model":
+            return quant.quantize_params(lm(), min_size=16)
+        if name.startswith("lora_"):
+            model = lora.LoRAModel(lm(), rank=2)
+            for ab in model.adapters().values():
+                ab["b"].fill_(0.05)
+            return model(x).numpy()
+        return tseq.Seq2SeqTransformer(**s2s, device="cpu", seed=4)(
+            {"src": x, "tgt": x}).numpy()
 
 
-@pytest.mark.parametrize("name", list(REFUSALS))
-def test_item_18_refusals(name):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        REFUSALS[name]()
+ITEM_18_CASES = ("moe_model", "moe_fsdp", "int8_compute_model",
+                 "int8_compute_fsdp", "quantized_cache_model",
+                 "clone_int8_model", "quantize_params_model", "lora_model",
+                 "lora_fsdp", "seq2seq_model", "seq2seq_fsdp")
+
+
+@pytest.mark.parametrize("name", ITEM_18_CASES)
+def test_item_18_runs_as_one_rank(run, name):
+    """What the port once refused naming ROADMAP item 18 runs on a live
+    ``model`` or ``fsdp`` axis, each rank computing the one-rank model's
+    function: logits within 1e-5 relative (int8 within
+    tests/test_torch_quant.py's 1e-5 abs), tokens and int8 values
+    exactly — each rank's quantized values its part of the one-rank
+    tree's."""
+    want = _one_rank_case(name, run["data"]["x"][0])
+    for r, res in enumerate(run["ranks"]):
+        if name == "quantize_params_model":
+            mesh = tmesh.build_mesh(tmesh.MeshSpec(data=2, model=2),
+                                    n_ranks=NPROCS, rank=r)
+            one = ttr.TransformerLM(**CFG, device="cpu", seed=4)
+            specs = ttr.live_placements(ttr.param_specs(one, mesh), mesh)
+            n_q = 0
+            for n, leaf in want.items():
+                if quant.is_qleaf(leaf):
+                    part = shard_lib.shard_tensor(leaf["int8_q"], n,
+                                                  specs.get(n, {}), mesh)
+                    np.testing.assert_array_equal(
+                        res[f"i18.{name}.{n}"], part.numpy(), err_msg=n)
+                    n_q += 1
+            assert n_q >= 5 * CFG["n_layers"]
+        elif name == "quantized_cache_model":
+            np.testing.assert_array_equal(res["i18." + name], want)
+        elif "int8" in name:
+            np.testing.assert_allclose(res["i18." + name], want, rtol=0,
+                                       atol=1e-5)
+        else:
+            _rel_close(res["i18." + name], want, name)
 
 
 def test_pipe_axis_refused_naming_12_4():
