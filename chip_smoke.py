@@ -58,7 +58,7 @@ Phases (any failed check exits non-zero before the result line):
    intact; images/s, warmup scales and peak memory are printed;
 9. ``mnist_tf1`` — the twin of the TF1 MNIST script (Adadelta(1.0 × size),
    per-epoch validation, final evaluate, save/reload, serving export) at
-   ``--nprocs 1``, 12 epochs on 60k/10k unless cut (``MNIST_TF1_CUT``: 3).
+   ``--nprocs 1``, 12 epochs on 60k/10k unless cut (``MNIST_TF1_CUT``: 2).
    It fails unless the mean of the
    ``loss`` records in ``metrics.jsonl`` lies in [0, 0.3] (the CI gate); a
    resume from the newest checkpoint restores the script's final training
@@ -193,7 +193,7 @@ Phases (any failed check exits non-zero before the result line):
       against the dense reduction cut locally, bit for bit, on the f32 and
       bf16 wires (``phase15a``);
    b. the bench LM at full width (phase 6's data, 4 × 1024 rows a rank,
-      K = 2, ``fit(dataset=)`` with graph replays, 12 steps) from one
+      K = 2, ``fit(dataset=)`` with graph replays, 8 steps) from one
       seed: (i) f32 replicated, (ii) int8 replicated, (iii) int8 ZeRO-1
       with the overlap on and off, (iv) fp8 ZeRO-1. (iii) must equal (ii)
       bit for bit (parameters, gathered optimizer state, residual rows),
@@ -355,11 +355,36 @@ Phases (any failed check exits non-zero before the result line):
       eager steps each, against one rank running the same microbatches:
       (b)'s gates, and the first batch's load-balance loss and every drop
       rate within 1e-3 of one rank's;
-22. the ``kernels`` JSON line (``phase_seconds`` before it), then the last
+22. the ``model`` and ``fsdp`` axes in MoE, int8, seq2seq and LoRA
+   (``phase22*`` lines; the phase's comment block says what each holds);
+23. MoE dispatch groups across data and sequence shards (no new kernel:
+   the routing decisions gathered and the shares summed over the gradient
+   group, around B1-B3), each part a ``phase23*`` line with the card, two
+   gloo ranks sharing the card (launched beside 15a-b, joined here), each
+   against one rank's steps:
+   a. the bench MoE LM (bf16, fused-CE head, AdamW) at ``data=1,seq=2`` on
+      the flash ring, 2 eager steps of 8 × 1024 (every dispatch group, a
+      row, across both ranks): the losses within one bf16 ulp, the drop
+      rates within 1e-3, B1-B3 launched 8 layers × hops × steps a rank,
+      all tc, the parameters bit-equal, the routing bytes and collectives;
+   b. the same model in f32 at ``data=2`` with ``[2, 768]`` a rank (JAX's
+      middle group of 1 024 across the shards): 21e's gates on the first
+      gradient, the aux loss, the drop rate, the losses and the updates;
+      then one expert-choice step, its ``moe_uncovered_rate`` included;
+24. the ``kernels`` JSON line (before it ``phase_seconds``,
+   ``phase_cpu_seconds``, ``launch_cost``: each launch's wall and the CPU
+   seconds of its processes, and ``host_cpu_seconds``), then the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 9 reads the script's feed and fails unless ``fit(x=, y=)`` ran on
 the native batch engine, as the JAX tf1 script does where g++ builds it.
+
+The order on one card: phases 1-7 alone; 8's launch and 11's CI job
+beside 9; 12b-d beside the launches of 20b-c, 21b, 21d and 22b-e; 13
+and 14 alone; then the launched checks whose figures no gate times (16,
+15c, 17d, 18b, 13g, 19d's twin and 23a-b) beside 15a-b and 17-23
+(``checks_lane``). A figure taken beside others is that of a shared card
+and host.
 
 ``python3 chip_smoke.py --ranks N`` (N cards) runs only phases 8, 9,
 11's launch (the CI job at N ranks), 12a with its breakdown and 12b, 16d
@@ -401,6 +426,12 @@ model's bubble (S − 1)/(v·T + S − 1); then the MoE pipeline at
 drop rates); then the twin at ``HVT_MESH="data=1,pipe=2,model=2"`` and at
 ``"data=1,pipe=2,seq=2"``, both with ``SCHEDULE=1f1b``, each printing its
 recall report.
+23c (``--ranks 4`` last; alone with ``--moe-grouping-only``) trains the
+bench MoE LM at ``data=1,seq=2,expert=2`` on NCCL, captured steps, and
+the twin with ``MOE_EVERY=2 N_EXPERTS=4`` at ``data=2,seq=2``, which must
+print ``LEARNED``: ms a step, tokens/s a card, the busy share of 5
+profiled replays, the routing bytes and collectives a step, and the MoE
+layers' share of the device time.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result. Everything it writes goes under ``build/chip_smoke/``.
@@ -476,9 +507,10 @@ MNIST_BATCH = 128
 # The full tf2 budget took 122 s on the H100 (24 epochs at ~3.2 s and
 # ~45 s of process start, data synthesis and checkpoints), tf1's 80 s
 # (val_accuracy 1.0 from its first epoch on the synthetic set). Cut to 2
-# and 3 epochs, so that the whole smoke stays inside its time limit.
+# epochs each (tf1 from 3 since phase 23 joined), so that the
+# whole smoke stays inside its time limit.
 MNIST_TF2_CUT = {"DRIVE_EPOCHS": "2"}
-MNIST_TF1_CUT = {"DRIVE_EPOCHS": "3"}
+MNIST_TF1_CUT = {"DRIVE_EPOCHS": "2"}
 MNIST_2RANK_CUT = {"DRIVE_STEPS": "20", "DRIVE_EPOCHS": "3"}
 CI_LOSS_GATE = (0.0, 0.3)  # launch/jobs/mnist-ci.yaml's loss range
 # Phase 11 runs the port's CI job spec through `launch job` (16a).
@@ -530,7 +562,7 @@ VIT_CUT = {"ARCH": "vit", "DRIVE_STEPS": "100", "DRIVE_EPOCHS": "2"}
 # card, REDUCTION_ROWS × TRAIN_SEQ rows a microbatch, REDUCTION_K
 # microbatches a step, REDUCTION_STEPS steps (one eager, one capture,
 # replays); step ms is the median of steps 3 .. REDUCTION_STEPS.
-REDUCTION_RANKS, REDUCTION_ROWS, REDUCTION_K, REDUCTION_STEPS = 2, 4, 2, 12
+REDUCTION_RANKS, REDUCTION_ROWS, REDUCTION_K, REDUCTION_STEPS = 2, 4, 2, 8
 # The quantized runs' losses against the f32 control's at every step,
 # stated before the first run on the card: 1 % of the control's loss. The
 # CPU tests' int8 and fp8 trajectories of a 2-layer LM stay within 0.04 %
@@ -561,8 +593,16 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(*parts):
-    print(*parts, flush=True)
+    """One whole line on stdout: threads that run checks beside the
+    foreground log too, and their lines must not interleave."""
+    line = " ".join(map(str, parts)) + "\n"
+    with _LOG_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -1281,18 +1321,40 @@ def main_path(torch):
     return launches
 
 
+def profile_events(torch, prof):
+    """(name, device type, µs, user annotation?) of each event a
+    `torch.profiler` run recorded, read from its raw kineto results: the
+    events ``prof.events()`` lists, without the tree of function events it
+    builds first (tens of seconds for the ~300 000 events of an eager
+    decode)."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        out.append((e.name(), e.device_type(), e.duration_ns() / 1e3,
+                    e.is_user_annotation()))
+    return out
+
+
+def host_calls(torch, prof):
+    """The names of the host-side events of a `torch.profiler` run."""
+    cpu = torch.autograd.DeviceType.CPU
+    return [name for name, dev, _, _ in profile_events(torch, prof)
+            if dev == cpu]
+
+
 def device_kernels(torch, prof):
     """The kernels a `torch.profiler` run saw on the card, and their device
     ms summed by name. User annotations (``Optimizer.step#...`` ranges on
     the device timeline) are spans over kernels, not kernels: left out so
     that busy time is not counted twice."""
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in profile_events(torch, prof)
+               if e[1] == cuda and not e[3]]
     by_name = {}
-    for e in kernels:
-        name = e.name.replace("(anonymous namespace)::", "")
-        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, _, us, _ in kernels:
+        name = name.replace("(anonymous namespace)::", "")
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
     return kernels, by_name
 
 
@@ -1499,8 +1561,7 @@ def _per_step(torch, prof, window, host_ms):
     """Device busy time, launches and top kernels a step of a profiled
     window of ``window`` steps."""
     kernels, by_name = device_kernels(torch, prof)
-    calls = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CPU]
+    calls = host_calls(torch, prof)
     busy = sum(by_name.values()) / window
     return {
         "device_busy_ms_per_step": busy if kernels else "not measured",
@@ -1708,8 +1769,6 @@ def _launch(name, nprocs, script, knobs, timeout=MNIST_TIMEOUT_S,
     Returns (output lines, wall seconds,
     launch wall-clock time, model path); the whole output is kept in
     WORK/<name>.log."""
-    import signal
-
     model_path = os.path.join(WORK, name)
     env = dict(os.environ, PS_MODEL_PATH=model_path,
                HVT_DATA_DIR=os.path.join(WORK, "data"),
@@ -1738,19 +1797,38 @@ def _launch(name, nprocs, script, knobs, timeout=MNIST_TIMEOUT_S,
 
     reader = threading.Thread(target=read, daemon=True)
     reader.start()
-    try:
-        proc.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
+    usage = _wait_usage(proc, timeout)
     reader.join(timeout=30)
     wall = time.perf_counter() - t0
+    with _LOG_LOCK:
+        LAUNCH_COST[name] = {"wall_s": round(wall, 1), "cpu_s": usage}
     with open(os.path.join(WORK, f"{name}.log"), "w") as f:
         f.write("\n".join(lines) + "\n")
     check(proc.returncode == 0,
           f"{name}: the launch exited {proc.returncode}; last lines:\n"
           + "\n".join(lines[-15:]))
     return lines, wall, started, model_path
+
+
+# Each launch's wall seconds and the host CPU seconds of its process tree
+# (user + system, the launcher and the ranks it waited for), printed as the
+# ``launch_cost`` line: what a host with fewer free cores pays for.
+LAUNCH_COST: dict = {}
+
+
+def _wait_usage(proc, timeout):
+    """Wait for ``proc`` (killing its process group after ``timeout`` s)
+    and return the CPU seconds it and the children it reaped used."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        pid, status, ru = os.wait4(proc.pid, os.WNOHANG)
+        if pid:
+            proc.returncode = os.waitstatus_to_exitcode(status)
+            return round(ru.ru_utime + ru.ru_stime, 1)
+        if time.perf_counter() > deadline:
+            os.killpg(proc.pid, signal.SIGKILL)
+            deadline = math.inf
+        time.sleep(0.05)
 
 
 def _rank_line(lines, prefix, rank=0):
@@ -2441,6 +2519,27 @@ def _cifar_summary(name, lines, model_path, nprocs, steps):
     }
 
 
+def cifar_data_start():
+    """Write the CIFAR-10 stand-in the 12a twin's rank 0 reads (WORK/data,
+    the launches' dataset cache) in a process of its own while phases 8-11
+    run: its synthesis and compression are host work 12a's launch would
+    otherwise wait for. The twin reads the same bytes either way (the
+    synthesis is seeded). `cifar_data_join` waits for it."""
+    code = ("from horovod_tpu_torch.data import datasets; "
+            "datasets.cifar10(path='cifar10-0.npz', cache_dir="
+            f"{os.path.join(WORK, 'data')!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def cifar_data_join(proc):
+    _, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0,
+          f"the CIFAR-10 stand-in's synthesis exited {proc.returncode}: "
+          f"{err[-2000:]}")
+
+
 def cifar_resnet(torch, nprocs=1, cut=None):
     """12a: the ResNet-20 twin at ``nprocs`` NCCL ranks (one card each), the
     reference budget (390 // nprocs steps × 24 epochs at 128 a rank) unless
@@ -2745,8 +2844,7 @@ def _decode_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
     kernels, by_name = device_kernels(torch, prof)
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CPU]
+    names = host_calls(torch, prof)
     launches = sum(1 for n in names if n in ("cudaLaunchKernel",
                                              "cudaLaunchKernelExC",
                                              "cuLaunchKernel",
@@ -3162,24 +3260,33 @@ def decode_twin(torch):
 
 def decode_phase(torch):
     """Phase 13: the decode family at the bench LM's width (bf16, random
-    weights from seed 0, batch 8 × prompt 128)."""
+    weights from seed 0, batch 8 × prompt 128); 13g, a launched check, runs
+    in the checks' lane (`checks_lane`)."""
     from horovod_tpu_torch.models.transformer import TransformerLM
 
     t0 = time.perf_counter()
     model = TransformerLM(**MODEL, compute_dtype=torch.bfloat16,
                           device=DEVICE, seed=0)
     prompt = _prompt_batch(torch, 0)
-    res = {}
-    res["generate"], toks = decode_generate(torch, model, prompt)
-    res["speculative"] = decode_speculative(torch, model, prompt,
-                                            toks["greedy"])
-    res["beam"] = decode_beam(torch, model, prompt)
-    res["int8"] = decode_int8(torch, model, prompt, toks["greedy"])
-    res["ring"] = decode_ring(torch, model, prompt)
-    res["bundle"] = decode_bundle(torch, model)
-    res["twin"] = decode_twin(torch)
-    res["window_sinks_prefill"] = window_sinks_timing(torch)
-    log(f"decode phase seconds: {time.perf_counter() - t0:.1f}")
+    res, parts, last = {}, {}, [time.perf_counter()]
+
+    def part(name, value):
+        now = time.perf_counter()
+        parts[name] = round(now - last[0], 1)
+        last[0] = now
+        return value
+
+    res["generate"], toks = part("13a", decode_generate(torch, model, prompt))
+    res["speculative"] = part("13b", decode_speculative(
+        torch, model, prompt, toks["greedy"]))
+    res["beam"] = part("13c", decode_beam(torch, model, prompt))
+    res["int8"] = part("13d", decode_int8(torch, model, prompt,
+                                          toks["greedy"]))
+    res["ring"] = part("13e", decode_ring(torch, model, prompt))
+    res["bundle"] = part("13f", decode_bundle(torch, model))
+    res["window_sinks_prefill"] = part("time", window_sinks_timing(torch))
+    log(f"decode phase seconds: {time.perf_counter() - t0:.1f}",
+        json.dumps(parts))
     return res
 
 
@@ -4143,20 +4250,25 @@ def reduction_twin(torch, nprocs):
 
 
 def reduction_phase(torch, card):
-    """Phase 15: the sharded and quantized reduction on the card."""
+    """Phase 15: the sharded and quantized reduction on the card (15a-b;
+    15c is `reduction_twins`)."""
     t0 = time.perf_counter()
     res = reduction_runs(torch, card, REDUCTION_RANKS,
                          ["i_f32", "ii_int8", "iii_int8_zero1_overlap",
                           "iii_int8_zero1", "iv_fp8_zero1"], "gloo",
                          with_15a=True)
-    # The two twins are checks of the int8 wire and its resume: they share
-    # the card at once (their images/s are not those of a twin alone).
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        twins = [pool.submit(reduction_twin, torch, n) for n in (1, 2)]
-        res["twin_1"], res["twin_2"] = (t.result() for t in twins)
     res["seconds"] = time.perf_counter() - t0
     log(f"reduction phase seconds: {res['seconds']:.1f}")
     return res
+
+
+def reduction_twins(torch):
+    """15c, in the checks' lane: the two twins are checks of the int8 wire
+    and its resume; they share the card at once (their images/s are not
+    those of a twin alone)."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        twins = [pool.submit(reduction_twin, torch, n) for n in (1, 2)]
+        return {f"twin_{n}": t.result() for n, t in zip((1, 2), twins)}
 
 
 # -- phase 16 ---------------------------------------------------------------
@@ -4306,23 +4418,26 @@ def launch_phase(torch, card, ci_job):
     two gloo ranks sharing the card."""
     t0 = time.perf_counter()
     log("phase16", json.dumps(dict(ci_job, card=card)))
-    # The clean reference run and (d) share the card at once (checks, not
-    # timings); (b) and (c), whose fault timings are read, run alone.
+    # The clean reference run and (d) share the card at once, then (b) and
+    # (c): checks, whose fault timings are read beside the other launched
+    # checks of the lane (`checks_lane`), not on an idle host.
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         clean_run = pool.submit(_launch, "launch_clean", 1,
                                 "tf2_style_mnist", LAUNCH_CUT)
         pod = pool.submit(pod_twin, ["127.0.0.1", "localhost"], 1, "gloo")
         lines, wall, _, _ = clean_run.result()
         pod = pod.result()
-    clean = _digests(lines)
-    res = {"clean_wall_s": wall}
-    res["b"] = dict(_supervised_twin("launch_crash", "0:1:exit1", [],
-                                     clean), part="b_crash", card=card)
+        clean = _digests(lines)
+        crash = pool.submit(_supervised_twin, "launch_crash", "0:1:exit1",
+                            [], clean)
+        hang = pool.submit(_supervised_twin, "launch_hang", "0:1:hang",
+                           ["--heartbeat-timeout", str(HANG_TIMEOUT_S)],
+                           clean)
+        res = {"clean_wall_s": wall}
+        res["b"] = dict(crash.result(), part="b_crash", card=card)
+        res["c"] = dict(hang.result(), part="c_hang",
+                        heartbeat_timeout_s=HANG_TIMEOUT_S, card=card)
     log("phase16", json.dumps(res["b"]))
-    res["c"] = dict(_supervised_twin(
-        "launch_hang", "0:1:hang",
-        ["--heartbeat-timeout", str(HANG_TIMEOUT_S)], clean),
-        part="c_hang", heartbeat_timeout_s=HANG_TIMEOUT_S, card=card)
     log("phase16", json.dumps(res["c"]))
     res["d"] = dict(pod, card=card)
     log("phase16", json.dumps(res["d"]))
@@ -4733,14 +4848,14 @@ def moe_ep_two_ranks(torch, card):
 
 
 def moe_phase(torch, card):
-    """Phase 17: MoE and expert parallelism on the card (17a-d)."""
+    """Phase 17: MoE and expert parallelism on the card (17a-c; 17d, a
+    launched check, is `moe_ep_two_ranks` in the checks' lane)."""
     t0 = time.perf_counter()
     model, train = moe_train(torch, card)
     res = {"a": train, "b": moe_vs_plain(torch, card),
            "c": moe_decode(torch, card, model)}
     del model
     torch.cuda.empty_cache()
-    res["d"] = moe_ep_two_ranks(torch, card)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase17 seconds: {res['seconds']:.1f}")
     return res
@@ -5275,12 +5390,12 @@ def seq_multi_card(torch, card, ranks, dense):
 
 
 def seq_phase(torch, card):
-    """Phase 18: sequence parallelism and packed pretraining (18a-c)."""
+    """Phase 18: sequence parallelism and packed pretraining (18a and 18c;
+    18b, a launched check, is `seq_twin` in the checks' lane)."""
     t0 = time.perf_counter()
     res = {"a": ring_hops(torch, card)}
     torch.cuda.empty_cache()
     res["c"] = seq_vs_one_rank(torch, card)
-    res["b"] = seq_twin(torch, card)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase18 seconds: {res['seconds']:.1f}")
     return res
@@ -5623,9 +5738,8 @@ def seq2seq_generate(torch, card, model, x):
 
 def seq2seq_twin_start():
     """19d: the twin of ``examples/seq2seq_translation.py`` at its default
-    knobs on the card, launched in a thread (it runs beside phase 16's
-    launches, which wait on faults and heartbeats); `seq2seq_twin_check`
-    joins it."""
+    knobs on the card, launched in a thread (it runs beside the checks'
+    lane and phases 15-18); `seq2seq_twin_check` joins it."""
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(_launch, "s2s_twin", 1, None,
                       {"PYTHONUNBUFFERED": "1"}, timeout=600,
@@ -6993,8 +7107,6 @@ def pp_multi_card(torch, card, ranks):
     return res
 
 
-# name: (source, TPU kernel it replaces, route, the main path whose
-# launches it reports)
 # -- phase 22 ----------------------------------------------------------------
 
 # Phase 22: the model and fsdp axes in MoE, int8, seq2seq and LoRA (queue A
@@ -7385,6 +7497,519 @@ def item18_multi_card(torch, card, ranks):
     return res
 
 
+# -- phase 23 ----------------------------------------------------------------
+
+# Phase 23: MoE dispatch groups across data and sequence shards (queue A item
+# 12.5; no new kernel: each MoE layer gathers the routing decisions over the
+# gradient group and sums the shares of its aux loss and rates there, around
+# B1-B3 — the flash ring in every attention layer on `seq` — and cuBLAS
+# products).
+# 23a: the bench MoE LM (bench.py's MoE mode: MOE_MODEL, bf16, the fused-CE
+# head, AdamW 3e-4) at data=1,seq=2 with the flash ring, two gloo ranks
+# sharing the card, each a [8, 512] column block of the 8 × 1024 batch
+# (`tp_batches`): every dispatch group (a row) spans both ranks. MOEG_STEPS
+# eager steps against one rank's run (both ranks run the whole batch
+# without a mesh, their layers told the batch is whole; the world averages
+# two equal gradients). Gates: each loss within a bf16 ulp of one rank's,
+# every drop rate within PP_MOE_DROP_ATOL, B1-B3 launched n_layers × hops ×
+# steps a rank (a hop a layer on seq rank 0, two on rank 1), all tc, the
+# parameters bit-equal on both ranks.
+# 23b: the same model in f32 at data=2, [2, 768] a rank: 3 072 tokens in
+# JAX's three groups of 1 024, the middle one across the shards; one step.
+# 21e's gates: the first gradient leaf by leaf within PP_GRAD_RTOL, its aux loss
+# within PP_MOE_AUX_RTOL and drop rate within PP_MOE_DROP_ATOL of one
+# rank's, the losses within PP_LOSS_RTOL, each parameter's update within
+# PP_UPDATE_RTOL of one rank's, the parameters bit-equal on both ranks;
+# 23b_ec: one expert-choice step, its loss, update and moe_uncovered_rate
+# held the same way.
+# 23a-b's launch starts with the checks' lane (beside 15a-b) and is joined
+# at phase 23.
+MOEG_STEPS = 2
+# 23c (--ranks 4; alone with --moe-grouping-only): on four NCCL cards,
+# captured steps: the bench MoE LM at data=1,seq=2,expert=2, MOEG_4_STEPS
+# steps (one eager, one capture, replays), then MOEG_4_WINDOW of another
+# fit profiled on rank 0; and the twin of examples/lm_long_context.py at
+# data=2,seq=2 with MOE_EVERY=2 N_EXPERTS=4 (its own width, steps and
+# epochs), which must print LEARNED, profiled the same way. Each: step ms,
+# tokens/s a card, the busy share, the routing bytes gathered a step, the
+# routing collectives a MoE layer's forward, and the MoE layers' share of
+# the device time (the MoE layers × one layer's forward and backward,
+# timed as graph replays on every rank at once, over the busy ms a step).
+MOEG_4_STEPS, MOEG_4_WINDOW = 10, 5
+# name: (mesh, compute dtype, global rows × tokens, router, steps, the
+# first gradient kept, profiled)
+MOEG_PARTS = {
+    "23a": ("data=1,seq=2", "bfloat16", (8, 1024), "top_k", MOEG_STEPS,
+            False, False),
+    "23b": ("data=2", "float32", (4, 768), "top_k", 1, True, False),
+    "23b_ec": ("data=2", "float32", (4, 768), "expert_choice", 1, False,
+               False),
+    "23c_lm": ("data=1,seq=2,expert=2", "bfloat16", (8, 1024), "top_k",
+               MOEG_4_STEPS, False, True),
+}
+
+MOEG_CHILD = r"""
+import hashlib, json, os, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as ht
+from horovod_tpu_torch import callbacks, runtime
+from horovod_tpu_torch.models import moe as tmoe
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.parallel import collectives
+from horovod_tpu_torch.parallel import mesh as tmesh, sharding
+
+# SMOKE_DEVICE / SMOKE_MODEL / SMOKE_SEQ rehearse this child on the CPU at
+# a tiny size; the smoke runs it on the card at the bench width.
+ht.init(device=os.environ.get("SMOKE_DEVICE") or "cuda")
+r = ht.rank()
+dev = runtime.device()
+cuda = dev.type == "cuda"
+out = os.environ["SMOKE_OUT"]
+cfg = json.loads(os.environ.get("SMOKE_MODEL") or "null") or cs.MOE_MODEL
+seq_cut = int(os.environ.get("SMOKE_SEQ") or 0)
+meshes = {}
+
+
+class Clock(callbacks.Callback):
+    def on_train_begin(self, logs=None):
+        self.t, self.logs = [time.perf_counter()], []
+
+    def on_batch_end(self, batch, logs=None):
+        self.logs.append({k: float(v) for k, v in logs.items()})
+        self.t.append(time.perf_counter())
+
+
+def batches_of(rows, seq, steps):
+    return [(x[:rows], y[:rows]) for x, y in cs.tp_batches(
+        steps, seq=seq_cut or seq, vocab=cfg["vocab_size"])]
+
+
+def run(name, spec, dtype, rows_seq, router, steps, grads, profile):
+    mesh = None
+    if spec is not None:
+        if spec not in meshes:  # every rank builds them in one order
+            meshes[spec] = tmesh.build_mesh(tmesh.MeshSpec.from_string(spec))
+        mesh = meshes[spec]
+    model = ttr.TransformerLM(**cfg, moe_router=router, compute_dtype=dtype,
+                              fused_head_chunks=8, device=dev, seed=0,
+                              sharding=ttr.ShardingConfig(mesh=mesh))
+    seq_mesh = mesh is not None and mesh.seq_shards > 1
+    bs = tmesh.P(("data", "fsdp"), "seq")
+    trainer = ht.Trainer(
+        model, ht.DistributedOptimizer(ht.adamw(3e-4)), loss="module",
+        seed=0, mesh=mesh, device=dev,
+        param_specs=ttr.param_specs if mesh is not None else None,
+        batch_specs=(bs, bs) if seq_mesh else None)
+    trainer.build()
+    if mesh is None:
+        # One rank's run on every rank: each holds the whole batch, so its
+        # dispatch groups are its own (the world averages equal gradients).
+        for m in model.modules():
+            if isinstance(getattr(m, "token_shards", None),
+                          tmoe.TokenShards):
+                m.token_shards = tmoe.TokenShards()
+    batches = batches_of(*rows_seq, steps)
+    if mesh is not None:
+        batches = [sharding.shard_batch(b, mesh) for b in batches]
+    rec = {"coords": mesh.coords if mesh is not None else None}
+    if grads:
+        g, rec["first"] = cs.pp_first_grads(torch, trainer, batches[0])
+        if r == 0:
+            np.savez(os.path.join(out, f"grads_{name}.npz"),
+                     **{n: t.numpy() for n, t in g.items()})
+        del g
+    x0, y0 = batches[0]
+    trainer.discover_metrics(trainer.cut(x0, 0), trainer.cut(y0, 1))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cs._fa_zero(fa)
+    routed = dict(tmoe.routing_traffic)
+    calls = collectives.traffic["calls"]
+    clock = Clock()
+    trainer.fit(dataset=batches, epochs=1, steps_per_epoch=steps,
+                callbacks=[clock, callbacks.MetricAverageCallback()],
+                verbose=0, _eager=mesh is None)
+    runner = trainer._runner
+    ran = runner.eager_steps + runner.captures  # steps whose Python ran
+    # The replays' walls (a captured run), else every step's but the first.
+    skip = 2 if runner.captures else 1
+    step_ms = sorted(1e3 * (b - a) for a, b in zip(clock.t[skip:],
+                                                    clock.t[skip + 1:]))
+    median = step_ms[len(step_ms) // 2] if step_ms else None
+    n_moe = sum(1 for b in model.blocks if b.use_moe)
+    metric = ("moe_uncovered_rate" if router == "expert_choice"
+              else "moe_drop_rate")
+    rec.update({
+        "losses": [e["loss"] for e in clock.logs],
+        "rates": [e[metric] for e in clock.logs],
+        "launches": cs._fa_counts(fa),
+        "eager_steps": runner.eager_steps, "captures": runner.captures,
+        "replays": runner.replays, "step_ms_median": median,
+        "routing_bytes_per_step":
+            (tmoe.routing_traffic["bytes"] - routed["bytes"]) / ran,
+        "routing_collectives_per_moe_layer":
+            (tmoe.routing_traffic["calls"] - routed["calls"]) / ran / n_moe,
+        "collectives_per_step": (collectives.traffic["calls"] - calls) / ran,
+        "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if cuda else None),
+        "params_sha256": hashlib.sha256(b"".join(
+            p.detach().float().cpu().numpy().tobytes()
+            for p in model.parameters())).hexdigest()})
+    if median:
+        rec["tokens_per_s_per_card"] = (rows_seq[0] * rows_seq[1]
+                                        / (median / 1e3) / ht.size())
+    if profile and cuda:
+        window = cs.MOEG_4_WINDOW
+
+        def fit(cbs):
+            trainer.fit(dataset=batches[:2 * window], epochs=1,
+                        steps_per_epoch=2 * window, callbacks=cbs, verbose=0)
+
+        if r == 0:
+            prof, host_ms = cs.profiled_fit(torch, fit, window, window)
+            per, _ = cs._per_step(torch, prof, window, host_ms)
+            rec["profile"] = dict(per, host_ms_per_step=host_ms)
+        else:
+            fit([])
+        rec["moe_layer_fwd_bwd_ms"] = cs.moe_layer_ms(
+            torch, model, x0.shape[0], x0.shape[1] // mesh.seq_shards)
+    if dtype == "float32" and r == 0:  # the updates are held in f32
+        np.savez(os.path.join(out, f"full_{name}.npz"),
+                 **{n: t.detach().float().cpu().numpy()
+                    for n, t in trainer.state.full_model_state().items()})
+    del model, trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+res = {"rank": r}
+for name in json.loads(os.environ["SMOKE_PARTS"]):
+    spec, dtype, rows_seq, router, steps, grads, profile = cs.MOEG_PARTS[name]
+    res[name] = run(name, spec, dtype, rows_seq, router, steps, grads,
+                    profile)
+    if not profile:
+        res[name]["one_rank"] = run(name + "_one", None, dtype, rows_seq,
+                                    router, steps, grads, False)
+print("moeg_child", json.dumps(res), flush=True)
+"""
+
+# 23c's twin: examples/lm_long_context.py's main() at data=2,seq=2 with
+# MOE_EVERY=2, its fit recorded (routing bytes, steps), then MOEG_4_WINDOW
+# steps of another fit profiled on rank 0 and the MoE layer timed.
+MOEG_TWIN_CHILD = r"""
+import json, os
+import torch
+import chip_smoke as cs
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch import runtime
+from horovod_tpu_torch.data.datasets import copy_task
+from horovod_tpu_torch.examples import lm_long_context as twin
+from horovod_tpu_torch.models import moe as tmoe
+
+trainers, routed = [], {}
+fit = hvt.Trainer.fit
+
+
+def recorded_fit(self, *args, **kwargs):
+    trainers.append(self)
+    before = dict(tmoe.routing_traffic)
+    out = fit(self, *args, **kwargs)
+    routed.update({k: tmoe.routing_traffic[k] - before[k] for k in before})
+    return out
+
+
+hvt.Trainer.fit = recorded_fit
+report = twin.main()
+hvt.Trainer.fit = fit
+trainer = trainers[0]
+runner, model, mesh = trainer._runner, trainer.module, trainer.mesh
+steps = int(os.environ.get("DRIVE_STEPS") or 64)
+per_step = sorted(e["epoch_time_s"] * 1e3 / steps
+                  for e in report["history"][1:])
+median = per_step[len(per_step) // 2]
+seq_len = int(os.environ.get("SEQ_LEN", 512))
+rows = 16 // mesh.data_shards
+n_moe = sum(1 for b in model.blocks if b.use_moe)
+# Forwards whose Python ran: the eager steps, the capture and the metrics'
+# discovery.
+forwards = runner.eager_steps + runner.captures + 1
+res = {"rank": runtime.rank(), "losses": [e["loss"] for e in
+                                          report["history"]],
+       "recall_loss": report["recall_loss"],
+       "context_loss": report["context_loss"],
+       "eager_steps": runner.eager_steps, "captures": runner.captures,
+       "replays": runner.replays, "step_ms_median": median,
+       "tokens_per_s_per_card": rows * mesh.data_shards * seq_len
+       / (median / 1e3) / hvt.size(),
+       "routing_bytes_per_step": routed["bytes"] / forwards,
+       "routing_collectives_per_moe_layer": routed["calls"] / forwards
+       / n_moe, "moe_layers": n_moe}
+x, y = copy_task(4096, seq_len, vocab_size=int(os.environ.get("VOCAB", 64)),
+                 seed=0)
+window = cs.MOEG_4_WINDOW
+
+
+def refit(cbs):
+    trainer.fit(x=x, y=y, batch_size=rows, epochs=1,
+                steps_per_epoch=2 * window, callbacks=cbs, verbose=0)
+
+
+if runtime.rank() == 0:
+    prof, host_ms = cs.profiled_fit(torch, refit, window, window)
+    per, _ = cs._per_step(torch, prof, window, host_ms)
+    res["profile"] = dict(per, host_ms_per_step=host_ms)
+else:
+    refit([])
+res["moe_layer_fwd_bwd_ms"] = cs.moe_layer_ms(
+    torch, model, rows, seq_len // mesh.seq_shards)
+print("moeg_twin", json.dumps(res), flush=True)
+"""
+
+
+def moe_layer_ms(torch, model, rows, tokens):
+    """Device ms of one forward and backward of ``model``'s first MoE
+    layer at a rank's ``[rows, tokens]`` shard, its collectives included
+    (`device_ms`: graph replays; every rank of the mesh calls it at
+    once)."""
+    layer = next(b.moe for b in model.blocks if b.use_moe)
+    gen = torch.Generator(device=model.embed.weight.device).manual_seed(23)
+    xin = torch.randn(rows, tokens, layer.d_model, generator=gen,
+                      device=gen.device).to(layer.compute_dtype)
+    xin.requires_grad_()
+
+    def step():
+        out = layer(xin, train=True)
+        (out.float().square().mean()
+         + layer.sown["losses"]["moe_load_balance"]).backward()
+
+    ms = device_ms(torch, step, iters=5)
+    model.zero_grad(set_to_none=True)
+    return ms
+
+
+def moeg_start():
+    """23a-b, launched in a thread (two gloo ranks sharing the card beside
+    15a-b, 17-22 and the checks' lane); `moeg_phase` joins it."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(moeg_child_run, "moeg", 2, ["23a", "23b", "23b_ec"],
+                      "gloo")
+    pool.shutdown(wait=False)
+    return fut
+
+
+def moeg_child_run(name, nprocs, parts, backend):
+    """One launch of MOEG_CHILD: (per-rank records, by part rank 0's
+    whole parameters after the fit and, where kept, the first gradient,
+    each beside its one-rank run's, wall seconds)."""
+    import numpy as np
+
+    out = os.path.join(WORK, name + "_out")
+    os.makedirs(out, exist_ok=True)
+    knobs = {"SMOKE_PARTS": json.dumps(parts), "SMOKE_OUT": out,
+             "HVT_BACKEND": backend, "PYTHONUNBUFFERED": "1"}
+    lines, wall, _, _ = _launch(name, nprocs, None, knobs, code=MOEG_CHILD,
+                                timeout=900)
+    recs = []
+    for r in range(nprocs):
+        text = _rank_line(lines, "moeg_child ", r)
+        check(text is not None, f"{name}: rank {r} printed no result")
+        recs.append(json.loads(text))
+
+    def load(kind, part):
+        path = os.path.join(out, f"{kind}_{part}.npz")
+        return dict(np.load(path)) if os.path.exists(path) else None
+
+    fulls = {p: {k: load(kind, p + one) for k, kind, one in (
+        ("params", "full", ""), ("grads", "grads", ""),
+        ("one_params", "full", "_one"), ("one_grads", "grads", "_one"))}
+        for p in parts}
+    return recs, fulls, wall
+
+
+def _moeg_held(name, recs, full, card):
+    """Part ``name`` of 23a-b against its one-rank run: losses, rates,
+    the first gradient and the updates where held, launches, bit-equal
+    parameters."""
+    import numpy as np
+
+    spec, dtype, _, router, steps, grads, _ = MOEG_PARTS[name]
+    runs = [r[name] for r in recs]
+    one = runs[0]["one_rank"]
+    want = one["losses"]
+    # The global batch's loss: a data shard logs its rows' (a seq rank the
+    # whole rows', joined over the group).
+    losses = [sum(r["losses"][i] for r in runs) / len(runs)
+              for i in range(len(want))]
+    bf16 = dtype == "bfloat16"
+    # A bf16 ulp of the one-rank loss (its exponent, 7 stored bits).
+    tol = [2.0 ** (math.floor(math.log2(abs(b))) - 7) if bf16
+           else PP_LOSS_RTOL * abs(b) for b in want]
+    res = {"mesh": spec, "dtype": dtype, "router": router, "steps": steps,
+           "losses": losses, "one_rank_losses": want,
+           "loss_max_abs_err": max(abs(a - b) for a, b in
+                                   zip(losses, want)),
+           "rates": [r["rates"] for r in runs], "one_rank_rates":
+           one["rates"],
+           "launches": [r["launches"] for r in runs],
+           "eager_steps": [r["eager_steps"] for r in runs],
+           "routing_bytes_per_step": [r["routing_bytes_per_step"]
+                                      for r in runs],
+           "routing_collectives_per_moe_layer": [
+               r["routing_collectives_per_moe_layer"] for r in runs],
+           "gloo_step_ms_staging_not_speed": [r["step_ms_median"]
+                                              for r in runs],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in runs]}
+    check(all(len(r["losses"]) == steps for r in runs)
+          and all(abs(a - b) <= t for a, b, t in zip(losses, want, tol)),
+          f"{name}: the losses differ from one rank's: {res}")
+    check(all(abs(a - b) <= PP_MOE_DROP_ATOL for r in runs
+              for a, b in zip(r["rates"], one["rates"])),
+          f"{name}: the {'uncovered' if router != 'top_k' else 'drop'} "
+          f"rates differ from one rank's: {res}")
+    check(len({r["params_sha256"] for r in runs}) == 1,
+          f"{name}: the parameters differ between the ranks")
+    check(all(r["eager_steps"] == steps for r in runs),
+          f"{name}: want {steps} eager steps a rank (gloo)")
+    # A hop a layer, on seq = 2 two on seq rank 1 (rank 0's past block is
+    # its future); tc in bf16, the CUDA-core route in f32.
+    wants = [MOE_MODEL["n_layers"] * (1 + r["coords"]["seq"]) * steps
+             for r in runs]
+    res["launches_want_by_rank"] = wants
+    check(all(r["launches"][k] == n
+              and r["launches"][k + "_tc"] == (n if bf16 else 0)
+              for r, n in zip(runs, wants)
+              for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"{name}: B1-B3 launched other than {wants} a rank "
+          f"({'tc' if bf16 else 'simt'}): {res['launches']}")
+    if dtype == "float32":
+        ratios = {}
+        for n, p in full["one_params"].items():
+            moved = float(np.linalg.norm(p - full["start"][n]))
+            ratios[n] = (float(np.linalg.norm(full["params"][n] - p))
+                         / max(moved, 1e-30))
+        res["update_rel_err_max"] = max(ratios.values())
+        res["update_rel_err_median"] = sorted(ratios.values())[
+            len(ratios) // 2]
+        res["worst_parameter"] = max(ratios, key=ratios.get)
+        check(res["update_rel_err_max"] <= PP_UPDATE_RTOL,
+              f"{name}: the updates differ from one rank's: {res}")
+    if grads:
+        g_err = {n: float(np.linalg.norm(full["grads"][n] - g))
+                 / max(float(np.linalg.norm(g)), 1e-30)
+                 for n, g in full["one_grads"].items()}
+        first = [r["first"] for r in runs]
+        res.update({"grad_rel_err_max": max(g_err.values()),
+                    "grad_worst_parameter": max(g_err, key=g_err.get),
+                    "first_aux": [f["aux"] for f in first],
+                    "first_drop_rate": [f["drop"] for f in first],
+                    "one_rank_first": one["first"]})
+        check(res["grad_rel_err_max"] <= PP_GRAD_RTOL,
+              f"{name}: the first gradient differs from one rank's: {res}")
+        check(all(abs(f["aux"] - one["first"]["aux"]) <= PP_MOE_AUX_RTOL
+                  * abs(one["first"]["aux"])
+                  and abs(f["drop"] - one["first"]["drop"])
+                  <= PP_MOE_DROP_ATOL for f in first),
+              f"{name}: the first aux loss or drop rate differs from one "
+              f"rank's: {res}")
+    return dict(res, card=card)
+
+
+def moeg_phase(torch, card, fut):
+    """Phase 23's checks: 23a-b ran in the launch ``fut`` (from
+    `moeg_start`), joined here."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.perf_counter()
+    recs, fulls, wall = fut.result()
+    start = {n: t.float().numpy() for n, t in TransformerLM(
+        **MOE_MODEL, device="cpu", seed=0).state_dict().items()}
+    res = {}
+    for name in ("23a", "23b", "23b_ec"):
+        res[name] = dict(_moeg_held(name, recs, dict(fulls[name],
+                                                     start=start), card),
+                         launch_wall_s=wall)
+        log(f"phase{name}", json.dumps(res[name]))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase23 seconds: {res['seconds']:.1f} (the launch's wall "
+        f"{wall:.1f} s, beside earlier phases)")
+    return res
+
+
+def moeg_multi_card(torch, card, ranks):
+    """23c (``--ranks 4``): the bench MoE LM at data=1,seq=2,expert=2 and
+    the long-context twin with MoE at data=2,seq=2 on four NCCL cards,
+    captured steps, profiled."""
+    check(ranks == 4, "23c runs at --ranks 4")
+    t0 = time.perf_counter()
+    recs, _, wall = moeg_child_run("moeg_4card", 4, ["23c_lm"], "nccl")
+    runs = [r["23c_lm"] for r in recs]
+    n_moe = MOE_MODEL["n_layers"] // MOE_MODEL["moe_every"]
+    lm = _moeg_measured(runs, n_moe)
+    lm.update({"mesh": MOEG_PARTS["23c_lm"][0], "losses": runs[0]["losses"],
+               "moe_drop_rate": runs[0]["rates"],
+               "captures": [r["captures"] for r in runs],
+               "replays": [r["replays"] for r in runs],
+               "collectives_per_step": [r["collectives_per_step"]
+                                        for r in runs],
+               "launches": [r["launches"] for r in runs],
+               "peak_memory_gib": [r["peak_memory_gib"] for r in runs],
+               "launch_wall_s": wall, "card": card})
+    log("phase23c_lm", json.dumps(lm))
+    check(all(math.isfinite(v) for v in runs[0]["losses"])
+          and all(r["losses"] == runs[0]["losses"] for r in runs),
+          f"23c: the MoE LM's losses are not finite or differ by rank: {lm}")
+    check(all(r["captures"] == 1 and r["eager_steps"] == 1 for r in runs),
+          f"23c: want one eager step and one capture a rank: {lm}")
+    lines, twin_wall, _, _ = _launch(
+        "moeg_twin", 4, None,
+        {"HVT_MESH": "data=2,seq=2", "MOE_EVERY": "2", "N_EXPERTS": "4",
+         "HVT_BACKEND": "nccl", "PYTHONUNBUFFERED": "1"},
+        code=MOEG_TWIN_CHILD, timeout=900)
+    tw = [json.loads(_rank_line(lines, "moeg_twin ", r)) for r in range(4)]
+    report = _twin_report(lines)
+    twin = _moeg_measured(tw, tw[0]["moe_layers"])
+    twin.update({"mesh": "data=2,seq=2", "report": report,
+                 "losses": tw[0]["losses"],
+                 "captures": [r["captures"] for r in tw],
+                 "launch_wall_s": twin_wall, "card": card})
+    log("phase23c_twin", json.dumps(twin))
+    check(any(ln.endswith("long-range recall: LEARNED") for ln in report),
+          f"23c: the twin with MoE at data=2,seq=2 did not learn: {report}")
+    return {"lm": lm, "twin": twin, "seconds": time.perf_counter() - t0}
+
+
+def _moeg_measured(runs, n_moe):
+    """23c's measures of one run's ranks: step ms, tokens/s a card, rank
+    0's profile and busy share, the routing traffic, and the MoE layers'
+    share of the device time a step."""
+    prof = runs[0].get("profile") or {}
+    busy = prof.get("device_busy_ms_per_step")
+    layer_ms = runs[0]["moe_layer_fwd_bwd_ms"]
+    return {"step_ms_median": [r["step_ms_median"] for r in runs],
+            "tokens_per_s_per_card": min(r["tokens_per_s_per_card"]
+                                         for r in runs),
+            "device_busy_share": prof.get("device_busy_share",
+                                          "not measured"),
+            "profile": prof,
+            "routing_bytes_per_step": [r["routing_bytes_per_step"]
+                                       for r in runs],
+            "routing_collectives_per_moe_layer": runs[0].get(
+                "routing_collectives_per_moe_layer"),
+            "moe_layers": n_moe,
+            "moe_layer_fwd_bwd_ms": [r["moe_layer_fwd_bwd_ms"]
+                                     for r in runs],
+            "moe_share_of_device_time": (
+                n_moe * layer_ms / busy if isinstance(busy, float)
+                else "not measured")}
+
+
+# name: (source, TPU kernel it replaces, route, the main path whose
+# launches it reports)
 KERNELS = {
     "flash_fwd_sm90": ("horovod_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
                        "horovod_tpu/ops/flash_attention.py:149", "tc",
@@ -7434,7 +8059,7 @@ def reduction_multi_card(torch, card, ranks: int):
 
 def multi_card(torch, ranks: int, reduction_only: bool = False,
                moe_only: bool = False, tp_only: bool = False,
-               pp_only: bool = False) -> int:
+               pp_only: bool = False, moeg_only: bool = False) -> int:
     """``--ranks N``: only the MNIST twins and the CIFAR ResNet-20 twin
     with its breakdown and graph-against-eager check, phase 15b's runs and
     phase 17e, at N NCCL ranks, one card each (the multi-rank NCCL path one
@@ -7442,14 +8067,15 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
     all-reduces inside each rank's captured step; the expert group's sums
     inside the MoE step), then the result line. ``reduction_only``: phase
     15b's runs alone; ``moe_only``: phase 17e alone; ``tp_only``: phases
-    20d and 22f alone; ``pp_only``: phase 21c alone."""
+    20d and 22f alone; ``pp_only``: phase 21c alone; ``moeg_only``: phase
+    23c alone."""
     t_start = time.perf_counter()
     try:
         check(torch.cuda.device_count() >= ranks,
               f"--ranks {ranks} needs {ranks} cards, this host has "
               f"{torch.cuda.device_count()}")
         card = toolchain(torch)
-        only = moe_only or tp_only or pp_only
+        only = moe_only or tp_only or pp_only or moeg_only
         if only:
             build_kernels()
             if moe_only:
@@ -7457,6 +8083,8 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
             elif tp_only:
                 tp_multi_card(torch, card, ranks)
                 item18_multi_card(torch, card, ranks)
+            elif moeg_only:
+                moeg_multi_card(torch, card, ranks)
             else:
                 pp_multi_card(torch, card, ranks)
         elif not reduction_only:
@@ -7479,6 +8107,7 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
                 tp_multi_card(torch, card, ranks)
                 item18_multi_card(torch, card, ranks)
                 pp_multi_card(torch, card, ranks)
+                moeg_multi_card(torch, card, ranks)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7488,6 +8117,24 @@ def multi_card(torch, ranks: int, reduction_only: bool = False,
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def checks_lane(torch, card, ci_job):
+    """The launched checks whose figures no gate times, started after phase
+    14 and run beside phases 15-23's foreground, three at a time: phase 16
+    (`launch_phase`), 15c's twins (`reduction_twins`), 17d
+    (`moe_ep_two_ranks`), then 18b (`seq_twin`) and 13g (`decode_twin`) as
+    the first two finish. Each runs in processes of its own, so the kernel
+    counts the foreground reads stay its own; their walls and rates are
+    those of a shared card and host. Returns {name: future}."""
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    futs = {"launch": pool.submit(launch_phase, torch, card, ci_job),
+            "reduction_twins": pool.submit(reduction_twins, torch),
+            "moe_ep": pool.submit(moe_ep_two_ranks, torch, card),
+            "seq_twin": pool.submit(seq_twin, torch, card),
+            "decode_twin": pool.submit(decode_twin, torch)}
+    pool.shutdown(wait=False)
+    return futs
 
 
 def main(argv=None) -> int:
@@ -7515,6 +8162,11 @@ def main(argv=None) -> int:
         help="with --ranks 4: only phase 21c (the pipeline at pipe = 4 on "
              "NCCL under each schedule, then the long-context twin's pipe "
              "branch)")
+    parser.add_argument(
+        "--moe-grouping-only", action="store_true",
+        help="with --ranks 4: only phase 23c (the MoE LM at "
+             "data=1,seq=2,expert=2 and the long-context twin with MoE at "
+             "data=2,seq=2 on NCCL)")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "horovod_tpu_torch")):
         print("chip_smoke: the horovod_tpu_torch package is not beside this "
@@ -7530,15 +8182,25 @@ def main(argv=None) -> int:
     os.makedirs(WORK)
     if args.ranks > 1:
         return multi_card(torch, args.ranks, args.reduction_only,
-                          args.moe_only, args.tp_only, args.pp_only)
+                          args.moe_only, args.tp_only, args.pp_only,
+                          args.moe_grouping_only)
+    import resource
+
+    def cpu_s():
+        """This process's host CPU seconds so far (every thread)."""
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        return ru.ru_utime + ru.ru_stime
+
     t_start = time.perf_counter()
-    laps, last = {}, [t_start]
+    laps, cpu, last = {}, {}, [t_start, cpu_s()]
 
     def lap(name):
-        """Seconds since the previous lap, kept for the phase_seconds line."""
-        now = time.perf_counter()
+        """Seconds (and this process's CPU seconds) since the previous lap,
+        kept for the phase_seconds and phase_cpu_seconds lines."""
+        now, used = time.perf_counter(), cpu_s()
         laps[name] = round(now - last[0], 1)
-        last[0] = now
+        cpu[name] = round(used - last[1], 1)
+        last[:] = [now, used]
 
     try:
         card = toolchain(torch)
@@ -7555,16 +8217,23 @@ def main(argv=None) -> int:
         train_launches = train_path(torch)
         f32_step = train_vs_plain(torch)
         lap("6-7 train")
-        mnist_tf2(torch)
-        mnist_tf1(torch)
+        # The tf2 twin and phase 11's CI job (launches whose checks read
+        # files) share the card with the tf1 twin, whose checks run here.
+        cifar_data = cifar_data_start()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            tf2 = pool.submit(mnist_tf2, torch)
+            ci_job = pool.submit(mnist_ci_cached, torch)
+            mnist_tf1(torch)
+            tf2.result()
+            ci, ci_path = ci_job.result()
+        lap("8-9 mnist and 11's CI job launched")
         log("breakdown_mnist", json.dumps(mnist_breakdown(torch)))
-        lap("8-9 mnist")
-        ci, ci_path = mnist_ci_cached(torch)
         cached = cached_in_process(torch, ci_path)
         log("breakdown_mnist_cached", json.dumps(dict(
             cached["breakdown_mnist_cached"], card=card,
             peak_memory_bytes_ci_run=ci["peak_memory_bytes"])))
-        lap("11 ci")
+        lap("8 and 11 in process")
+        cifar_data_join(cifar_data)
         cifar_resnet(torch)
         log("breakdown_cifar", json.dumps(dict(cifar_breakdown(torch),
                                                card=card)))
@@ -7590,16 +8259,17 @@ def main(argv=None) -> int:
         lap("13 decode")
         tier = serve_tier(torch, card)
         lap("14 serve tier")
-        reduction = reduction_phase(torch, card)
-        lap("15 reduction")
-        # 19d's twin (a check) shares the card with phase 16's launches.
+        # The launched checks (16, 15c, 17d, 18b, 13g, 19d's twin and
+        # 23a-b) run beside phases 15-23's foreground from here.
+        lane = checks_lane(torch, card, ci["ci_job"])
         twin = seq2seq_twin_start()
-        launch_phase(torch, card, ci["ci_job"])
-        lap("16 launch")
+        moeg_fut = moeg_start()
+        reduction = reduction_phase(torch, card)
+        lap("15a-b reduction")
         moe = moe_phase(torch, card)
-        lap("17 moe")
+        lap("17a-c moe")
         seq = seq_phase(torch, card)
-        lap("18 seq")
+        lap("18a, 18c seq")
         s2s = seq2seq_phase(torch, card, twin,
                             train_launches["step_ms_median"])
         lap("19 seq2seq")
@@ -7609,6 +8279,13 @@ def main(argv=None) -> int:
         lap("21 pipeline")
         item18 = item18_phase(torch, card, item18_fut)
         lap("22 item 18")
+        moeg = moeg_phase(torch, card, moeg_fut)
+        lap("23 moe grouping")
+        checked = {name: fut.result() for name, fut in lane.items()}
+        lap("16, 15c, 17d, 18b and 13g launched (the rest of their wall)")
+        decode["twin"] = checked["decode_twin"]
+        reduction.update(checked["reduction_twins"])
+        moe["d"], seq["b"] = checked["moe_ep"], checked["seq_twin"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7756,14 +8433,32 @@ def main(argv=None) -> int:
                 for part in ITEM18_PARTS if part != "22e"}
             entry["seq2seq_masks_model2"] = {
                 site: t_[name] for site, t_ in item18["a"].items()}
+            # Phase 23a: the bench MoE LM at seq = 2 on the flash ring, two
+            # gloo ranks, n_layers × hops × MOEG_STEPS a rank (a hop a
+            # layer on seq rank 0, two on rank 1), all on the tensor-core
+            # route.
+            entry["launches_moe_grouping"] = {
+                "23a": [r[key] for r in moeg["23a"]["launches"]]}
         if name == "flash_fwd":
             # The ring's f32 comparison (13e) prefills on the CUDA-core route;
             # so does 22e's f32 int8 decode at model = 2 (8 a gloo rank).
             entry["launches_decode_ring_f32"] = decode["ring"]["b1_launches"]
             entry["launches_item18"] = {"22e": [
                 r["flash_fwd"] for r in item18["22e"]["launches"]]}
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            # Phase 23b: the f32 MoE LM at data = 2 (groups across the
+            # shards), n_layers × steps a gloo rank on the CUDA-core route.
+            entry["launches_moe_grouping"] = {
+                part: [r[name] for r in moeg[part]["launches"]]
+                for part in ("23b", "23b_ec")}
         lines.append(entry)
     log("phase_seconds", json.dumps(laps))
+    log("phase_cpu_seconds", json.dumps(cpu))
+    log("launch_cost", json.dumps(LAUNCH_COST))
+    children = resource.getrusage(resource.RUSAGE_CHILDREN)
+    log("host_cpu_seconds", json.dumps({
+        "smoke_process": round(cpu_s(), 1),
+        "children": round(children.ru_utime + children.ru_stime, 1)}))
     log(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

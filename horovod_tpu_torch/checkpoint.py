@@ -456,11 +456,14 @@ def export_serving(export_dir: str, module, input_shape: tuple,
     example = torch.zeros((rows,) + tuple(input_shape[1:]), dtype=dtype,
                           device=dev)
     dynamic = None if fixed else ({0: torch.export.Dim("batch")},)
+    from horovod_tpu_torch.models.moe import whole_batches
+
     was_training = module.training
     module.eval()
     try:
-        program = torch.export.export(
-            _Predict(module), (example,), dynamic_shapes=dynamic)
+        with whole_batches(module):  # the program groups what it is given
+            program = torch.export.export(
+                _Predict(module), (example,), dynamic_shapes=dynamic)
     finally:
         module.train(was_training)
     buf = io.BytesIO()

@@ -48,7 +48,14 @@ rule: only where no pipe/seq/model/expert axis is live), and on a ``pipe``
 mesh N_MICRO (default 4) and SCHEDULE (``gpipe``, the default, or
 ``1f1b``); plus ``HVT_DEVICE`` (``cuda``, the default, or ``cpu``).
 ``MOE_EVERY`` composes with a live ``model`` or ``fsdp`` axis (the experts'
-hidden features cut over ``model``, `models.moe`).
+hidden features cut over ``model``, `models.moe`) and with a live ``seq``
+axis — the long-context MoE recipe: the dispatch groups are cut from the
+global ``[B, T]`` token order as JAX's are, across the sequence shards,
+and only the routing decisions cross ranks:
+
+    HVT_MESH="data=2,seq=2" MOE_EVERY=2 N_EXPERTS=4 python -m \\
+        horovod_tpu_torch.launch run --nprocs 4 -- \\
+        python -m horovod_tpu_torch.examples.lm_long_context
 
 The greedy decode (the `TransformerLM` branch only, as in JAX): JAX runs it
 only at ``process_count() == 1``, where its params are addressable. The

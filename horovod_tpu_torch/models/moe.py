@@ -46,20 +46,34 @@ rank, which holds the same tokens. On a live ``fsdp`` axis the owning
 their ``fsdp`` shards and the layer gathers them at use
 (`parallel.sharding.weight`).
 
-**Grouping across data shards.** Under GSPMD the JAX layer sees the global
-batch, so its groups are cut from all data shards' tokens; the port's
-layer sees one shard. The two agree exactly when this shard's token count
-is a multiple of the global group length; where it is not, the layer
-raises at its first forward rather than group differently (ROADMAP queue A
-item 12.5). ``data_shards`` (the `Trainer` sets it to its data-parallel
-size; else the mesh's) says how many shards the global batch has. On a
-live ``seq`` axis each rank holds a column block of every row, so the JAX
-layer's groups, cut from the global ``[B, T]`` token order, span the
-sequence shards: the layer raises there at its first forward (item 12.5).
+**Grouping across shards.** Under GSPMD the JAX layer sees the global
+batch: it cuts its dispatch groups of at most ``group_size`` tokens from the
+global ``[B, T]`` token order, whatever the mesh. The port's layer sees one
+shard (`TokenShards`: data shard i of ``data × fsdp`` and sequence shard c
+of ``seq``; the `Trainer` sets them, else the mesh's) and groups exactly as
+JAX does all the same (`grouping_plan`): a local token ``(b, t)`` has the
+global flat index ``(i·B + b)·(T·sp) + c·T + t``, its group is that index
+// s and its place that index % s. Where this shard's groups are all its
+own (an aligned shard) routing is local; where a group spans shards (a
+live ``seq`` axis, or a data shard whose tokens are not a multiple of the
+group) every rank gathers the routing decisions of the gradient group —
+the top-k expert ids, or for expert choice the detached probabilities —
+never the activations, computes the global slots of its own tokens from
+them and dispatches its own tokens into its groups' capacity slots (a
+slot another shard holds is a zero row here). Each expert's FFN acts on a
+slot's row alone, so the output is JAX's. The load-balance loss and the
+rates are sums over the gradient group: every rank sows JAX's global
+values, and the loss's gradient is this rank's share, scaled to the
+optimizer's rule (`_TokenSum`). Under gloo these collectives go through
+the host (the `Trainer` then steps eagerly); under NCCL they are captured
+with the step, as the plan holds no host read of a device tensor.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import math
 
 import torch
@@ -67,9 +81,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.parallel import collectives, sharding as shard_lib
-from horovod_tpu_torch.parallel.mesh import (
-    EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, dp_size,
-)
+from horovod_tpu_torch.parallel.mesh import EXPERT_AXIS, MODEL_AXIS
 from horovod_tpu_torch.training.train_state import sow
 
 
@@ -81,35 +93,290 @@ def dispatch_group_count(g: int, group_size: int) -> int:
     return g
 
 
-def check_grouping(what: str, g: int, data_shards: int, seq_shards: int,
-                   group_size: int) -> None:
-    """Refuse a shard of ``g`` tokens whose dispatch groups would differ
-    from those a GSPMD layer cuts from the global batch of ``data_shards``
-    × ``seq_shards`` shards (ROADMAP queue A item 12.5): any live ``seq``
-    axis (a group spans the sequence shards), or ``g`` not a multiple of
-    the global group length."""
-    if seq_shards > 1:
-        raise ValueError(
-            f"{what} on a live 'seq' axis ({seq_shards} sequence "
-            "shards): the JAX layer cuts its dispatch groups from the "
-            "global [B, T] token order, so a group spans the sequence "
-            "shards, which the port's layer does not see together "
-            "(ROADMAP queue A item 12.5, MoE grouping across shards)"
-        )
-    if data_shards <= 1:
-        return
-    total = g * data_shards
-    s_glob = total // dispatch_group_count(total, group_size)
-    if g % s_glob:
-        raise ValueError(
-            f"{what}: this data shard's {g} tokens are not a multiple of "
-            f"the dispatch group of {s_glob} tokens that the JAX layer "
-            f"cuts from the global batch of {total} tokens ({data_shards} "
-            "data shards): the JAX layer would group tokens across data "
-            "shards, which the port does not — use a per-rank batch "
-            f"whose tokens are a multiple of {s_glob} (ROADMAP queue A "
-            "item 12.5, MoE grouping across data shards)"
-        )
+@dataclasses.dataclass(frozen=True)
+class TokenShards:
+    """Where this rank's ``[B, T]`` tokens sit in the global batch: data
+    shard ``data_index`` of ``data_shards`` (``data × fsdp``) and sequence
+    shard ``seq_index`` of ``seq_shards``. The ranks that hold the other
+    shards are ``mesh``'s gradient group, or the world without a mesh;
+    their members stand in the order ``data_index · seq_shards +
+    seq_index``."""
+
+    data_shards: int = 1
+    data_index: int = 0
+    seq_shards: int = 1
+    seq_index: int = 0
+    mesh: object = dataclasses.field(default=None, compare=False)
+
+    @classmethod
+    def of(cls, mesh) -> "TokenShards":
+        if mesh is None:
+            return cls()
+        return cls(mesh.data_shards, mesh.data_index, mesh.seq_shards,
+                   mesh.seq_index, mesh)
+
+    @property
+    def count(self) -> int:
+        return self.data_shards * self.seq_shards
+
+    @property
+    def group(self):
+        """The ranks of the other shards (`collectives.SELF` for one)."""
+        if self.count == 1:
+            return collectives.SELF
+        return self.mesh.grad_group if self.mesh is not None else None
+
+    def plan(self, b: int, t: int, group_size: int) -> "GroupingPlan":
+        return grouping_plan(b, t, group_size, self.data_index,
+                             self.data_shards, self.seq_index,
+                             self.seq_shards)
+
+
+@contextlib.contextmanager
+def whole_batches(module):
+    """Within: every layer of ``module`` that groups tokens across shards
+    takes the batch it sees as the whole batch (an exported function runs
+    on one device, on the batch it is given, as JAX's export does)."""
+    held = [(m, m.token_shards) for m in module.modules()
+            if isinstance(getattr(m, "token_shards", None), TokenShards)]
+    for m, _ in held:
+        m.token_shards = TokenShards()
+    try:
+        yield module
+    finally:
+        for m, shards in held:
+            m.token_shards = shards
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupingPlan:
+    """JAX's dispatch groups as this shard meets them: ``n`` groups of
+    ``s`` tokens cut from the global batch's flat order; this shard's
+    ``b × t`` tokens fall in ``m`` of them, all within the ``span`` groups
+    from ``first``. ``aligned``: every one of those groups is wholly this
+    shard's (the same on every rank), so routing needs no other shard's
+    decisions. Python integers only: a captured step holds the tensors it
+    makes (`flat`, `span_rows`, `slots`)."""
+
+    b: int
+    t: int
+    data_index: int
+    data_shards: int
+    seq_index: int
+    seq_shards: int
+    n: int
+    s: int
+    first: int
+    span: int
+    m: int
+
+    @property
+    def aligned(self) -> bool:
+        # A group wholly within this shard's run of b·t tokens (one seq
+        # shard) or within each of its rows' blocks of t (several): either
+        # way a property of the shapes, alike on every rank.
+        run = self.b * self.t if self.seq_shards == 1 else self.t
+        return run % self.s == 0
+
+    def flat(self, device) -> torch.Tensor:
+        """Each local token's index in JAX's global flat order."""
+        i = torch.arange(self.b * self.t, device=device)
+        row, col = i // self.t, i % self.t
+        return ((self.data_index * self.b + row) * (self.t * self.seq_shards)
+                + self.seq_index * self.t + col)
+
+    def group_and_place(self, device) -> tuple:
+        """Each local token's global group and its place in that group."""
+        f = self.flat(device)
+        return f // self.s, f % self.s
+
+    def span_rows(self, device) -> torch.Tensor:
+        """Each local token's row in the span's ``[span · s]`` tokens."""
+        return self.flat(device) - self.first * self.s
+
+    def slots(self, device) -> torch.Tensor:
+        """Each local token's row in the ``[m · s]`` layout of the groups
+        it falls in, in group order (the flat index only grows along the
+        local order, so a group's rank among them counts the group changes
+        before it)."""
+        g, p = self.group_and_place(device)
+        j = torch.cumsum(torch.cat([g.new_zeros(1), (g[1:] != g[:-1]).long()]),
+                         0)
+        return j * self.s + p
+
+
+@functools.lru_cache(maxsize=256)
+def grouping_plan(b: int, t: int, group_size: int, data_index: int = 0,
+                  data_shards: int = 1, seq_index: int = 0,
+                  seq_shards: int = 1) -> GroupingPlan:
+    """The `GroupingPlan` of a ``[b, t]`` shard at ``(data_index,
+    seq_index)`` of a global batch of ``data_shards · b`` rows of
+    ``seq_shards · t`` tokens."""
+    row_len = t * seq_shards
+    total = data_shards * b * row_len
+    n = dispatch_group_count(total, group_size)
+    s = total // n
+    m, last, first = 0, -1, None
+    for bb in range(b):
+        start = (data_index * b + bb) * row_len + seq_index * t
+        g0, g1 = start // s, (start + t - 1) // s
+        first = g0 if first is None else first
+        m += g1 - g0 + 1 - (g0 == last)
+        last = g1
+    return GroupingPlan(b, t, data_index, data_shards, seq_index,
+                        seq_shards, n, s, first, last - first + 1, m)
+
+
+#: Bytes this rank received in the routing collectives (`route_tokens`:
+#: the gathered decisions and the summed shares) and their count; counted
+#: where the forward's Python runs (eager steps and a capture).
+routing_traffic = {"bytes": 0, "calls": 0}
+
+
+def _count_routing(t: torch.Tensor) -> None:
+    routing_traffic["bytes"] += t.numel() * t.element_size()
+    routing_traffic["calls"] += 1
+
+
+class _TokenSum(torch.autograd.Function):
+    """The sum over the token shards' group forward (every rank then holds
+    the global value); backward the cotangent × ``scale``, the data
+    shards. A rank owes the gradient of its own tokens' share, and the
+    optimizer sums a gradient over the group and divides by the data
+    shards: ``scale · share`` summed and divided is the global value's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, scale: int):
+        ctx.scale = scale
+        return collectives.all_reduce_sum(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None, None
+
+
+def _global_sums(values, shards: TokenShards):
+    """``values`` (0-d, this shard's shares) summed over the token shards
+    in one collective."""
+    v = torch.stack([x.float() for x in values])
+    if shards.count > 1:
+        v = _TokenSum.apply(v, shards.group, shards.data_shards)
+        _count_routing(v)
+    return v.unbind()
+
+
+def _to_span(own: torch.Tensor, plan: GroupingPlan, shards: TokenShards):
+    """The span's tokens ``[span · s, ...]`` in global order, from every
+    shard's ``own`` ``[b · t, ...]`` gathered over the token group (no
+    gradient: routing decisions only)."""
+    got = collectives.all_gather_tensor(own.detach().contiguous(),
+                                        shards.group)
+    _count_routing(got)
+    rest = tuple(own.shape[1:])
+    got = got.reshape((plan.data_shards, plan.seq_shards, plan.b, plan.t)
+                      + rest).transpose(1, 2).reshape((-1,) + rest)
+    return got[plan.first * plan.s:(plan.first + plan.span) * plan.s]
+
+
+def _ids_dtype(n_experts: int):
+    """The narrowest integer type the expert ids cross ranks in."""
+    return torch.uint8 if n_experts <= 256 else torch.int32
+
+
+def route_tokens(x, probs, plan: GroupingPlan, shards: TokenShards, experts,
+                 *, k: int, capacity_factor: float, router: str,
+                 expert_range: tuple, groups: tuple, compute_dtype):
+    """JAX's GShard dense dispatch of this shard's tokens ``x [g, d]`` by
+    their f32 router probabilities ``probs [g, E]``, grouped by ``plan``:
+    each (token, choice) takes its slot in its expert's ``capacity`` by
+    the cumulative count down its group's ``[k · s]`` choices (top-k), or
+    each expert its top-``capacity`` tokens of the group (expert choice).
+    ``experts`` maps the dispatched ``[m, E_local, C, d]`` rows of the
+    experts in ``expert_range`` to theirs, between entering and leaving
+    ``groups`` (the ``expert`` and ``model`` groups). Returns ``(mixed [g,
+    d] in compute_dtype, stats)``: top-k's ``aux`` (the global load-balance
+    loss, this rank's share in its gradient) and ``fill`` (the kept
+    fraction of routed choices), expert choice's ``uncovered`` (the
+    fraction of tokens no expert took), each the global value."""
+    g, d = x.shape
+    e = probs.shape[-1]
+    s, n, m = plan.s, plan.n, plan.m
+    lo, hi = expert_range
+    dev = x.device
+    cap = max(1, int(k * s / e * capacity_factor))
+    shared = not plan.aligned
+    rows = plan.span_rows(dev) if shared else None
+    slots = plan.slots(dev) if shared else None
+
+    def own(t):  # span rows → this shard's tokens
+        return t.index_select(0, rows) if shared else t
+
+    def pad(t, fill=0):  # this shard's tokens → its groups' [m · s] rows
+        if not shared:
+            return t
+        return t.new_full((m * s,) + tuple(t.shape[1:]), fill).index_copy(
+            0, slots, t)
+
+    def enter(t):
+        for grp in groups:
+            t = collectives.enter_group(t, grp)
+        return t
+
+    if router == "expert_choice":
+        cap = min(cap, s)
+        span = _to_span(probs, plan, shards) if shared else probs.detach()
+        ns = span.shape[0] // s
+        _, pick = torch.topk(span.reshape(ns, s, e).movedim(-1, 1), cap,
+                             dim=-1)  # [ns, E, C]
+        chosen = torch.zeros(ns, s, device=dev).scatter_(
+            1, pick.reshape(ns, e * cap), 1.0).reshape(ns * s)
+        (uncovered,) = _global_sums([own(chosen).sum()], shards)
+        stats = {"uncovered": 1.0 - uncovered / float(n * s)}
+        take = _one_hot(pick[:, lo:hi], s).movedim(-1, 1)  # [ns,s,El,C]
+        take = own(take.reshape(ns * s, hi - lo, cap))
+        gates = enter(probs)[:, lo:hi]
+        dispatch = pad(take).reshape(m, s, hi - lo, cap)
+        combine = pad(take * gates[..., None]).reshape(m, s, hi - lo, cap)
+    else:
+        top_probs, top_idx = torch.topk(probs, k, dim=-1)  # [g, k]
+        if k > 1:
+            top_probs = top_probs / (top_probs.sum(-1, keepdim=True) + 1e-9)
+        ids = (_to_span(top_idx.to(_ids_dtype(e)), plan, shards).long()
+               if shared else top_idx)
+        ns = ids.shape[0] // s
+        choice = _one_hot(ids.reshape(ns, s, k), e).movedim(-2, 1)
+        flat = choice.reshape(ns, k * s, e)
+        pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(ns, k, s, e)
+        pos = own(pos.movedim(1, 2).reshape(ns * s, k, e))  # [g, k, E]
+        # Switch's load balance over top-1 assignments, meaned over the
+        # groups: linear in each token's probabilities given the top-1
+        # fractions, so each shard's tokens owe their share.
+        frac = choice[:, 0].mean(1)  # [ns, E]
+        frac = (frac.index_select(0, rows // s) if shared
+                else frac[:, None].expand(ns, s, e).reshape(g, e))
+        share = e / float(n * s) * torch.sum(frac * probs)
+        in_cap = (pos >= 0) & (pos < cap)
+        aux, kept = _global_sums([share, in_cap.sum()], shards)
+        stats = {"aux": aux, "fill": kept.detach() / float(n * k * s)}
+        pos = pad(pos, -1.0).reshape(m, s, k, e).movedim(2, 1)[..., lo:hi]
+        in_cap = (pos >= 0) & (pos < cap)
+        local = _one_hot(pos.clamp(0, cap - 1).long(), cap) * in_cap[
+            ..., None]  # [m, k, s, E_local, C]
+        gates = pad(enter(top_probs.float())).reshape(m, s, k)
+        combine = torch.einsum("nksec,nsk->nsec", local, gates)
+        dispatch = local.sum(1)  # [m, s, E_local, C]
+    cd = compute_dtype
+    tokens = pad(enter(x)).reshape(m, s, d)
+    expert_in = torch.einsum("nsec,nsd->necd", dispatch.to(cd), tokens.to(cd))
+    out = experts(expert_in)
+    mixed = torch.einsum("nsec,necd->nsd", combine.to(cd), out)
+    mixed = mixed.reshape(m * s, d)
+    if shared:
+        mixed = mixed.index_select(0, slots)
+    for grp in groups:
+        mixed = collectives.leave_group(mixed, grp)
+    return mixed, stats
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -173,16 +440,25 @@ class MoEMlp(nn.Module):
         self.hidden_lo = hidden // tp * (mesh.coords[MODEL_AXIS]
                                          if tp > 1 else 0)
         self.hidden_hi = self.hidden_lo + hidden // tp
-        self.data_shards = dp_size(mesh) if mesh is not None else 1
-        self.seq_shards = mesh.shape[SEQ_AXIS] if mesh is not None else 1
-        # The forward's all-reduces over the expert and model groups: a
-        # gloo step with them runs eagerly (`training.graphs`).
-        self.reduces_over_ranks = ep > 1 or tp > 1
+        # Where this rank's tokens sit in the global batch (the `Trainer`
+        # sets it from its own layout).
+        self.token_shards = TokenShards.of(mesh)
         self.sown: dict = {}
         self.router = nn.Linear(d_model, n_experts, bias=False)
         self.moe_up = nn.Parameter(torch.empty(per, d_model, hidden // tp))
         self.moe_down = nn.Parameter(torch.empty(per, hidden // tp, d_model))
         self.reset_parameters(seed)
+
+    @property
+    def data_shards(self) -> int:
+        return self.token_shards.data_shards
+
+    @property
+    def reduces_over_ranks(self) -> bool:
+        """The forward's collectives: the sums over the expert and model
+        groups, and over the token shards (`route_tokens`). A gloo step
+        with them runs eagerly (`training.graphs`)."""
+        return self.ep > 1 or self.tp > 1 or self.token_shards.count > 1
 
     def set_router(self, router: str) -> None:
         if router not in ("top_k", "expert_choice"):
@@ -230,102 +506,31 @@ class MoEMlp(nn.Module):
             lecun_normal_(full, g, full.shape[1])
             p.copy_(self.local_part(name, full))
 
-    def check_grouping(self, g: int) -> None:
-        """Refuse a shard whose ``g`` tokens would be grouped otherwise
-        than the JAX layer groups the global batch (module docstring):
-        the tokens of the batch's ``data_shards × seq_shards`` shards."""
-        check_grouping("MoEMlp", g, self.data_shards, self.seq_shards,
-                       self.group_size)
-
     def forward(self, x, *, train: bool = False, whole_batch: bool = False):
-        """``whole_batch``: ``x`` is the whole batch, not one data shard of
-        it (a decode step), so no grouping across shards applies."""
+        """``whole_batch``: ``x`` is the whole batch, not one shard of it
+        (a decode step), so its groups are its own."""
         self.sown.clear()
         b, t, d = x.shape
-        e = self.n_experts
-        g = b * t
-        if not whole_batch:
-            self.check_grouping(g)
-        n_groups = dispatch_group_count(g, self.group_size)
-        s = g // n_groups
-        tokens = x.reshape(n_groups, s, d)
-        capacity = max(1, int(self.k * s / e * self.capacity_factor))
-
-        # --- routing (f32, alike on every expert and model rank) ---------
+        shards = TokenShards() if whole_batch else self.token_shards
+        plan = shards.plan(b, t, self.group_size)
+        tokens = x.reshape(b * t, d)
+        # Routing in f32, alike on every expert and model rank.
         logits = F.linear(tokens.float(),
                           shard_lib.weight(self.router).float())
-        probs = torch.softmax(logits, dim=-1)  # [n, S, E]
+        probs = torch.softmax(logits, dim=-1)  # [g, E]
+        mixed, stats = route_tokens(
+            tokens, probs, plan, shards, self._experts, k=self.k,
+            capacity_factor=self.capacity_factor, router=self.router_kind,
+            expert_range=(self.expert_lo, self.expert_hi),
+            groups=self.groups, compute_dtype=self.compute_dtype)
         if self.router_kind == "expert_choice":
-            return self._expert_choice(x, tokens, probs, capacity, n_groups, s)
-
-        top_probs, top_idx = torch.topk(probs, self.k, dim=-1)  # [n, S, k]
-        if self.k > 1:
-            top_probs = top_probs / (top_probs.sum(-1, keepdim=True) + 1e-9)
-
-        # Switch load-balancing loss over top-1 assignments, meaned over
-        # the dispatch groups.
-        frac = _one_hot(top_idx[..., 0], e).mean(1)
-        aux = (e * torch.sum(frac * probs.mean(1), dim=-1)).mean()
-        if train:
-            sow(self, "losses", "moe_load_balance", self.aux_loss_coef * aux)
-
-        # --- dispatch plan: each (token, choice)'s slot in its expert -----
-        choice = _one_hot(top_idx, e).movedim(-2, 1)  # [n, k, S, E]
-        flat = choice.reshape(n_groups, self.k * s, e)
-        pos = torch.cumsum(flat, dim=1) * flat - 1.0
-        pos = pos.reshape(n_groups, self.k, s, e)
-        in_cap = (pos >= 0) & (pos < capacity)
-        slot = pos.clamp(0, capacity - 1).long()
-        slot_oh = _one_hot(slot, capacity) * in_cap[..., None]  # [n,k,S,E,C]
-        routed = float(n_groups * self.k * s)
-        sow(self, "metrics", "moe_drop_rate",
-            1.0 - torch.sum(slot_oh) / routed)
-
-        # --- this rank's experts, between entering and leaving the groups
-        local = slot_oh[:, :, :, self.expert_lo:self.expert_hi]
-        gates = self._enter(top_probs.float())
-        combine = torch.einsum("nksec,nsk->nsec", local, gates)
-        dispatch = local.sum(1)  # [n, S, E_local, C]
-        cd = self.compute_dtype
-        tokens_in = self._enter(tokens)
-        expert_in = torch.einsum("nsec,nsd->necd", dispatch.to(cd),
-                                 tokens_in.to(cd))
-        out = self._experts(expert_in)
-        mixed = torch.einsum("nsec,necd->nsd", combine.to(cd), out)
-        return self._leave(mixed).reshape(b, t, d).to(x.dtype)
-
-    def _enter(self, x):
-        for group in self.groups:
-            x = collectives.enter_group(x, group)
-        return x
-
-    def _leave(self, x):
-        for group in self.groups:
-            x = collectives.leave_group(x, group)
-        return x
-
-    def _expert_choice(self, x, tokens, probs, capacity, n_groups, s):
-        """Each expert takes its top-``capacity`` tokens of the group;
-        every expert is exactly full, and ``moe_uncovered_rate`` is the
-        fraction of tokens no expert chose."""
-        b, t, d = x.shape
-        cd = self.compute_dtype
-        capacity = min(capacity, s)
-        g_val, g_idx = torch.topk(probs.movedim(-1, 1), capacity, dim=-1)
-        dispatch = _one_hot(g_idx, s)  # [n, E, C, S]
-        chosen = torch.clamp(dispatch.sum((1, 2)), 0.0, 1.0)  # [n, S]
-        sow(self, "metrics", "moe_uncovered_rate",
-            1.0 - torch.sum(chosen) / float(n_groups * s))
-        lo, hi = self.expert_lo, self.expert_hi
-        local = dispatch[:, lo:hi]
-        tokens_in = self._enter(tokens)
-        expert_in = torch.einsum("necs,nsd->necd", local.to(cd),
-                                 tokens_in.to(cd))
-        out = self._experts(expert_in)
-        gates = self._enter(g_val)[:, lo:hi]
-        combine = local * gates[..., None]
-        mixed = torch.einsum("necs,necd->nsd", combine.to(cd), out)
-        return self._leave(mixed).reshape(b, t, d).to(x.dtype)
+            sow(self, "metrics", "moe_uncovered_rate", stats["uncovered"])
+        else:
+            if train:
+                sow(self, "losses", "moe_load_balance",
+                    self.aux_loss_coef * stats["aux"])
+            sow(self, "metrics", "moe_drop_rate", 1.0 - stats["fill"])
+        return mixed.reshape(b, t, d).to(x.dtype)
 
     def _experts(self, expert_in):
         """The local experts' FFNs over ``[n, E_local, C, d]`` (this rank's

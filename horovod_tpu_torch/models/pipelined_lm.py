@@ -53,11 +53,15 @@ columns of the dispatch and combine one-hots (the stacks' E dim on
 ``expert``), on a live ``model`` axis the experts' hidden dim is cut too,
 and one sum over ``expert`` and ``model`` joins the residual, between
 `collectives.enter_group` on the gates and the tokens and `leave_group`.
-Dispatch groups are cut from this rank's tokens of a microbatch
-(`models.moe.dispatch_group_count`), as JAX's shard does. The load-balance
-loss and the kept-slot fraction ride the schedules' ``with_aux`` channel;
-over the mesh they are summed over ``pipe`` and averaged over ``data``,
-``fsdp`` and ``seq`` (`_mesh_mean`), then sown as JAX sows them
+Routing is `models.moe.route_tokens`, the `MoEMlp` layer's. On a live
+``pipe`` axis dispatch groups are cut from this rank's tokens of a
+microbatch, as JAX's ``shard_map`` does; the load-balance loss and the
+kept-slot fraction ride the schedules' ``with_aux`` channel and are summed
+over ``pipe`` and averaged over ``data``, ``fsdp`` and ``seq``
+(`_mesh_mean`). Without one the layers run in sequence, and JAX's GSPMD
+groups the global batch: so does the port (`models.moe.grouping_plan`
+over the model's `token_shards`, which the `Trainer` sets), whose aux
+values are then already global. Both are sown as JAX sows them
 (`training.train_state.sow`): ``losses/moe_load_balance`` in training,
 ``metrics/moe_drop_rate`` in every forward.
 
@@ -83,7 +87,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.models.moe import (
-    _one_hot, check_grouping, dispatch_group_count, lecun_normal_,
+    TokenShards, lecun_normal_, route_tokens,
 )
 from horovod_tpu_torch.models.transformer import (
     _dtype, _full_shapes, live_placements, packed_positions, rope,
@@ -211,12 +215,12 @@ class PipelinedLM(nn.Module):
         # Dispatch groups are cut from the batch's tokens: an MoE model's
         # function depends on its batch size (`checkpoint.export_serving`).
         self.batch_polymorphic = mlp != "moe"
-        # The forward's collectives (Megatron's f and g, the ring, the
-        # expert sums, the handoffs): a step under gloo runs eagerly; a
-        # pipelined one runs eagerly on NCCL too (`training.graphs`: its
+        # A pipelined step runs eagerly on NCCL too (`training.graphs`: its
         # handoffs are not captured).
-        self.reduces_over_ranks = max(self.pipe, self.tp, self.sp, ep) > 1
         self.eager_only = self.pipe > 1
+        # Where this rank's tokens sit in the global batch (the sequential
+        # MoE path groups the global batch; the `Trainer` sets it).
+        self.token_shards = TokenShards.of(mesh)
         d, L, e = d_model, n_layers, n_experts
         shapes = {"ln1": (L, d), "qkv": (L, d, 3 * d),
                   "attn_out": (L, d, d), "ln2": (L, d)}
@@ -271,6 +275,14 @@ class PipelinedLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def reduces_over_ranks(self) -> bool:
+        """The forward's collectives (Megatron's f and g, the ring, the
+        expert sums, the handoffs, the routing over the token shards): a
+        step under gloo with them runs eagerly (`training.graphs`)."""
+        return (max(self.pipe, self.tp, self.sp, self.ep) > 1
+                or (self.mlp == "moe" and self.token_shards.count > 1))
 
     @property
     def model_group(self):
@@ -337,18 +349,13 @@ class PipelinedLM(nn.Module):
         stacks = [getattr(self, n) for n in self.stacks]
         moe = self.mlp == "moe"
         if self.pipe == 1:
-            if moe and self.mesh is not None:
-                # The sequential path groups this rank's tokens; JAX's
-                # (GSPMD over the global batch) groups every shard's.
-                check_grouping("PipelinedLM(mlp='moe') without a pipe axis",
-                               b * t, self.mesh.data_shards, self.sp,
-                               self.moe_group_size)
             res, n_micro = self._stage(stacks, x, extra), 1
         else:
             res, n_micro = self._pipelined(stacks, x, extra)
         x, aux = res if moe else (res, None)
         if moe:
-            aux = {k: self._mesh_mean(v) for k, v in aux.items()}
+            if self.pipe > 1:  # a microbatch's groups were this rank's
+                aux = {k: self._mesh_mean(v) for k, v in aux.items()}
             aux_loss = aux["aux"] / n_micro
             # The kept-slot fraction counts one-hots: it takes no gradient.
             fill = aux["fill"].detach() / (self.n_layers * n_micro)
@@ -474,60 +481,35 @@ class PipelinedLM(nn.Module):
                                            group)
 
     def _moe_mlp(self, x, p):
-        """JAX's ``_moe_mlp`` over one layer's expert stacks: the f32
-        router and top-k (renormalised for k > 1), the load-balance loss
-        from the top-1 one-hot, cumsum slotting at capacity ``max(1,
-        int(k·s/E·cf))``, then this rank's experts (this model rank's part
-        of their hidden dim) between entering and leaving the ``expert``
-        and ``model`` groups. Returns ``(mixed, {"aux", "fill"})``."""
+        """JAX's ``_moe_mlp`` over one layer's expert stacks
+        (`models.moe.route_tokens`: the f32 router and top-k, renormalised
+        for k > 1, the load-balance loss from the top-1 one-hot, cumsum
+        slotting at capacity ``max(1, int(k·s/E·cf))``), this rank's
+        experts (this model rank's part of their hidden dim) between
+        entering and leaving the ``expert`` and ``model`` groups. Without
+        a pipe axis the groups are the global batch's, and the aux values
+        global. Returns ``(mixed, {"aux", "fill"})``."""
         mb, t, d = x.shape
-        e, k = self.n_experts, self.moe_k
-        g = mb * t
-        n = dispatch_group_count(g, self.moe_group_size)
-        s = g // n
-        capacity = max(1, int(k * s / e * self.capacity_factor))
+        shards = self.token_shards if self.pipe == 1 else TokenShards()
+        tokens = x.reshape(mb * t, d)
+        probs = torch.softmax(tokens.float() @ p["router"].float(), dim=-1)
         cd = self.compute_dtype
-        tokens = x.reshape(n, s, d)
 
-        # --- routing (f32, alike on every expert and model rank) ---------
-        logits = tokens.float() @ p["router"].float()
-        probs = torch.softmax(logits, dim=-1)  # [n, S, E]
-        top_probs, top_idx = torch.topk(probs, k, dim=-1)
-        if k > 1:
-            top_probs = top_probs / (top_probs.sum(-1, keepdim=True) + 1e-9)
-        frac = _one_hot(top_idx[..., 0], e).mean(1)
-        aux = (e * torch.sum(frac * probs.mean(1), dim=-1)).mean()
+        def experts(expert_in):
+            h = F.gelu(torch.einsum("necd,edh->nech", expert_in,
+                                    p["moe_up"].to(cd)), approximate="tanh")
+            return torch.einsum("nech,ehd->necd", h, p["moe_down"].to(cd))
 
-        # --- dispatch plan (cumsum slotting; overflow past capacity drops)
-        choice = _one_hot(top_idx, e).movedim(-2, 1)  # [n, k, S, E]
-        flat = choice.reshape(n, k * s, e)
-        pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(n, k, s, e)
-        in_cap = (pos >= 0) & (pos < capacity)
-        slot = pos.clamp(0, capacity - 1).long()
-        slot_oh = _one_hot(slot, capacity) * in_cap[..., None]
-        fill = torch.sum(slot_oh) / float(n * k * s)
-
-        # --- this rank's experts, between entering and leaving the groups
-        per = e // self.ep
+        per = self.n_experts // self.ep
         lo = per * (self.mesh.coords[EXPERT_AXIS] if self.ep > 1 else 0)
-        local = slot_oh[:, :, :, lo:lo + per]
         groups = (self._group(EXPERT_AXIS) if self.ep > 1
                   else collectives.SELF, self.model_group)
-        gates, tokens_in = top_probs.float(), tokens
-        for grp in groups:
-            gates = collectives.enter_group(gates, grp)
-            tokens_in = collectives.enter_group(tokens_in, grp)
-        combine = torch.einsum("nksec,nsk->nsec", local, gates)
-        dispatch = local.sum(1)  # [n, S, E_local, C]
-        expert_in = torch.einsum("nsec,nsd->necd", dispatch.to(cd),
-                                 tokens_in.to(cd))
-        h = F.gelu(torch.einsum("necd,edh->nech", expert_in,
-                                p["moe_up"].to(cd)), approximate="tanh")
-        out = torch.einsum("nech,ehd->necd", h, p["moe_down"].to(cd))
-        mixed = torch.einsum("nsec,necd->nsd", combine.to(cd), out)
-        for grp in groups:
-            mixed = collectives.leave_group(mixed, grp)
-        return mixed.reshape(mb, t, d).to(x.dtype), {"aux": aux, "fill": fill}
+        mixed, stats = route_tokens(
+            tokens, probs, shards.plan(mb, t, self.moe_group_size), shards,
+            experts, k=self.moe_k, capacity_factor=self.capacity_factor,
+            router="top_k", expert_range=(lo, lo + per), groups=groups,
+            compute_dtype=cd)
+        return mixed.reshape(mb, t, d).to(x.dtype), stats
 
 
 def _stack_specs(tp: bool) -> dict:

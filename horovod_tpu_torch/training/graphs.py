@@ -77,8 +77,8 @@ def forward_communicates_over_host(module) -> bool:
     """Whether a train-mode forward of ``module`` makes collective calls
     that go through host memory: a layer that reduces over the ranks (a
     global-batch `models.resnet.BatchNorm`, an MoE layer on a live expert
-    axis; ``reduces_over_ranks``) in a world of more than one rank under
-    gloo. Its all-reduces sit inside the
+    axis or over several token shards; ``reduces_over_ranks``) in a world
+    of more than one rank under gloo. Its all-reduces sit inside the
     forward and the backward, where no graph split can leave them out, so
     such a step runs eagerly; under NCCL they are captured with it."""
     return (runtime.size() > 1 and runtime.backend() == "gloo"

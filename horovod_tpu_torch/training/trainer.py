@@ -91,6 +91,7 @@ import torch
 from horovod_tpu_torch import runtime
 from horovod_tpu_torch.analysis import registry
 from horovod_tpu_torch.data import stream
+from horovod_tpu_torch.models.moe import TokenShards
 from horovod_tpu_torch.models.transformer import (
     _full_shapes, live_placements,
 )
@@ -278,6 +279,15 @@ class Trainer:
                 else runtime.rank())
 
     @property
+    def token_shards(self) -> TokenShards:
+        """Where this rank's batch shard sits in the global batch (the
+        world's ranks without a mesh), for the layers that group tokens
+        across shards (`models.moe.grouping_plan`)."""
+        if self.mesh is not None:
+            return TokenShards.of(self.mesh)
+        return TokenShards(data_shards=self.dp, data_index=self.data_index)
+
+    @property
     def batch_group(self):
         """The ranks that share this one's parameters and differ in batch
         shard: None (the world) on a pure-data mesh."""
@@ -422,8 +432,8 @@ class Trainer:
                             "build the model with sharding="
                             "ShardingConfig(mesh=...)")
         for m in self.module.modules():
-            if hasattr(m, "data_shards"):
-                m.data_shards = self.dp
+            if isinstance(getattr(m, "token_shards", None), TokenShards):
+                m.token_shards = self.token_shards
         if self.placements:
             named = [(n, p) for n, p in self.module.named_parameters()
                      if n in self.placements]
@@ -650,24 +660,33 @@ class Trainer:
 
     def predict(self, x, batch_size: int = 128) -> np.ndarray:
         """Class probabilities (softmax of the logits) as a numpy array —
-        the full ``[N, T, ...]`` on every rank of a ``seq`` group. ``x``
-        may be a dict or tuple of arrays; the last batch is padded to
-        ``batch_size`` rows by repeating its last row (JAX's `slice_pad`)
-        and the padding dropped."""
+        the full ``[N, T, ...]`` on every rank. ``x`` may be a dict or
+        tuple of arrays. As in JAX, each call covers a global batch of
+        ``batch_size`` rows a batch shard (the last padded by repeating
+        its last row, the padding dropped): shard r runs rows ``[r ·
+        batch_size, (r + 1) · batch_size)`` of it (and on a live ``seq``
+        axis its columns), and the probabilities are gathered."""
         if self.state is None:
             raise RuntimeError("call fit() or build() first")
         if isinstance(x, list):
             x = np.asarray(x)
         out = []
+        global_batch = batch_size * self.dp
+        lo = self.data_index * batch_size
         with torch.inference_mode():
             for start in range(0, len(collectives.first_leaf(x)),
-                               batch_size):
-                xb, bs = feeding.slice_pad(x, start, batch_size)
+                               global_batch):
+                xb, bs = feeding.slice_pad(x, start, global_batch)
+                xb = collectives.tree_map(lambda a: a[lo:lo + batch_size],
+                                          xb)
                 logits = self.module(self._tensor(self.cut(xb, 0)),
                                      train=False)
                 if self._seq_sharded(xb, 0):
                     logits = collectives.all_gather_tiled(
                         logits, self.seq_group, 1)
-                out.append(torch.softmax(logits.float(),
-                                         dim=-1)[:bs].cpu().numpy())
+                probs = torch.softmax(logits.float(), dim=-1)
+                if self.dp > 1:
+                    probs = collectives.all_gather_tensor(
+                        probs.contiguous(), self.batch_group).flatten(0, 1)
+                out.append(probs[:bs].cpu().numpy())
         return np.concatenate(out, axis=0)

@@ -22,7 +22,9 @@ global groups of 1024):
 * a checkpoint at ``expert=2`` (AdamW): the file holds the full experts
   and their optimizer state, restores at one rank (in this process) and
   round-trips at two;
-* the misaligned-grouping refusal at ``data=2``.
+* at ``data=2``, shards of 1536 tokens whose JAX groups of 1024 straddle
+  them: the per-token loss, the aux loss and the drop rate against the
+  one-rank model on the global batch.
 
 JAX's three refusals of ``param_specs`` run in-process.
 
@@ -187,14 +189,17 @@ if os.environ.get("CKPT"):
     res["restored_equal"] = all(torch.equal(p, before[n])
                                 for n, p in fresh.named_parameters())
 
-# -- the grouping refusal -----------------------------------------------------
+# -- groups across the data shards ---------------------------------------------
 if dp > 1:
-    odd = torch.zeros((3, 512), dtype=torch.long)  # 1536 tokens a shard
-    try:
-        ttr.TransformerLM(**cfg, sharding=shard, device="cpu")(odd)
-        res["refused"] = ""
-    except ValueError as e:
-        res["refused"] = str(e)
+    # 1536 tokens a shard: JAX's three groups of 1024, the middle one
+    # across the shards.
+    odd = torch.from_numpy(data["odd"][3 * di:3 * di + 3])
+    model = ttr.TransformerLM(**cfg, sharding=shard, device="cpu", seed=6)
+    loss, _ = model(odd, labels=torch.roll(odd, -1, 1), train=True,
+                    dropout_seed=0)
+    res["odd_loss"] = loss.detach().numpy()
+    res["odd_aux"] = float(model.sown_losses()[0].detach())
+    res["odd_drop"] = float(model.sown_metrics()["moe_drop_rate"])
 
 np.savez(os.path.join(out, f"rank{r}.npz"), **res)
 '''
@@ -225,9 +230,10 @@ def _data(tmp, dp):
     x = rng.randint(0, CFG["vocab_size"], (STEPS, dp * B_SHARD, T))
     y = np.roll(x, -1, axis=2)
     h = rng.randn(dp * B_SHARD, T, D).astype(np.float32)
+    odd = rng.randint(0, CFG["vocab_size"], (3 * dp, 512)).astype(np.int64)
     np.savez(tmp / "data.npz", x=x.astype(np.int32), y=y.astype(np.int32),
-             h=h)
-    return x.astype(np.int32), y.astype(np.int32), h
+             h=h, odd=odd)
+    return x.astype(np.int32), y.astype(np.int32), h, odd
 
 
 WORLDS = {"data1_expert2": (2, "data=1,expert=2", True),
@@ -287,7 +293,7 @@ def _flax_layer_params(layer):
 
 
 def test_layer_matches_jax_and_one_rank(world):
-    _, _, h = world["data"]
+    _, _, h, _ = world["data"]
     dp = world["dp"]
     one = tmoe.MoEMlp(D, seed=5, **LAYER)
     xin = torch.from_numpy(h).requires_grad_()
@@ -321,7 +327,7 @@ def test_layer_matches_jax_and_one_rank(world):
 
 
 def test_lm_loss_and_grads_match_one_rank(world):
-    x, y, _ = world["data"]
+    x, y, _, _ = world["data"]
     dp = world["dp"]
     tm = ttr.TransformerLM(**CFG, device="cpu", seed=1)
     loss, _ = tm(torch.from_numpy(x[0]), labels=torch.from_numpy(y[0]),
@@ -344,7 +350,7 @@ def test_lm_loss_and_grads_match_one_rank(world):
 
 
 def test_fit_equals_one_rank_fit(world):
-    x, y, _ = world["data"]
+    x, y, _, _ = world["data"]
     tm = ttr.TransformerLM(**CFG, device="cpu", seed=2)
     trainer = ht.Trainer(tm, ht.DistributedOptimizer(
         lambda p: torch.optim.SGD(p, lr=LR)), loss="module", device="cpu")
@@ -397,8 +403,24 @@ def test_checkpoint_restores_at_one_rank(worlds):
 
 
 def test_misaligned_grouping_refused(worlds):
-    for res in worlds("data2_expert2")["ranks"]:
-        assert "item 12.5" in str(res["refused"]), res["refused"]
+    """A data shard of 1536 tokens, whose JAX groups of 1024 straddle the
+    shards, now groups as JAX does: each shard's per-token loss, and the
+    global aux loss and drop rate on every rank, equal the one-rank
+    model's on the global batch."""
+    world = worlds("data2_expert2")
+    odd = world["data"][3]
+    one = ttr.TransformerLM(**CFG, device="cpu", seed=6)
+    x = torch.from_numpy(odd)
+    loss, _ = one(x, labels=torch.roll(x, -1, 1), train=True,
+                  dropout_seed=0)
+    b = odd.shape[0] // world["dp"]
+    for res in world["ranks"]:
+        di = int(res["coords"][0])
+        _rel_close(res["odd_loss"], loss.detach().numpy()[di * b:(di + 1) * b],
+                   "loss")
+        _rel_close(res["odd_aux"], float(one.sown_losses()[0]), "aux")
+        assert float(res["odd_drop"]) == pytest.approx(
+            float(one.sown_metrics()["moe_drop_rate"]), abs=1e-6)
 
 
 @pytest.mark.parametrize("kw", [

@@ -18,9 +18,11 @@ launch:
   JAX script decodes no pipelined model);
 * ``MOE_EVERY=2 N_EXPERTS=4`` on ``data=1,expert=2,model=2`` (the MoE
   blocks' experts over ``expert``, their hidden features over ``model``)
-  learns and reports like the others, and its first step's loss equals
-  JAX's MoE `TransformerLM` on the batch the twin fed, from the same
-  weights, within 1e-5 relative (f32 on both sides).
+  and on ``data=1,seq=2,expert=2`` (each rank a column block of every row,
+  the dispatch groups across the blocks) learn and report like the
+  others, and their first step's loss equals JAX's MoE `TransformerLM` on
+  the batch the twin fed, from the same weights, within 1e-5 relative
+  (f32 on both sides).
 
 In process: `data.datasets.copy_task` is
 byte-equal to the JAX package's for the script's seeds 0 and 99 at its
@@ -52,7 +54,9 @@ RUNS = {"seq_model": {"HVT_MESH": "data=1,seq=2,model=2"},
         "pipe_seq": {"HVT_MESH": "data=1,pipe=2,seq=2", "SCHEDULE": "1f1b"},
         "moe_model": {"HVT_MESH": "data=1,expert=2,model=2",
                       "MOE_EVERY": "2", "N_EXPERTS": "4",
-                      "FIRST_BATCH": "1"}}
+                      "FIRST_BATCH": "1"},
+        "moe_seq": {"HVT_MESH": "data=1,seq=2,expert=2",
+                    "MOE_EVERY": "2", "N_EXPERTS": "4", "FIRST_BATCH": "1"}}
 # The runs on the pipelined model, which JAX's script does not decode.
 PIPELINED = ("pipe_model", "pipe_seq")
 
@@ -165,11 +169,10 @@ def test_report_lines_printed_by_rank_0(run):
         assert f"[rank 1] {line}" not in out, line
 
 
-def test_moe_on_a_model_axis_matches_jax(run):
-    """``MOE_EVERY=2`` at ``expert=2, model=2``: the first step's loss
-    (every rank of the one data shard holds the whole batch; the objective
-    with the sown load-balance loss, as both trainers log it) equals JAX's
-    MoE model on the batch the twin fed, from the twin's seed-0 weights."""
+def _first_loss_matches_jax(run, name):
+    """Run ``name``'s first step's loss (the objective with the sown
+    load-balance loss, as both trainers log it) against JAX's MoE model on
+    the batch the twin fed, from the twin's seed-0 weights."""
     import jax.numpy as jnp
     from horovod_tpu.models import transformer as jtr
     from horovod_tpu_torch.models import transformer as ttr
@@ -181,15 +184,28 @@ def test_moe_on_a_model_axis_matches_jax(run):
     tm = ttr.TransformerLM(**cfg, device="cpu")  # the twin's weights
     params = params_to_flax(tm.state_dict(), n_heads=cfg["n_heads"])
     for res in run["ranks"]:
-        x, y = res["moe_model.first_x"], res["moe_model.first_y"]
+        x, y = res[name + ".first_x"], res[name + ".first_y"]
         logits, sown = jtr.TransformerLM(**cfg).apply(
             {"params": params}, jnp.asarray(x), train=True,
             mutable=["losses"], rngs={"dropout": jax.random.PRNGKey(0)})
         logp = np.asarray(jax.nn.log_softmax(logits, -1))
         want = float(-np.take_along_axis(logp, y[..., None], -1).mean())
         want += sum(float(v) for v in jax.tree.leaves(sown["losses"]))
-        got = float(res["moe_model.first_loss"])
+        got = float(res[name + ".first_loss"])
         assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+
+
+def test_moe_on_a_model_axis_matches_jax(run):
+    """``MOE_EVERY=2`` at ``expert=2, model=2``: every rank of the one
+    data shard holds the whole batch."""
+    _first_loss_matches_jax(run, "moe_model")
+
+
+def test_moe_on_a_seq_axis_matches_jax(run):
+    """``MOE_EVERY=2`` at ``seq=2, expert=2``: each rank holds a column
+    block of every row, and the dispatch group of the batch's 512 tokens
+    spans both blocks, as in JAX's global grouping."""
+    _first_loss_matches_jax(run, "moe_seq")
 
 
 @pytest.mark.parametrize("n,seed", [(4096, 0), (64, 99)])

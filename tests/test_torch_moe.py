@@ -2,7 +2,9 @@
 (`horovod_tpu.models.moe`), unsharded, in f32 on the CPU, from the same
 flax-initialised parameters and the same inputs (numpy seeds): k = 1 and
 k = 2, expert choice, a binding capacity (drops), grouped dispatch
-(more tokens than ``group_size``). JAX's MoE tests are all ``slow``, so
+(more tokens than ``group_size``), and at two data shards (a launch of
+two gloo ranks) groups that span, match and straddle the shards against
+JAX's layer on the global batch. JAX's MoE tests are all ``slow``, so
 these are the tier-1 guard of the layer.
 
 Tolerances: outputs 1e-5 abs; the gradients of the input and of every
@@ -11,6 +13,12 @@ each (f32, the same einsums contracted in other orders); the sown aux loss,
 ``moe_drop_rate`` and ``moe_uncovered_rate`` 1e-6 abs (the rates are
 counts over a power-of-two denominator, exact on both sides).
 """
+
+import json
+import os
+import signal
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -191,15 +199,100 @@ def test_expert_shards_are_slices_of_the_full_draw():
         assert torch.equal(part.router.weight, full.router.weight)
 
 
-def test_grouping_across_data_shards_is_refused():
-    """A data shard whose tokens are not a multiple of JAX's global group
-    length raises, naming the ROADMAP entry; an aligned one runs."""
-    layer = tmoe.MoEMlp(D, n_experts=E)
-    layer.data_shards = 2
-    with pytest.raises(ValueError, match="item 12.5"):
-        layer(torch.zeros(2, 16, D))  # 32 tokens; JAX groups all 64
-    layer.check_grouping(1024)  # 2048 global → groups of 1024: aligned
-    layer.check_grouping(600)  # 1200 global → groups of 600: aligned
-    with pytest.raises(ValueError, match="across data"):
-        layer.check_grouping(1536)  # 3072 global → groups of 1024
-    layer(torch.zeros(1, 16, D), whole_batch=True)  # a decode batch
+# Two data shards (a launch of two gloo ranks, the layer's token shards set
+# by hand as the Trainer sets them): the shapes the layer used to refuse or
+# accept, by rows and tokens a shard — 32 tokens a shard (JAX groups all
+# 64 as one), 1024 and 600 (aligned with JAX's groups) and 1536 (groups of
+# 1024, the middle one across the shards).
+SHARD_CASES = {"one_group": (2, 16), "aligned_1024": (1, 1024),
+               "aligned_600": (2, 300), "straddle_1536": (1, 1536)}
+SHARD_CHILD = r"""
+import json, os
+import numpy as np
+import torch
+import horovod_tpu_torch as ht
+from horovod_tpu_torch.models import moe as tmoe
+from horovod_tpu_torch.parallel import collectives as c
+
+ht.init(device="cpu")
+r = ht.rank()
+out = os.environ["OUT"]
+data = np.load(os.path.join(out, "data.npz"))
+res = {}
+for name, (b, t) in json.loads(os.environ["CASES"]).items():
+    layer = tmoe.MoEMlp(int(os.environ["D"]), n_experts=int(os.environ["E"]),
+                        seed=3)
+    layer.token_shards = tmoe.TokenShards(data_shards=2, data_index=r)
+    x = torch.from_numpy(data[name][r * b:(r + 1) * b]).requires_grad_()
+    y = layer(x, train=True)
+    aux = layer.sown["losses"]["moe_load_balance"]
+    ((y ** 2).sum() + aux / 2).backward()
+    res[name + ".out"], res[name + ".gx"] = y.detach().numpy(), x.grad.numpy()
+    res[name + ".aux"] = float(aux.detach())
+    res[name + ".drop"] = float(layer.sown["metrics"]["moe_drop_rate"])
+    for n, p in layer.named_parameters():
+        res[f"{name}.g.{n}"] = c.all_reduce_sum(p.grad).numpy()
+    with torch.no_grad():  # a decode batch is whole: its groups its own
+        res[name + ".decode"] = layer(x[:1], whole_batch=True).numpy()
+np.savez(os.path.join(out, f"rank{r}.npz"), **res)
+"""
+
+
+@pytest.fixture(scope="module")
+def two_shards(tmp_path_factory):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tmp = tmp_path_factory.mktemp("moe_two_shards")
+    rng = np.random.RandomState(12)
+    data = {name: rng.randn(2 * b, t, D).astype(np.float32)
+            for name, (b, t) in SHARD_CASES.items()}
+    np.savez(tmp / "data.npz", **data)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.launch", "run",
+           "--nprocs", "2", "--", sys.executable, "-c", SHARD_CHILD]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo,
+               OUT=str(tmp), CASES=json.dumps(SHARD_CASES), D=str(D),
+               E=str(E))
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        pytest.fail(f"launch timed out:\n{out}")
+    assert proc.returncode == 0, out
+    return data, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_grouping_across_data_shards_is_refused(two_shards):
+    """No longer refused: at two data shards the layer groups as JAX's
+    layer groups the global batch — one group across both shards, groups
+    aligned with the shards, and groups straddling them — so each shard's
+    output and input gradient are its rows of JAX's, and the parameters'
+    gradients (summed over the shards, each shard's objective its tokens'
+    share and the aux loss over the two shards), the aux loss and the
+    drop rate are JAX's on every shard. A decode batch (``whole_batch``)
+    groups its own tokens, as the one-rank layer does."""
+    data, ranks = two_shards
+    one = tmoe.MoEMlp(D, n_experts=E, seed=3)
+    params = {"router": {"kernel": one.router.weight.detach().numpy().T},
+              "moe_up": one.moe_up.detach().numpy(),
+              "moe_down": one.moe_down.detach().numpy()}
+    jm = jmoe.MoEMlp(D, n_experts=E)
+    for name, (b, _) in SHARD_CASES.items():
+        jo, jgx, jg, jmet, jl = _flax_run(jm, params, data[name])
+        for r, res in enumerate(ranks):
+            rows = slice(r * b, (r + 1) * b)
+            np.testing.assert_allclose(res[name + ".out"], jo[rows],
+                                       atol=OUT_TOL, rtol=0, err_msg=name)
+            _rel_close(res[name + ".gx"], jgx[rows], name + " input")
+            for n in jg:
+                _rel_close(res[f"{name}.g.{n}"], jg[n], f"{name} {n}")
+            assert float(res[name + ".aux"]) == pytest.approx(
+                jl["moe_load_balance"], abs=METRIC_TOL), name
+            assert float(res[name + ".drop"]) == pytest.approx(
+                jmet["moe_drop_rate"], abs=METRIC_TOL), name
+            with torch.no_grad():
+                want = one(torch.from_numpy(data[name][rows][:1]))
+            np.testing.assert_allclose(res[name + ".decode"], want.numpy(),
+                                       atol=OUT_TOL, rtol=0, err_msg=name)

@@ -21,10 +21,19 @@ numpy weights — 4 layers, d 32, 4 heads, vocab 32, f32 on both sides:
 * a live ``seq`` axis (``data=2,pipe=2,seq=2`` and ``data=4,seq=2``):
   every rank's model holds JAX's device shards under its
   ``pipelined_lm.param_specs`` on the conftest's 8 virtual devices;
-* the sequential path's MoE grouping: refused naming ROADMAP item 12.5
-  where JAX's GSPMD groups would span shards, run where a group is a row;
+* the sequential path's MoE grouping on ``data=4,seq=2`` and ``data=8``
+  (one launch of eight gloo ranks): groups across the sequence shards,
+  across the data shards and of one row each — logits, the aux loss, the
+  drop rate and every gradient against JAX's sequential model on the
+  global batch;
 * the pipelined step eager on every backend.
 """
+
+import json
+import os
+import signal
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -294,27 +303,126 @@ def test_a_live_seq_axis_holds_jax_device_shards(spec):
                                           err_msg=f"{spec} {r} {name}")
 
 
-@pytest.mark.parametrize("spec,group,refused", [
-    ("data=4,seq=2", T, "across shards"),
-    ("data=8", 4 * T, "across data"),
-    ("data=8", T, None)])
-def test_sequential_moe_grouping_across_shards(spec, group, refused):
-    """Without a pipe axis the MoE model groups this rank's tokens; JAX's
-    sequential model (GSPMD) groups the global batch's. Where the two
-    would differ the port raises naming ROADMAP item 12.5 before any
-    collective; where a group is one row they agree, and the forward goes
-    on to the mesh's collectives (which a layout mesh does not have)."""
-    model = tpl.PipelinedLM(**CFG, mlp="moe", n_experts=4,
-                            moe_group_size=group, mesh=_layout(spec),
-                            device="cpu")
-    x = torch.zeros((1, T), dtype=torch.int32)
-    if refused is None:
-        with pytest.raises(RuntimeError, match="it is a layout"):
-            model(x)
-        return
-    with pytest.raises(ValueError, match=rf"item 12\.5, MoE grouping "
-                                         rf"{refused}"):
-        model(x)
+# The sequential path's MoE grouping across shards: one launch of eight
+# gloo ranks runs each (mesh, group length) below on its rank's block of a
+# global batch of one row a data shard.
+GROUPING = [("data=4,seq=2", T, "across shards"),
+            ("data=8", 4 * T, "across data"),
+            ("data=8", T, None)]
+GROUPING_CHILD = r"""
+import json, os
+import numpy as np
+import torch
+import horovod_tpu_torch as ht
+from horovod_tpu_torch.models import pipelined_lm as tpl
+from horovod_tpu_torch.models.convert import gather_state_dict
+from horovod_tpu_torch.parallel import collectives as c
+from horovod_tpu_torch.parallel import mesh as tmesh
+
+ht.init(device="cpu")
+r = ht.rank()
+out = os.environ["OUT"]
+cfg = json.loads(os.environ["CFG"])
+res = {}
+for spec, group, _ in json.loads(os.environ["CASES"]):
+    key = f"{spec}.{group}"
+    mesh = tmesh.build_mesh(tmesh.MeshSpec.from_string(spec))
+    x = np.load(os.path.join(out, "data.npz"))[spec]
+    t = x.shape[1] // mesh.seq_shards
+    ci, di = mesh.seq_index, mesh.data_index
+    x, y = (torch.from_numpy(np.ascontiguousarray(
+        a[di:di + 1, ci * t:(ci + 1) * t])) for a in (x, np.roll(x, -1, 1)))
+    model = tpl.PipelinedLM(**cfg, mlp="moe", n_experts=4, moe_group_size=group,
+                            mesh=mesh, device="cpu", seed=5)
+    logits = model(x, train=True)
+    ce = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1), reduction="sum")
+    aux = model.sown["losses"]["moe_load_balance"]
+    (ce + aux / mesh.data_shards).backward()
+    res[key + ".logits"] = logits.detach().numpy()
+    res[key + ".aux"] = float(aux.detach())
+    res[key + ".drop"] = float(model.sown["metrics"]["moe_drop_rate"])
+    grads = {n: c.all_reduce_sum(p.grad, mesh.grad_group)
+             for n, p in model.named_parameters()}
+    for n, g in gather_state_dict(grads, mesh, model.cuts).items():
+        res[f"{key}.g.{n}"] = g.numpy()
+np.savez(os.path.join(out, f"rank{r}.npz"), **res)
+"""
+
+
+@pytest.fixture(scope="module")
+def grouping_world(tmp_path_factory):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tmp = tmp_path_factory.mktemp("sequential_moe")
+    rng = np.random.RandomState(11)
+    data = {spec: rng.randint(0, VOCAB, (
+        tmesh.MeshSpec.from_string(spec).resolve(8)["data"], 2 * T
+        if "seq" in spec else T)).astype(np.int64) for spec, _, _ in GROUPING}
+    np.savez(tmp / "data.npz", **data)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.launch", "run",
+           "--nprocs", "8", "--", sys.executable, "-c", GROUPING_CHILD]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo,
+               OUT=str(tmp), CFG=json.dumps(CFG), CASES=json.dumps(GROUPING))
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=150)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        pytest.fail(f"launch timed out:\n{out}")
+    assert proc.returncode == 0, out
+    return data, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(8)]
+
+
+@pytest.mark.parametrize("spec,group,refused", GROUPING)
+def test_sequential_moe_grouping_across_shards(grouping_world, spec, group,
+                                               refused):
+    """Without a pipe axis the MoE model groups the global batch as JAX's
+    sequential model does under GSPMD — groups across the sequence
+    shards, across the data shards, and of one row each — where it used
+    to refuse the first two: each rank's logits are its block of JAX's,
+    the aux loss and drop rate JAX's, and every gradient (summed over the
+    gradient group, each rank's objective its tokens' share of the summed
+    cross-entropy and the aux loss over the data shards) JAX's."""
+    del refused  # the case's name
+    data, ranks = grouping_world
+    x = data[spec]
+    jm = jpl.PipelinedLM(**CFG, mlp="moe", n_experts=4, moe_group_size=group,
+                         mesh=None)
+    tm = tpl.PipelinedLM(**CFG, mlp="moe", n_experts=4, moe_group_size=group,
+                         device="cpu", seed=5)
+    params = pipelined_params_to_flax(tm.state_dict())
+    y = np.roll(x, -1, axis=1)
+
+    def loss(p):
+        logits, var = jm.apply({"params": p}, jnp.asarray(x), train=True,
+                               mutable=["losses", "metrics"])
+        ce = optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.asarray(y)).sum()
+        return ce + var["losses"]["moe_load_balance"][0], (logits, var)
+
+    grads, (logits, var) = jax.grad(loss, has_aux=True)(params)
+    n = tmesh.MeshSpec.from_string(spec).resolve(8)
+    key = f"{spec}.{group}"
+    for r, res in enumerate(ranks):
+        lay = tmesh.build_mesh(tmesh.MeshSpec(**n), n_ranks=8, rank=r)
+        t = x.shape[1] // lay.seq_shards
+        block = np.asarray(logits)[lay.data_index:lay.data_index + 1,
+                                   lay.seq_index * t:(lay.seq_index + 1) * t]
+        np.testing.assert_allclose(res[key + ".logits"], block,
+                                   rtol=LOGITS_TOL, atol=LOGITS_TOL)
+        np.testing.assert_allclose(
+            res[key + ".aux"], float(var["losses"]["moe_load_balance"][0]),
+            rtol=AUX_TOL, atol=AUX_TOL)
+        np.testing.assert_allclose(
+            res[key + ".drop"], float(var["metrics"]["moe_drop_rate"][0]),
+            rtol=AUX_TOL, atol=AUX_TOL)
+        for name, g in grads.items():
+            np.testing.assert_allclose(res[f"{key}.g.{name}"], np.asarray(g),
+                                       rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                       err_msg=f"{key} {name}")
 
 
 def test_the_pipelined_step_runs_eagerly():

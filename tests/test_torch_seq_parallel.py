@@ -21,8 +21,11 @@ its shard (rows ``[4i/dp, 4(i+1)/dp)`` of the 4-row global batch, columns
   batch layout, and with ``cache="device"`` (the streamed path, as JAX);
   ``predict`` whole on every rank; ``generate`` on the seq mesh; distinct
   dropout seeds on every rank;
-* the refusals: JAX's three ``ValueError``s word for word, MoE on a seq
-  mesh naming ROADMAP 12.5, ``cache="device"`` with ``batch_specs`` as
+* MoE on the seq mesh behind the ring and Ulysses: its logits equal
+  JAX's unsharded MoE model's on the global batch (one dispatch group
+  across every shard);
+* the refusals: JAX's three ``ValueError``s word for word,
+  ``cache="device"`` with ``batch_specs`` as
   JAX, accumulation with ``batch_specs`` as JAX (in-process), and every
   layout that leaves a part of two or more dims whole on dim 1 (JAX's
   default among them) on fit, evaluate and predict, naming 12.4.
@@ -189,7 +192,14 @@ res["refuse.dense"] = refusal(forward("dense"))
 res["refuse.ring_dense_segments"] = refusal(forward("ring_dense", True))
 res["refuse.ring_dense_sinks"] = refusal(
     forward("ring_dense", window=12, attention_sinks=4))
-res["refuse.moe"] = refusal(forward("ring", moe_every=2, n_experts=4))
+# MoE on the seq mesh, behind the ring and Ulysses: one dispatch group of
+# the global batch's 128 tokens, across every shard.
+for attn in ("ring", "ulysses"):
+    with torch.no_grad():
+        res[f"moe_{attn}.logits"] = ttr.TransformerLM(
+            **cfg, moe_every=2, n_experts=4, device="cpu",
+            sharding=ttr.ShardingConfig(mesh=mesh, attn=attn))(
+                local(x0)).numpy()
 res["refuse.cache"] = refusal(lambda: trainer.fit(
     x=data["x"][0], y=data["y"][0], batch_size=b, cache="device", verbose=0))
 res["refuse.layout_default"] = refusal(lambda: ht.Trainer(
@@ -462,15 +472,26 @@ def _jax_refusal(attn, packed=False, **kw):
     return str(e.value)
 
 
-def test_refusals_match_jax(world):
+def test_refusals_match_jax(world, refs):
+    """JAX's refusals word for word; MoE on the seq mesh runs behind the
+    ring and Ulysses, its logits JAX's unsharded MoE model's on the global
+    batch (its one dispatch group spans every shard)."""
     sinks = dict(window=12, attention_sinks=4)
     want = {"dense": _jax_refusal("dense"),
             "ring_dense_segments": _jax_refusal("ring_dense", True),
             "ring_dense_sinks": _jax_refusal("ring_dense", **sinks)}
+    moe = dict(moe_every=2, n_experts=4)
+    jm, params = _jax_model(moe, ttr.TransformerLM(
+        **CFG, **moe, device="cpu").state_dict())
+    logits = np.asarray(jm.apply({"params": params},
+                                 jnp.asarray(refs["data"]["x"][0])))
     for res in world["ranks"]:
         for key, msg in want.items():
             assert str(res["refuse." + key]) == msg, key
-        assert "item 12.5" in str(res["refuse.moe"])
+        for attn in ("ring", "ulysses"):
+            _rel_close(res[f"moe_{attn}.logits"],
+                       _shard(logits, res, world["shape"]),
+                       f"MoE logits ({attn}) vs jax")
         assert str(res["refuse.cache"]) == (
             "cache='device' supports data-sharded batches only; use the "
             "streamed fit path with batch_specs meshes")
